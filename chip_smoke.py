@@ -6,28 +6,40 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA GPU must be present; prints its name and power limit.
 2. Build: compiles every histogram kernel from ``mmlspark_tpu_torch/csrc``
-   with ``nvcc`` (one process per source, all started together):
-   ``node_hist``, ``node_hist_int8`` and ``hist_bf16``.
+   with ``nvcc -Xptxas -v`` (one process per source, all started
+   together; the compiler's registers, shared memory and spills are
+   printed): ``node_hist``, ``node_hist_int8`` and ``hist_bf16``. Then the
+   geometry of kernels 1 and 2 at the main path's two passes, and how many
+   of its clusters the card holds at once.
 3. Kernel 1, ``node_hist`` (bf16 stats), against its plain version on the
    card, at the main path's shapes: F=28, n=1,000,000 (full-width root
    pass) and n=500,000 (the half-width smaller-child buffer), W in
-   {1, 8, 16}, B in {255, 63}, bins int32/int16/uint8, some rows at pos -1.
-   The count channel must be bit-equal; grad and hess within rtol 1e-4 /
-   atol 1e-4 of the channel's largest magnitude (float atomics sum in
-   another order). Times: the kernel's wrapper, the plain version, and one
-   ``index_add_`` over the flattened segment id as a library yardstick
-   (timed here only; the port never calls it).
+   {1, 8, 16}, B in {255, 63}, and n=499,999 at W=8, B=255 (rows not a
+   multiple of the 16-byte vector: misaligned feature rows and a ragged
+   tail); bins int32/int16/uint8, some rows at pos -1. The count channel
+   must be bit-equal; grad and hess within rtol 1e-4 / atol 1e-4 of the
+   channel's largest magnitude (float atomics sum in another order).
+   Times, on the device alone (the card spins while the host enqueues the
+   timed calls): the kernel's wrapper (its zero-fill and launch), the
+   plain version, and one ``index_add_`` over the flattened segment id as
+   a library yardstick (timed here only; the port never calls it). At the
+   two main-path rows (int32 bins, B=255: n=1,000,000 W=1 and n=500,000
+   W=8) the wrapper is also timed with L2 cold: a 256 MB buffer is written
+   before each launch, and each launch is timed alone with events.
 3b. Kernel 2, ``node_hist_int8`` (int8 stats, int32 sums), against
-   ``node_hist_plain(acc_dtype=int32)``: F=28, n=1,000,000 at W=1 and
-   n=500,000 at W in {8, 15}, B in {255, 63}, bins int32/uint8, some rows
-   at pos -1. ``torch.equal`` is required (integer sums do not depend on
-   order). Same three times, the yardstick on int32 values.
+   ``node_hist_plain(acc_dtype=int32)``: F=28, n=1,000,000 at W=1,
+   n=500,000 at W in {8, 15} and n=499,999 at W=8, B in {255, 63} (255
+   only at n=499,999), bins int32/uint8, some rows at pos -1.
+   ``torch.equal`` is required (integer sums do not depend on order).
+   Same times as phase 3, cold at the same two rows; the yardstick on
+   int32 values.
 3c. Kernel 3, ``hist_bf16``, through ``histogram_cols`` against
    ``hist_plain``: F=28, n=1,000,000, S in {2, 3}, B in {255, 63}, bf16
    stats, int32 bins; every channel within 1e-4 of its largest magnitude
-   plus 1e-4. Then the path of kernel 3, with its count reset just before
-   and read just after: one call of the row-major ``histogram`` entry
-   point at the tuner's calibration shape (16,384 x 28, S=2).
+   plus 1e-4; the S=2, B=255 row also timed cold. Then the path of kernel
+   3, with its count reset just before and read just after: one call of
+   the row-major ``histogram`` entry point at the tuner's calibration
+   shape (16,384 x 28, S=2).
 4. End to end at full width: ``LightGBMClassifier(...).fit`` on 1,000,000 x
    28 synthetic rows (HIGGS's shape, made from a seed with numpy), maxBin
    255, numLeaves 31, 10 boosting rounds, then ``transform`` on a
@@ -53,8 +65,10 @@ Phases (any failure exits non-zero and prints no result line):
    for quantized fits, leafwise and depthwise (the positional rounding
    uniforms and the exact int32 histograms make the int8 trees agree).
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (each kernel's main-path
+row: launches, warm and cold ms, bound, % of bound, plain and
+``index_add_`` ms), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -94,11 +108,50 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+_L2_FLUSH = None
+# device cycles the card spins per call it is to run before the timed
+# calls: longer than the host takes to enqueue one call (a wrapper call is
+# tens of microseconds of Python), so the events time the device alone
+_SPIN_CYCLES_PER_CALL = 1_000_000
+
+
+def _queue_ahead(calls: int) -> None:
+    """Keep the card busy while the host enqueues ``calls`` calls: without
+    it a call shorter than its own host overhead leaves the card idle
+    between launches, and the events would time the host."""
+    torch.cuda._sleep(calls * _SPIN_CYCLES_PER_CALL)
+
+
+def time_cold_ms(fn, reps: int = 10) -> float:
+    """Mean device ms of ``fn`` with L2 cold: a 256 MB buffer (five times
+    the 50 MB L2) is written before each call, and each call is timed alone
+    between two events."""
+    global _L2_FLUSH
+    if _L2_FLUSH is None:
+        _L2_FLUSH = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for i in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        _queue_ahead(1)
+        _L2_FLUSH.fill_(float(i))
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
 def time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device ms of ``fn`` over ``reps`` back-to-back calls, enqueued
+    while the card is busy (``_queue_ahead``)."""
     for _ in range(warm):
         fn()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    _queue_ahead(reps)
     e0.record()
     for _ in range(reps):
         fn()
@@ -221,39 +274,73 @@ def check_hist(got, want) -> float:
     return float((got - want).abs().max())
 
 
+# the two main-path rows of kernels 1 and 2: the root pass and the
+# half-width smaller-child pass, int32 bins, 255 bins
+MAIN_ROWS = ((1_000_000, 1, 255, "int32"), (500_000, 8, 255, "int32"))
+
+
+def log_geometry():
+    """The geometry of kernels 1 and 2 at the main-path rows, beside the
+    clusters the card holds at once."""
+    dev = torch.cuda.current_device()
+    for kernel in ("node_hist", "node_hist_int8"):
+        for n, W, B, _ in MAIN_ROWS:
+            geo = hist_ops._geometry_on(kernel, dev, n, 28, W, B, 4)
+            held = hist_ops._clusters_held(kernel, dev, 4, geo.smem,
+                                           geo.cluster)
+            blocks = geo.row_blocks * geo.groups * geo.tiles
+            log(f"{kernel} n={n} W={W} B={B}: {geo}; grid {blocks} blocks "
+                f"in clusters of {geo.cluster}; the card holds {held} such "
+                f"clusters ({held * geo.cluster} blocks) at once, "
+                f"{hist_ops._num_sms_of(dev)} SMs")
+
+
+def node_row(call, plain, binned, pos, base, W, B, cold: bool) -> dict:
+    """Times of one kernel shape: the wrapper (warm; cold too where
+    asked), the plain version, the ``index_add_`` yardstick, the bound."""
+    ms = time_ms(call, reps=20)
+    ms_cold = time_cold_ms(call) if cold else None
+    plain_ms = time_ms(plain, reps=3, warm=1)
+    lib = time_ms(library_index_add(binned, pos, base, W, B), reps=5, warm=1)
+    bound, by = node_bound_ms(binned, pos, base, W, B)
+    return dict(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, library_ms=lib,
+                bound_ms=bound, bound_by=by)
+
+
+def log_row(name, key, r, check):
+    cold = "" if r["ms_cold"] is None else f" (L2 cold {r['ms_cold']:.4f})"
+    log(f"{name} n={key[0]} W={key[1]} B={key[2]} {key[3]}: kernel "
+        f"{r['ms']:.4f} ms{cold}  bound {r['bound_ms'] * 1e3:.1f} us "
+        f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%)  plain "
+        f"{r['plain_ms']:.3f} ms  index_add_ {r['library_ms']:.3f} ms  "
+        f"{check}")
+
+
 def phase_kernels():
     log("== phase 3: node_hist kernel vs plain version")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     F = 28
+    shapes = [(n, W, B) for n in (1_000_000, 500_000) for B in (255, 63)
+              for W in (1, 8, 16)] + [(499_999, 8, 255)]
     rows, max_err = {}, 0.0
-    for n in (1_000_000, 500_000):
-        for B in (255, 63):
-            for W in (1, 8, 16):
-                binned32, pos, base = hist_inputs(gen, n, F, W, B)
-                for dt in (torch.int32, torch.int16, torch.uint8):
-                    binned = binned32.to(dt)
-                    want = node_hist_plain(binned, pos, base, W, B)
-                    got = hist_ops.node_histogram(binned, pos, base, W, B)
-                    torch.cuda.synchronize()
-                    err = check_hist(got, want)
-                    max_err = max(max_err, err)
-                    ms = time_ms(lambda: hist_ops.node_histogram(
-                        binned, pos, base, W, B), reps=20)
-                    plain = time_ms(lambda: node_hist_plain(
-                        binned, pos, base, W, B), reps=3, warm=1)
-                    lib = time_ms(library_index_add(binned, pos, base, W, B),
-                                  reps=5, warm=1)
-                    bound, by = node_bound_ms(binned, pos, base, W, B)
-                    key = (n, W, B, str(dt).replace("torch.", ""))
-                    rows[key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                     bound_ms=bound, bound_by=by,
-                                     max_abs_err=err)
-                    log(f"node_hist n={n} W={W} B={B} {key[3]}: "
-                        f"kernel {ms:.4f} ms  bound {bound * 1e3:.1f} us "
-                        f"({by})  plain {plain:.3f} ms  index_add_ "
-                        f"{lib:.3f} ms  max_abs_err {err:.3g}")
-                    del binned, want, got
-                del binned32, pos, base
+    for n, W, B in shapes:
+        binned32, pos, base = hist_inputs(gen, n, F, W, B)
+        for dt in (torch.int32, torch.int16, torch.uint8):
+            binned = binned32.to(dt)
+            want = node_hist_plain(binned, pos, base, W, B)
+            got = hist_ops.node_histogram(binned, pos, base, W, B)
+            torch.cuda.synchronize()
+            err = check_hist(got, want)
+            max_err = max(max_err, err)
+            key = (n, W, B, str(dt).replace("torch.", ""))
+            r = node_row(
+                lambda: hist_ops.node_histogram(binned, pos, base, W, B),
+                lambda: node_hist_plain(binned, pos, base, W, B),
+                binned, pos, base, W, B, cold=key in MAIN_ROWS)
+            rows[key] = dict(r, max_abs_err=err)
+            log_row("node_hist", key, r, f"max_abs_err {err:.3g}")
+            del binned, want, got
+        del binned32, pos, base
     return rows, max_err
 
 
@@ -261,43 +348,36 @@ def phase_int8_kernel():
     log("== phase 3b: node_hist_int8 kernel vs plain version (int32 sums)")
     gen = torch.Generator(device="cuda").manual_seed(4321)
     F = 28
+    shapes = [(n, W, B) for B in (255, 63)
+              for n, W in ((1_000_000, 1), (500_000, 8), (500_000, 15))
+              ] + [(499_999, 8, 255)]
     rows, max_err = {}, 0.0
-    for n, widths in ((1_000_000, (1,)), (500_000, (8, 15))):
-        for B in (255, 63):
-            for W in widths:
-                binned32, pos, base_f = hist_inputs(gen, n, F, W, B)
-                base, _ = hist_ops.quantize_stats(base_f)
-                for dt in (torch.int32, torch.uint8):
-                    binned = binned32.to(dt)
-                    want = node_hist_plain(binned, pos, base, W, B,
-                                           acc_dtype=torch.int32)
-                    got = hist_ops._node_hist_int8_cuda(binned, pos, base,
-                                                        W, B)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, want):
-                        raise AssertionError(
-                            f"node_hist_int8 n={n} W={W} B={B} {dt}: not "
-                            "bit-equal to the plain version")
-                    err = float((got - want).abs().max())
-                    max_err = max(max_err, err)
-                    ms = time_ms(lambda: hist_ops._node_hist_int8_cuda(
-                        binned, pos, base, W, B), reps=20)
-                    plain = time_ms(lambda: node_hist_plain(
-                        binned, pos, base, W, B, acc_dtype=torch.int32),
-                        reps=3, warm=1)
-                    lib = time_ms(library_index_add(binned, pos, base, W, B),
-                                  reps=5, warm=1)
-                    bound, by = node_bound_ms(binned, pos, base, W, B)
-                    key = (n, W, B, str(dt).replace("torch.", ""))
-                    rows[key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                     bound_ms=bound, bound_by=by,
-                                     max_abs_err=err)
-                    log(f"node_hist_int8 n={n} W={W} B={B} {key[3]}: "
-                        f"kernel {ms:.4f} ms  bound {bound * 1e3:.1f} us "
-                        f"({by})  plain {plain:.3f} ms  index_add_ "
-                        f"{lib:.3f} ms  bit-equal")
-                    del binned, want, got
-                del binned32, pos, base, base_f
+    for n, W, B in shapes:
+        binned32, pos, base_f = hist_inputs(gen, n, F, W, B)
+        base, _ = hist_ops.quantize_stats(base_f)
+        for dt in (torch.int32, torch.uint8):
+            binned = binned32.to(dt)
+            want = node_hist_plain(binned, pos, base, W, B,
+                                   acc_dtype=torch.int32)
+            got = hist_ops._node_hist_int8_cuda(binned, pos, base, W, B)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"node_hist_int8 n={n} W={W} B={B} {dt}: not bit-equal "
+                    "to the plain version")
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            key = (n, W, B, str(dt).replace("torch.", ""))
+            r = node_row(
+                lambda: hist_ops._node_hist_int8_cuda(binned, pos, base, W,
+                                                      B),
+                lambda: node_hist_plain(binned, pos, base, W, B,
+                                        acc_dtype=torch.int32),
+                binned, pos, base, W, B, cold=key in MAIN_ROWS)
+            rows[key] = dict(r, max_abs_err=err)
+            log_row("node_hist_int8", key, r, "bit-equal")
+            del binned, want, got
+        del binned32, pos, base, base_f
     return rows, max_err
 
 
@@ -326,11 +406,16 @@ def phase_cols_kernel():
                             warm=1)
             lib = time_ms(library_cols_index_add(binned, stats, B), reps=5,
                           warm=1)
+            ms_cold = (time_cold_ms(lambda: hist_ops.histogram_cols(
+                binned, stats, B)) if (S, B) == (2, 255) else None)
             bound, by = cols_bound_ms(binned, stats, B)
-            rows[(S, B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                bound_ms=bound, bound_by=by, max_abs_err=err)
-            log(f"hist_bf16 n={n} S={S} B={B} int32: kernel {ms:.4f} ms  "
-                f"bound {bound * 1e3:.1f} us ({by})  plain {plain:.3f} ms  "
+            rows[(S, B)] = dict(ms=ms, ms_cold=ms_cold, plain_ms=plain,
+                                library_ms=lib, bound_ms=bound, bound_by=by,
+                                max_abs_err=err)
+            cold = "" if ms_cold is None else f" (L2 cold {ms_cold:.4f})"
+            log(f"hist_bf16 n={n} S={S} B={B} int32: kernel {ms:.4f} ms"
+                f"{cold}  bound {bound * 1e3:.1f} us ({by})  plain "
+                f"{plain:.3f} ms  "
                 f"index_add_ {lib:.3f} ms  max_abs_err {err:.3g}")
             del binned, stats, want, got
 
@@ -504,10 +589,11 @@ def main() -> int:
 
     log("== phase 2: build " + ", ".join(KERNELS))
     t0 = time.perf_counter()
-    libs = _build.build_all(KERNELS)
+    libs = _build.build_all(KERNELS, verbose=True)
     for name in KERNELS:
         _build.load(name)
     log(f"built {libs} in {time.perf_counter() - t0:.2f} s")
+    log_geometry()
 
     rows, max_err = phase_kernels()
     rows8, max_err8 = phase_int8_kernel()
@@ -538,8 +624,10 @@ def main() -> int:
     def entry(name, source, replaces, n_launch, err, r):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launch,
-                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "max_abs_err": err, "ms": r["ms"], "ms_cold": r["ms_cold"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
                 "library_ms": r["library_ms"]}
 
     # each kernel's record carries its most frequent main-path shape: the

@@ -1,9 +1,10 @@
-// Pieces shared by the port's histogram kernels (node_hist.cu,
-// node_hist_int8.cu, hist_bf16.cu): block size, shared-memory limits, bf16
-// rounding, the tiling of one axis over gridDim.z, and the row-chunk
-// geometry. Each kernel source includes this header and is built into its
-// own library; ops/_build.py hashes the headers with every source, so an
-// edit here rebuilds all three.
+// Pieces shared by the port's histogram kernels: shared-memory limits, bf16
+// rounding and the error-string export (all three kernels), and the block
+// size, the tiling of one axis over gridDim.z and the row-chunk geometry
+// (hist_bf16.cu; the node kernels' geometry is node_hist_common.cuh's).
+// Each kernel source includes this header and is built into its own
+// library; ops/_build.py hashes the headers with every source, so an edit
+// here rebuilds all three.
 #pragma once
 
 #include <cuda_bf16.h>

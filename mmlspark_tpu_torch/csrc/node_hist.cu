@@ -1,4 +1,5 @@
-// Per-frontier-node GBDT gradient histograms for Hopper (sm_90a).
+// Per-frontier-node GBDT gradient histograms over bf16-rounded stats, for
+// Hopper (sm_90a).
 //
 // Replaces mmlspark_tpu/ops/histogram.py:_node_hist_pallas (bf16 variant,
 // body _make_node_hist_kernel, inner loop _hist_dot_accumulate /
@@ -6,125 +7,36 @@
 //
 //   out[f, w*3 + s, b] = sum_r [pos_r == w] * bf16(base[s, r]) * [binned[f, r] == b]
 //
-// with f32 accumulation: s in {grad*mask, hess*mask, mask}; rows with
-// pos < 0 contribute nothing. binned is [F, n] (int32, int16 or uint8),
-// pos is [n] int32 in [-1, W), base is [3, n] f32 and out is [F, 3W, B] f32,
-// zero-filled by the caller (the kernel adds into it).
+// with f32 accumulation: s in {grad*mask, hess*mask, mask}; base is [3, n]
+// f32, rounded to bf16 with __float2bfloat16_rn in registers (the rounding
+// every engine of the JAX package applies); out is [F, 3W, B] f32.
 //
-// Design. The TPU kernel turns the bin scatter into a one-hot x MXU
-// contraction because a TPU has no fast scatter. Hopper has fast shared-
-// memory atomics, so this is a scatter: the grid runs over (feature, row
-// chunk, frontier-node tile). Each block keeps a private histogram of its
-// feature for w_tile nodes (w_tile*3*B f32) in dynamic shared memory, walks
-// its row chunk with coalesced loads (neighbouring threads on neighbouring
-// rows), skips rows whose node is not in its tile, rounds grad/hess/count
-// to bf16 with __float2bfloat16_rn and widens them back (the rounding every
-// engine of the JAX package applies), and adds them with shared-memory
-// atomicAdd. At the end it adds its non-zero cells into the global output
-// with atomicAdd. Narrow bins (int16, uint8) are widened in registers; the
-// three bin dtypes are template instances. Bins outside [0, B) are skipped,
-// so a bad id can never write outside the block's histogram. Any n is
-// taken: chunks are masked at the ragged edge.
-//
-// Shared memory. The per-block histogram is w_tile*3*B*4 bytes. w_tile is
-// chosen so it stays within 48 KB (W=16, B=255 is 48,960 bytes: one tile);
-// wider frontiers are tiled over gridDim.z, each tile re-reading the column.
-// A single node of more than 4096 bins needs more than 48 KB; the kernel
-// then raises its dynamic shared-memory limit (up to 227 KB, B <= 19,370);
-// anything larger is refused with cudaErrorInvalidValue, never computed some
-// other way.
-//
-// Bound. The work is memory-bound: a pass must read F*n*sizeof(bin) bytes of
-// bins plus 16*n bytes of pos and stats (at 1M rows x 28 int32 features
-// about 128 MB, about 38 us at 3.35 TB/s), while it does only 3 adds per
-// (row, feature). This design reads each bin byte once; pos and the stats
-// are re-read once per feature, but the blocks of one row chunk run side by
-// side (feature is the fastest grid dimension), so those re-reads mostly hit
-// the 50 MB L2. Float atomics make the grad/hess sums order-dependent (the
-// count channel stays exact: integer counts below 2^24).
-#include "hist_common.cuh"
-
-namespace {
-
-using mm_hist::kSmemMax;
-using mm_hist::kThreads;
-using mm_hist::round_bf16;
-
-template <typename BinT>
-__global__ void __launch_bounds__(kThreads)
-node_hist_kernel(const BinT* __restrict__ binned, const int32_t* __restrict__ pos,
-                 const float* __restrict__ base, float* __restrict__ out, long long n,
-                 int W, int B, int w_tile, long long rows_per_chunk) {
-  extern __shared__ float hist[];  // [wt, 3, B]
-  const int f = blockIdx.x;
-  const int w0 = blockIdx.z * w_tile;
-  const int wt = min(w_tile, W - w0);
-  const int cells = wt * 3 * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
-  __syncthreads();
-
-  const long long r0 = (long long)blockIdx.y * rows_per_chunk;
-  const long long r1 = min(n, r0 + rows_per_chunk);
-  const BinT* col = binned + (long long)f * n;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int p = pos[r] - w0;
-    if ((unsigned)p >= (unsigned)wt) continue;  // pos -1 or another tile's node
-    const int b = (int)col[r];
-    if ((unsigned)b >= (unsigned)B) continue;
-    float* cell = hist + p * 3 * B + b;
-    atomicAdd(cell, round_bf16(base[r]));
-    atomicAdd(cell + B, round_bf16(base[n + r]));
-    atomicAdd(cell + 2 * B, round_bf16(base[2 * n + r]));
-  }
-  __syncthreads();
-
-  // out[f, w0*3 : (w0+wt)*3, :] is one contiguous run of `cells` floats
-  float* dst = out + ((long long)f * 3 * W + (long long)w0 * 3) * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float v = hist[i];
-    if (v != 0.f) atomicAdd(dst + i, v);
-  }
-}
-
-template <typename BinT>
-cudaError_t launch(const void* binned, const void* pos, const void* base, void* out,
-                   long long n, int F, int W, int B, cudaStream_t stream) {
-  const long long per_node = 3LL * B * (long long)sizeof(float);
-  if (n < 0 || F <= 0 || W <= 0 || B <= 0 || per_node > kSmemMax)
-    return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const int w_tile = mm_hist::tile_items(per_node, W);
-  const int smem = (int)(w_tile * per_node);
-  cudaError_t err = mm_hist::allow_smem(node_hist_kernel<BinT>, smem);
-  if (err != cudaSuccess) return err;
-  const int w_tiles = (W + w_tile - 1) / w_tile;
-  long long rows_per_chunk = 0, chunks = 0;
-  err = mm_hist::row_chunks(node_hist_kernel<BinT>, smem, n, (long long)F * w_tiles,
-                            w_tile * 3LL * B, &rows_per_chunk, &chunks);
-  if (err != cudaSuccess) return err;
-
-  dim3 grid((unsigned)F, (unsigned)chunks, (unsigned)w_tiles);
-  node_hist_kernel<BinT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const BinT*>(binned), static_cast<const int32_t*>(pos),
-      static_cast<const float*>(base), static_cast<float*>(out), n, W, B, w_tile,
-      rows_per_chunk);
-  return cudaGetLastError();
-}
-
-}  // namespace
+// The TPU kernel turns the bin scatter into a one-hot x MXU contraction
+// because a TPU has no fast scatter. Hopper has fast shared-memory atomics,
+// so this is a scatter; node_hist_common.cuh holds its design (feature
+// groups, 16-byte loads, cluster-reduced flush) and its bound. Float
+// atomics make the grad/hess sums order-dependent; the count channel stays
+// exact (integer counts below 2^24).
+#include "node_hist_common.cuh"
 
 extern "C" {
 
-// bin_bytes: 4 = int32, 2 = int16, 1 = uint8. Returns a cudaError_t code.
+// bin_bytes: 4 = int32, 2 = int16, 1 = uint8; the geometry is
+// ops/histogram.py:_node_geometry's. Returns a cudaError_t code.
 int mm_node_hist_bf16(const void* binned, int bin_bytes, const void* pos, const void* base,
-                      void* out, long long n, int F, int W, int B, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bin_bytes) {
-    case 4: return (int)launch<int32_t>(binned, pos, base, out, n, F, W, B, s);
-    case 2: return (int)launch<int16_t>(binned, pos, base, out, n, F, W, B, s);
-    case 1: return (int)launch<uint8_t>(binned, pos, base, out, n, F, W, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                      void* out, long long n, int F, int W, int B, int group, int node_tile,
+                      int cluster, int row_blocks, int threads, void* stream) {
+  return (int)mm_node::dispatch<mm_node::Bf16Stats>(
+      binned, bin_bytes, pos, base, out, n, F, W, B, group, node_tile, cluster, row_blocks,
+      threads, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` blocks of `threads` threads and `smem` bytes of
+// shared memory that the card holds at once, into *result.
+int mm_node_hist_bf16_max_clusters(int bin_bytes, int smem, int cluster, int threads,
+                                   int* result) {
+  return (int)mm_node::dispatch_max_clusters<mm_node::Bf16Stats>(bin_bytes, smem, cluster, threads,
+                                                           result);
 }
 
 }  // extern "C"

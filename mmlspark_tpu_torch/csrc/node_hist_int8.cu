@@ -9,118 +9,37 @@
 //   out[f, w*3 + s, b] = sum_r [pos_r == w] * base[s, r] * [binned[f, r] == b]
 //
 // in int32: base is [3, n] int8 (the quantized grad*mask, hess*mask and
-// mask of quantize_stats), pos is [n] int32 in [-1, W) (rows with pos < 0
-// contribute nothing), binned is [F, n] (int32, int16 or uint8) and out is
-// [F, 3W, B] int32, zero-filled by the caller (the kernel adds into it).
-// Dequantization (out * scale[s]) stays with the caller, as in the JAX
-// package (histogram.py:316-318).
+// mask of quantize_stats) and out is [F, 3W, B] int32. Dequantization
+// (out * scale[s]) stays with the caller, as in the JAX package
+// (histogram.py:316-318).
 //
-// Design: the scatter of node_hist.cu with integer arithmetic. The grid
-// runs over (feature, row chunk, frontier-node tile); each block keeps a
-// private w_tile*3*B int32 histogram of its feature in shared memory,
-// walks its row chunk with coalesced loads, sign-extends the three int8
-// stats in registers and adds the non-zero ones with shared-memory
-// atomicAdd(int*); at the end it adds its non-zero cells into the output
-// with global integer atomics. Integer addition does not depend on order,
-// so the result is bit-equal to any other summation (the plain version's
-// index_add_), unlike the bf16 kernel's float atomics. The caller bounds
+// The scatter of node_hist.cu with integer arithmetic, from the same body
+// (node_hist_common.cuh): the int8 stats of V rows are loaded as packed
+// words and sign-extended in registers; zero stats are not added. Integer
+// addition does not depend on order, so the result is bit-equal to any
+// other summation (the plain version's index_add_). The caller bounds
 // every cell: quantize_stats clips to q_max = quant_q_max(n), so
 // q_max * n < 2^31 and no cell can overflow.
-//
-// Shared memory is 3*B*4 bytes per node, as for the bf16 kernel, so its
-// node tiling carries over: w_tile nodes per 48 KB (16 at B=255), wider
-// frontiers tiled over gridDim.z (depthwise growth without subtraction
-// reaches W=31: two tiles at B=255). Bins outside [0, B) are skipped.
-//
-// Bound: memory. A pass must read F*n*sizeof(bin) + 4n (pos) + 3n (stats)
-// bytes and write F*3W*B*4; it does 3 integer adds per (row, feature). At
-// 1M rows x 28 int32 features that is about 119 MB, about 36 us at
-// 3.35 TB/s. Each bin byte is read once; pos and the stats are re-read
-// once per feature, mostly from the 50 MB L2 (feature is the fastest grid
-// dimension, so the blocks of one row chunk run side by side).
-#include "hist_common.cuh"
-
-namespace {
-
-using mm_hist::kSmemMax;
-using mm_hist::kThreads;
-
-template <typename BinT>
-__global__ void __launch_bounds__(kThreads)
-node_hist_int8_kernel(const BinT* __restrict__ binned, const int32_t* __restrict__ pos,
-                      const int8_t* __restrict__ base, int* __restrict__ out, long long n,
-                      int W, int B, int w_tile, long long rows_per_chunk) {
-  extern __shared__ int ihist[];  // [wt, 3, B]
-  const int f = blockIdx.x;
-  const int w0 = blockIdx.z * w_tile;
-  const int wt = min(w_tile, W - w0);
-  const int cells = wt * 3 * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) ihist[i] = 0;
-  __syncthreads();
-
-  const long long r0 = (long long)blockIdx.y * rows_per_chunk;
-  const long long r1 = min(n, r0 + rows_per_chunk);
-  const BinT* col = binned + (long long)f * n;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int p = pos[r] - w0;
-    if ((unsigned)p >= (unsigned)wt) continue;  // pos -1 or another tile's node
-    const int b = (int)col[r];
-    if ((unsigned)b >= (unsigned)B) continue;
-    const int g = base[r], h = base[n + r], c = base[2 * n + r];  // sign-extended
-    int* cell = ihist + p * 3 * B + b;
-    if (g) atomicAdd(cell, g);
-    if (h) atomicAdd(cell + B, h);
-    if (c) atomicAdd(cell + 2 * B, c);
-  }
-  __syncthreads();
-
-  // out[f, w0*3 : (w0+wt)*3, :] is one contiguous run of `cells` ints
-  int* dst = out + ((long long)f * 3 * W + (long long)w0 * 3) * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int v = ihist[i];
-    if (v) atomicAdd(dst + i, v);
-  }
-}
-
-template <typename BinT>
-cudaError_t launch(const void* binned, const void* pos, const void* base, void* out,
-                   long long n, int F, int W, int B, cudaStream_t stream) {
-  const long long per_node = 3LL * B * (long long)sizeof(int);
-  if (n < 0 || F <= 0 || W <= 0 || B <= 0 || per_node > kSmemMax)
-    return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const int w_tile = mm_hist::tile_items(per_node, W);
-  const int smem = (int)(w_tile * per_node);
-  cudaError_t err = mm_hist::allow_smem(node_hist_int8_kernel<BinT>, smem);
-  if (err != cudaSuccess) return err;
-  const int w_tiles = (W + w_tile - 1) / w_tile;
-  long long rows_per_chunk = 0, chunks = 0;
-  err = mm_hist::row_chunks(node_hist_int8_kernel<BinT>, smem, n, (long long)F * w_tiles,
-                            w_tile * 3LL * B, &rows_per_chunk, &chunks);
-  if (err != cudaSuccess) return err;
-
-  dim3 grid((unsigned)F, (unsigned)chunks, (unsigned)w_tiles);
-  node_hist_int8_kernel<BinT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const BinT*>(binned), static_cast<const int32_t*>(pos),
-      static_cast<const int8_t*>(base), static_cast<int*>(out), n, W, B, w_tile,
-      rows_per_chunk);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "node_hist_common.cuh"
 
 extern "C" {
 
-// bin_bytes: 4 = int32, 2 = int16, 1 = uint8. Returns a cudaError_t code.
+// bin_bytes: 4 = int32, 2 = int16, 1 = uint8; the geometry is
+// ops/histogram.py:_node_geometry's. Returns a cudaError_t code.
 int mm_node_hist_int8(const void* binned, int bin_bytes, const void* pos, const void* base,
-                      void* out, long long n, int F, int W, int B, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bin_bytes) {
-    case 4: return (int)launch<int32_t>(binned, pos, base, out, n, F, W, B, s);
-    case 2: return (int)launch<int16_t>(binned, pos, base, out, n, F, W, B, s);
-    case 1: return (int)launch<uint8_t>(binned, pos, base, out, n, F, W, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                      void* out, long long n, int F, int W, int B, int group, int node_tile,
+                      int cluster, int row_blocks, int threads, void* stream) {
+  return (int)mm_node::dispatch<mm_node::Int8Stats>(
+      binned, bin_bytes, pos, base, out, n, F, W, B, group, node_tile, cluster, row_blocks,
+      threads, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` blocks of `threads` threads and `smem` bytes of
+// shared memory that the card holds at once, into *result.
+int mm_node_hist_int8_max_clusters(int bin_bytes, int smem, int cluster, int threads,
+                                   int* result) {
+  return (int)mm_node::dispatch_max_clusters<mm_node::Int8Stats>(bin_bytes, smem, cluster, threads,
+                                                           result);
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@ node stats are ``[3, n]`` and a node histogram is ``out[f, w*3 + s, b]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,8 +35,20 @@ from . import _build
 from .histogram_scatter import hist_plain, node_hist_plain
 
 KERNELS = ("node_hist", "node_hist_int8", "hist_bf16")
+_NODE_ENTRIES = {"node_hist": "mm_node_hist_bf16",
+                 "node_hist_int8": "mm_node_hist_int8"}
 _BIN_BYTES = {torch.int32: 4, torch.int16: 2, torch.uint8: 1}
 _SMEM_MAX = 232448          # the kernels' per-block shared-memory ceiling
+_SM_SMEM = 233472           # shared memory of one Hopper SM (228 KB)
+_BLOCK_RESERVE = 1024       # shared memory the runtime reserves per block
+_NODE_THREADS = 512         # node_hist_common.cuh: kThreads
+_NODE_BLOCKS_PER_SM = 2     # node_hist_common.cuh: kMinBlocks
+# a row's pos and stats load against one histogram cell's clear, cluster
+# sum and flush: fitted to the feature-group sweeps of tools/ab_node_hist.py
+# on an H100 (F=28, B=255), whose fastest groups were 7 features at the
+# root pass (n=1,000,000, W=1), 2 at n=500,000 W=8 and 2 (not 1) at W=15
+# and 16; every cost in (0.46, 0.71) picks those
+_ROW_COST = 0.6
 _M32 = 0xFFFFFFFF
 _STATS_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -174,6 +187,164 @@ node_histogram.launches = 0
 node_histogram.int8_launches = 0
 
 
+class NodeGeometry(NamedTuple):
+    """How kernels 1 and 2 cut one pass (``csrc/node_hist_common.cuh``).
+
+    The grid is ``(row_blocks, groups * tiles)``: block ``(x, y)`` owns
+    features ``[g*group, (g+1)*group)`` and frontier nodes
+    ``[t*node_tile, (t+1)*node_tile)`` (``g, t = divmod(y, tiles)``, the
+    last of each cut short) over row block ``x``, in a ``[group,
+    node_tile, 3, B]`` shared-memory histogram of ``smem`` bytes. Clusters
+    of ``cluster`` consecutive row blocks sum their histograms before the
+    flush into the output."""
+    group: int
+    node_tile: int
+    cluster: int
+    row_blocks: int
+    threads: int
+    smem: int
+    groups: int
+    tiles: int
+
+
+def _node_rows(bin_bytes: int) -> int:
+    """Rows a kernel thread takes at a time (node_hist_common.cuh: kVec):
+    one 16-byte load of int32 or int16 bins, 8 bytes of uint8 bins."""
+    return 8 if bin_bytes == 1 else 16 // bin_bytes
+
+
+def _node_geometry(n: int, F: int, W: int, B: int, bin_bytes: int,
+                   num_sms: int,
+                   clusters_held: Optional[Callable[[int, int], int]] = None,
+                   cluster: Optional[int] = None) -> NodeGeometry:
+    """The geometry of one node-histogram pass over ``[F, n]`` bins of
+    ``bin_bytes`` bytes, ``W`` frontier nodes and ``B`` bins, on a card of
+    ``num_sms`` SMs.
+
+    A block's histogram takes ``12 B`` bytes per (feature, node). Two
+    blocks of ``_NODE_THREADS`` fit on an SM when it stays within half the
+    SM's shared memory; the node tile is then all ``W`` nodes if one
+    feature's nodes fit (else as many as fit, tiles balanced), so the bins
+    are read once per node tile. A node too wide for that takes a whole
+    block's 227 KB, one block per SM.
+
+    The feature group (groups balanced, at most as many features as fit
+    beside the node tile) weighs a block's fixed work, its histogram
+    cells (cleared, summed across the cluster, flushed), against the
+    work that grows with the number of groups, each block loading its
+    rows' pos and stats once per group: it minimizes ``cells +
+    _ROW_COST * rows per block``, with ``rows per block = n * groups *
+    tiles / blocks in a wave`` (the scatter's own work per block does not
+    depend on the group). More features per block pay off at large ``n``
+    and narrow frontiers.
+
+    The grid is one wave: ``clusters_held(smem, c)`` says how many
+    clusters of ``c`` such blocks the card holds at once (the kernel
+    library's ``cudaOccupancyMaxActiveClusters``; by default every SM's
+    blocks, perfectly packed), and the row blocks of each (group, tile)
+    are as many as those clusters give, in whole clusters, but no more
+    than the sweeps of a block's threads over the row vectors, rounded up
+    to whole clusters (an idle block costs nothing; a block left one
+    extra, partial sweep costs a whole sweep's latency), and none walks
+    fewer rows than twice its node tile's bins. A block's threads are then
+    the fewest multiple of 32 that gives every block the same number of
+    sweeps. Clusters are pairs of row blocks (or ``cluster``, forced),
+    single blocks where a wave of pairs would keep less than 95% of the
+    blocks: in the cluster sweeps of ``tools/ab_node_hist.py`` on an H100,
+    pairs beat single blocks by 1-9% and clusters of 4 or 8 by 3-21% at
+    every shape measured."""
+    _check_node_bins(B)
+    if n < 0 or F < 1 or W < 1 or B < 1 or bin_bytes not in (1, 2, 4):
+        raise ValueError(f"bad node-histogram shape n={n} F={F} W={W} "
+                         f"B={B} bin_bytes={bin_bytes}")
+    per_node = 12 * B
+    half_sm = _SM_SMEM // _NODE_BLOCKS_PER_SM - _BLOCK_RESERVE
+    budget = half_sm if per_node <= half_sm else _SMEM_MAX
+    tiles = -(-W // min(W, budget // per_node))
+    node_tile = -(-W // tiles)
+
+    def blocks_in_wave(group: int) -> int:
+        smem = group * node_tile * per_node
+        return num_sms * min(_NODE_BLOCKS_PER_SM,
+                             _SM_SMEM // (smem + _BLOCK_RESERVE))
+
+    def cost(groups: int) -> float:
+        group = -(-F // groups)
+        return (group * node_tile * 3 * B
+                + _ROW_COST * n * groups * tiles / blocks_in_wave(group))
+
+    most_group = min(F, budget // (node_tile * per_node))
+    groups = min(sorted({-(-F // g) for g in range(1, most_group + 1)}),
+                 key=cost)
+    group = -(-F // groups)
+    smem = group * node_tile * per_node
+    slots = blocks_in_wave(group)
+    nv = n // _node_rows(bin_bytes)
+    most = max(1, min(-(-nv // _NODE_THREADS), n // (2 * node_tile * B)))
+
+    def row_blocks(c: int) -> int:
+        held = slots // c if clusters_held is None else clusters_held(smem, c)
+        wave = min(slots, held * c) // (groups * tiles) // c * c
+        return min(wave, -(-most // c) * c)
+
+    sizes = (cluster,) if cluster else (2, 1)
+    fills = {c: row_blocks(c) for c in sizes}
+    if cluster and fills[cluster] < cluster:
+        raise ValueError(f"clusters of {cluster} leave no whole cluster of "
+                         f"row blocks")
+    fullest = max(fills.values())
+    chosen = next((c for c in sizes if fills[c] >= c and
+                   fills[c] * 20 >= fullest * 19), 1)
+    blocks = max(fills[chosen], chosen)
+    return NodeGeometry(group, node_tile, chosen, blocks,
+                        _balanced_threads(nv, blocks), smem, groups, tiles)
+
+
+def _balanced_threads(vectors: int, row_blocks: int) -> int:
+    """The fewest threads per block (a multiple of 32, at most
+    ``_NODE_THREADS``) that give each of ``row_blocks`` blocks the same
+    number of sweeps over ``vectors`` row vectors, one vector per thread
+    per sweep: the fewest sweeps the busiest block can take."""
+    sweeps = max(1, -(-vectors // (row_blocks * _NODE_THREADS)))
+    return max(32, -(-vectors // (row_blocks * sweeps * 32)) * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_index(dev: torch.device) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_held(kernel: str, index: int, bin_bytes: int, smem: int,
+                   cluster: int) -> int:
+    """Clusters of ``cluster`` blocks of ``kernel`` with ``smem`` bytes of
+    shared memory that device ``index`` holds at once."""
+    lib = _build.load(kernel)
+    fn = getattr(lib, _NODE_ENTRIES[kernel] + "_max_clusters")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    held = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        code = fn(bin_bytes, smem, cluster, _NODE_THREADS,
+                  ctypes.byref(held))
+    _build.check(lib, code, f"{kernel} cluster occupancy")
+    return held.value
+
+
+@functools.lru_cache(maxsize=1024)
+def _geometry_on(kernel: str, index: int, n: int, F: int, W: int, B: int,
+                 bin_bytes: int) -> NodeGeometry:
+    """:func:`_node_geometry` on device ``index``, with the clusters its
+    card holds."""
+    return _node_geometry(
+        n, F, W, B, bin_bytes, _num_sms_of(index),
+        lambda smem, c: _clusters_held(kernel, index, bin_bytes, smem, c))
+
+
 def _check_node_args(binned_t, row_pos, base_t, W: int, B: int,
                      base_dtype: torch.dtype) -> None:
     F, n = binned_t.shape
@@ -187,31 +358,39 @@ def _check_node_args(binned_t, row_pos, base_t, W: int, B: int,
     if F < 1 or W < 1 or B < 1:
         raise ValueError(f"node_histogram needs F, W, B >= 1 (got {F}, {W}, "
                          f"{B})")
-    if 3 * B * 4 > _SMEM_MAX:
+    _check_node_bins(B)
+
+
+def _check_node_bins(B: int) -> None:
+    if 12 * B > _SMEM_MAX:
         raise ValueError(f"num_bins={B} needs {12 * B} bytes of shared "
                          f"memory per node; the kernel takes at most "
                          f"{_SMEM_MAX}")
 
 
-def _node_hist_cuda(binned_t, row_pos, base_t, W: int, B: int):
+def _node_hist_cuda(binned_t, row_pos, base_t, W: int, B: int,
+                    geometry: Optional[NodeGeometry] = None):
     """Kernel 1: validate, allocate the zeroed output, launch
-    ``node_hist`` on the current stream."""
+    ``node_hist`` on the current stream with ``geometry`` (by default
+    :func:`_node_geometry`'s)."""
     _check_node_args(binned_t, row_pos, base_t, W, B, torch.float32)
     F, n = binned_t.shape
     out = torch.zeros((F, 3 * W, B), dtype=torch.float32,
                       device=binned_t.device)
-    _launch("node_hist", "mm_node_hist_bf16", _node_args(
-        binned_t, row_pos, base_t, out, W, B), binned_t.device)
+    _launch_node("node_hist", binned_t, row_pos, base_t, out, W, B,
+                 geometry)
     node_histogram.launches += 1
     return out
 
 
-def _node_hist_int8_cuda(binned_t, row_pos, base_t, W: int, B: int):
+def _node_hist_int8_cuda(binned_t, row_pos, base_t, W: int, B: int,
+                         geometry: Optional[NodeGeometry] = None):
     """Kernel 2: validate, allocate the zeroed int32 output, launch
-    ``node_hist_int8`` on the current stream. A cell sums at most ``n``
-    stats of magnitude at most ``quant_q_max(n)`` (``quantize_stats``
-    clips to it), which keeps it below 2^31; at row counts where a full
-    int8 range could overflow, the stats are checked against that bound."""
+    ``node_hist_int8`` on the current stream with ``geometry`` (by default
+    :func:`_node_geometry`'s). A cell sums at most ``n`` stats of magnitude
+    at most ``quant_q_max(n)`` (``quantize_stats`` clips to it), which
+    keeps it below 2^31; at row counts where a full int8 range could
+    overflow, the stats are checked against that bound."""
     _check_node_args(binned_t, row_pos, base_t, W, B, torch.int8)
     F, n = binned_t.shape
     if 128 * n > 2 ** 31 - 1:
@@ -222,20 +401,32 @@ def _node_hist_int8_cuda(binned_t, row_pos, base_t, W: int, B: int):
                 f"overflow (quant_q_max({n}) = {quant_q_max(n):g})")
     out = torch.zeros((F, 3 * W, B), dtype=torch.int32,
                       device=binned_t.device)
-    _launch("node_hist_int8", "mm_node_hist_int8", _node_args(
-        binned_t, row_pos, base_t, out, W, B), binned_t.device)
+    _launch_node("node_hist_int8", binned_t, row_pos, base_t, out, W, B,
+                 geometry)
     node_histogram.int8_launches += 1
     return out
 
 
-def _node_args(binned_t, row_pos, base_t, out, W: int, B: int) -> list:
+def _launch_node(kernel: str, binned_t, row_pos, base_t, out, W: int,
+                 B: int, geometry: Optional[NodeGeometry]) -> None:
+    _launch(kernel, _NODE_ENTRIES[kernel], _node_args(
+        kernel, binned_t, row_pos, base_t, out, W, B, geometry),
+        binned_t.device)
+
+
+def _node_args(kernel: str, binned_t, row_pos, base_t, out, W: int, B: int,
+               geometry: Optional[NodeGeometry]) -> list:
     F, n = binned_t.shape
+    bin_bytes = _BIN_BYTES[binned_t.dtype]
+    g = geometry or _geometry_on(kernel, _device_index(binned_t.device), n,
+                                 F, W, B, bin_bytes)
     c = ctypes
-    return [(c.c_void_p, binned_t.data_ptr()),
-            (c.c_int, _BIN_BYTES[binned_t.dtype]),
+    return [(c.c_void_p, binned_t.data_ptr()), (c.c_int, bin_bytes),
             (c.c_void_p, row_pos.data_ptr()), (c.c_void_p, base_t.data_ptr()),
             (c.c_void_p, out.data_ptr()), (c.c_longlong, n), (c.c_int, F),
-            (c.c_int, W), (c.c_int, B)]
+            (c.c_int, W), (c.c_int, B), (c.c_int, g.group),
+            (c.c_int, g.node_tile), (c.c_int, g.cluster),
+            (c.c_int, g.row_blocks), (c.c_int, g.threads)]
 
 
 def histogram(binned: torch.Tensor, stats: torch.Tensor, num_bins: int,

@@ -2,8 +2,10 @@
 
   * Importing every module of ``mmlspark_tpu_torch`` (in a fresh
     interpreter) leaves ``jax`` and every ``mmlspark_tpu`` module out of
-    ``sys.modules``; no source of the package, nor ``chip_smoke.py``,
-    imports either.
+    ``sys.modules``; no source of the package, nor ``chip_smoke.py`` or
+    the GPU tools (``tools/profile_torch_gbdt.py``,
+    ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``), imports
+    either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -81,11 +83,14 @@ def _imports(path):
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "profile_torch_gbdt.py"),
+             os.path.join(ROOT, "tools", "ab_node_hist.py"),
+             os.path.join(ROOT, "tools", "node_hist_sweeps.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert os.path.isfile(paths[0])
+    assert all(os.path.isfile(p) for p in paths[:4])
     bad = [(os.path.relpath(p, ROOT), line, name) for p in paths
            for line, name in _imports(p) if _forbidden(name)]
     assert bad == []
