@@ -34,12 +34,21 @@ Phases (any failure exits non-zero and prints no result line):
    Same times as phase 3, cold at the same two rows; the yardstick on
    int32 values.
 3c. Kernel 3, ``hist_bf16``, through ``histogram_cols`` against
-   ``hist_plain``: F=28, n=1,000,000, S in {2, 3}, B in {255, 63}, bf16
-   stats, int32 bins; every channel within 1e-4 of its largest magnitude
-   plus 1e-4; the S=2, B=255 row also timed cold. Then the path of kernel
-   3, with its count reset just before and read just after: one call of
-   the row-major ``histogram`` entry point at the tuner's calibration
-   shape (16,384 x 28, S=2).
+   ``hist_plain``, F=28, at the rows of ``COLS_ROWS``: n=1,000,000 with S
+   in {1, 2, 3, 5, 48}, B in {63, 255, 4096}, int32, int16 and uint8 bins,
+   ``stats_dtype`` bf16 and f32, and misaligned inputs (every array row
+   one element past a 16-byte boundary); n=499,999 (a ragged tail) with
+   int32, int16 and uint8 bins. Some ids lie at B, outside [0, B). The
+   last channel is a count channel and must be bit-equal; every channel
+   within 1e-4 of its largest magnitude plus 1e-4. Each row prints its
+   geometry, times and % of bound; the main row (S=2, B=255, int32, bf16)
+   is also timed cold. Two grids of more (feature group, channel) items
+   than 65,535 (``COLS_WIDE``: F=28 x S=10,000, and F=300,000 x S=1 held
+   against one ``index_add_``, since ``hist_plain`` loops over features)
+   are checked the same way, untimed. Then the path of kernel 3, with its
+   count reset just before and read just after: one call of the
+   row-major ``histogram`` entry point at the tuner's calibration shape
+   (16,384 x 28, S=2).
 4. End to end at full width: ``LightGBMClassifier(...).fit`` on 1,000,000 x
    28 synthetic rows (HIGGS's shape, made from a seed with numpy), maxBin
    255, numLeaves 31, 10 boosting rounds, then ``transform`` on a
@@ -229,16 +238,26 @@ def library_index_add(binned, pos, base, W, B):
     return call
 
 
-def library_cols_index_add(binned, stats, B):
-    """The yardstick of kernel 3: one ``index_add_`` of the bf16-rounded
-    stats over the flattened segment id ``f*B + bin``."""
+def cols_segments(binned, stats, B, stats_dtype):
+    """The flattened segment id ``f*(B+1) + bin`` of every (feature, row)
+    (overflow segment for ids outside [0, B)) and each one's rounded
+    stats, ``[F*n, S]``."""
     F, n = binned.shape
-    seg = (binned.long() + torch.arange(F, device="cuda")[:, None] * B
+    b = binned.long()
+    seg = torch.where((b >= 0) & (b < B), b, B)
+    seg = (seg + torch.arange(F, device="cuda")[:, None] * (B + 1)
            ).reshape(-1)
-    data = stats.to(torch.bfloat16).float().t().contiguous()     # [n, S]
+    data = stats.to(stats_dtype).float().t().contiguous()        # [n, S]
     data = data[None].expand(F, n, data.shape[1]).reshape(F * n, -1)
-    data = data.contiguous()
-    out = torch.zeros(F * B, data.shape[1], device="cuda")
+    return seg, data.contiguous()
+
+
+def library_cols_index_add(binned, stats, B, stats_dtype=torch.bfloat16):
+    """The yardstick of kernel 3: one ``index_add_`` of the rounded stats
+    over :func:`cols_segments`'s segment ids."""
+    seg, data = cols_segments(binned, stats, B, stats_dtype)
+    out = torch.zeros(binned.shape[0] * (B + 1), data.shape[1],
+                      device="cuda")
 
     def call():
         out.zero_()
@@ -381,43 +400,136 @@ def phase_int8_kernel():
     return rows, max_err
 
 
+# phase 3c rows of kernel 3, F=28: (n, S, B, bins, stats_dtype, layout).
+# The first is the main row: the tuner's S=2 at full width, 255 bins.
+COLS_MAIN = (1_000_000, 2, 255, "int32", "bf16", "aligned")
+COLS_ROWS = (
+    COLS_MAIN,
+    (1_000_000, 3, 255, "int32", "bf16", "aligned"),
+    (1_000_000, 2, 63, "int32", "bf16", "aligned"),
+    (1_000_000, 3, 63, "int32", "bf16", "aligned"),
+    (1_000_000, 1, 255, "int32", "bf16", "aligned"),
+    (1_000_000, 5, 255, "int32", "bf16", "aligned"),
+    (1_000_000, 48, 255, "int32", "bf16", "aligned"),
+    (1_000_000, 2, 255, "int16", "bf16", "aligned"),
+    (1_000_000, 2, 255, "uint8", "bf16", "aligned"),
+    (1_000_000, 2, 4096, "int32", "bf16", "aligned"),
+    (1_000_000, 3, 4096, "int16", "bf16", "aligned"),
+    (1_000_000, 2, 255, "int32", "f32", "aligned"),
+    (1_000_000, 2, 255, "int32", "bf16", "misaligned"),
+    (499_999, 2, 255, "int32", "bf16", "aligned"),
+    (499_999, 3, 63, "int16", "bf16", "aligned"),
+    (499_999, 5, 255, "uint8", "f32", "misaligned"),
+)
+COLS_F = 28
+# grids of more (feature group, channel) items than a grid's y extent
+# (65,535) holds: (n, F, S, B, bins). F=28 x S=10,000 (7 groups of 4 x
+# 10,000 channels), and F=300,000 x S=1 (75,000 groups of 4)
+COLS_WIDE = ((20_000, 28, 10_000, 255, "int32"),
+             (256, 300_000, 1, 63, "uint8"))
+STATS_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary, so every array row takes scalar loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def cols_inputs(gen, row):
+    """Bins (some ids at B, outside [0, B)) and [S, n] f32 stats for a
+    phase-3c row; the last channel is a count channel of 0s and 1s."""
+    n, S, B, bins, _, layout = row
+    binned = torch.randint(0, B, (COLS_F, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    binned[0, ::97] = B
+    binned = binned.to(getattr(torch, bins))
+    stats = torch.randn(S, n, generator=gen, device="cuda")
+    stats[-1] = (stats[-1] > -1.5).float()
+    if layout == "misaligned":
+        binned, stats = misaligned(binned), misaligned(stats)
+    return binned, stats
+
+
+def check_cols(got, want, what) -> float:
+    """The count channel (the last) bit-equal, every channel within
+    ``check_within``. Returns the max abs error."""
+    if not torch.equal(got[:, -1], want[:, -1]):
+        raise AssertionError(f"{what}: count channel differs from the plain "
+                             "version")
+    for s in range(got.shape[1]):
+        check_within(got[:, s], want[:, s], f"{what} channel {s}")
+    return float((got - want).abs().max())
+
+
+def cols_key(row) -> str:
+    n, S, B, bins, sd, layout = row
+    return f"n={n} S={S} B={B} {bins} {sd} {layout}"
+
+
 def phase_cols_kernel():
     log("== phase 3c: hist_bf16 kernel (histogram_cols) vs plain version")
     gen = torch.Generator(device="cuda").manual_seed(2468)
-    F, n = 28, 1_000_000
+    dev = torch.cuda.current_device()
     rows, max_err = {}, 0.0
-    for S in (2, 3):
-        for B in (255, 63):
-            binned = torch.randint(0, B, (F, n), generator=gen,
-                                   device="cuda", dtype=torch.int32)
-            stats = torch.randn(S, n, generator=gen, device="cuda")
-            stats[-1] = (stats[-1] > -1.5).float()       # a count channel
+    for row in COLS_ROWS:
+        n, S, B, bins, sd, _ = row
+        binned, stats = cols_inputs(gen, row)
+        stats_dtype = STATS_DTYPES[sd]
+        want = hist_plain(binned, stats, B, stats_dtype)
+        got = hist_ops.histogram_cols(binned, stats, B, stats_dtype)
+        torch.cuda.synchronize()
+        err = check_cols(got, want, f"hist_bf16 {cols_key(row)}")
+        max_err = max(max_err, err)
+        geo = hist_ops._cols_geometry_on(dev, n, COLS_F, S, B,
+                                         binned.element_size(),
+                                         stats_dtype == torch.bfloat16)
+        ms = time_ms(lambda: hist_ops.histogram_cols(binned, stats, B,
+                                                     stats_dtype), reps=20)
+        plain = time_ms(lambda: hist_plain(binned, stats, B, stats_dtype),
+                        reps=3, warm=1)
+        lib = (time_ms(library_cols_index_add(binned, stats, B, stats_dtype),
+                       reps=5, warm=1) if S <= 5 else None)
+        ms_cold = (time_cold_ms(lambda: hist_ops.histogram_cols(
+            binned, stats, B, stats_dtype)) if row == COLS_MAIN else None)
+        bound, by = cols_bound_ms(binned, stats, B)
+        rows[row] = dict(ms=ms, ms_cold=ms_cold, plain_ms=plain,
+                         library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=err)
+        cold = "" if ms_cold is None else f" (L2 cold {ms_cold:.4f})"
+        libs = "not run" if lib is None else f"{lib:.3f} ms"
+        log(f"hist_bf16 {cols_key(row)}: kernel {ms:.4f} ms{cold}  bound "
+            f"{bound * 1e3:.1f} us ({by}, {100 * bound / ms:.1f}%)  plain "
+            f"{plain:.3f} ms  index_add_ {libs}  max_abs_err {err:.3g}  "
+            f"[group {geo.group} x {geo.groups}, {geo.tiles} channels, "
+            f"{geo.reps} copies of each cell, {geo.row_blocks} row blocks of "
+            f"{geo.threads} threads in clusters of {geo.cluster}]")
+        del binned, stats, want, got
+
+    for n, F, S, B, bins in COLS_WIDE:
+        binned = torch.randint(0, B, (F, n), generator=gen, device="cuda",
+                               dtype=torch.int32).to(getattr(torch, bins))
+        stats = torch.randn(S, n, generator=gen, device="cuda")
+        stats[-1] = (stats[-1] > -1.5).float()
+        got = hist_ops.histogram_cols(binned, stats, B)
+        if F <= COLS_F:
             want = hist_plain(binned, stats, B)
-            got = hist_ops.histogram_cols(binned, stats, B)
-            torch.cuda.synchronize()
-            for s in range(S):
-                check_within(got[:, s], want[:, s], f"hist_bf16 S={S} B={B} "
-                             f"channel {s}")
-            err = float((got - want).abs().max())
-            max_err = max(max_err, err)
-            ms = time_ms(lambda: hist_ops.histogram_cols(binned, stats, B),
-                         reps=20)
-            plain = time_ms(lambda: hist_plain(binned, stats, B), reps=3,
-                            warm=1)
-            lib = time_ms(library_cols_index_add(binned, stats, B), reps=5,
-                          warm=1)
-            ms_cold = (time_cold_ms(lambda: hist_ops.histogram_cols(
-                binned, stats, B)) if (S, B) == (2, 255) else None)
-            bound, by = cols_bound_ms(binned, stats, B)
-            rows[(S, B)] = dict(ms=ms, ms_cold=ms_cold, plain_ms=plain,
-                                library_ms=lib, bound_ms=bound, bound_by=by,
-                                max_abs_err=err)
-            cold = "" if ms_cold is None else f" (L2 cold {ms_cold:.4f})"
-            log(f"hist_bf16 n={n} S={S} B={B} int32: kernel {ms:.4f} ms"
-                f"{cold}  bound {bound * 1e3:.1f} us ({by})  plain "
-                f"{plain:.3f} ms  "
-                f"index_add_ {lib:.3f} ms  max_abs_err {err:.3g}")
-            del binned, stats, want, got
+        else:   # hist_plain's loop over 300,000 features: one index_add_
+            seg, data = cols_segments(binned, stats, B, torch.bfloat16)
+            want = torch.zeros(F * (B + 1), S, device="cuda").index_add_(
+                0, seg, data).view(F, B + 1, S)[:, :B].permute(0, 2, 1)
+        torch.cuda.synchronize()
+        what = f"hist_bf16 wide grid n={n} F={F} S={S} B={B} {bins}"
+        max_err = max(max_err, check_cols(got, want, what))
+        geo = hist_ops._cols_geometry_on(dev, n, F, S, B,
+                                         binned.element_size(), True)
+        log(f"{what}: matches ({geo.row_blocks * geo.groups * geo.tiles} "
+            f"blocks: {geo.row_blocks} row blocks x {geo.groups} groups x "
+            f"{geo.tiles} channels)")
+        del binned, stats, got, want
 
     # the path of kernel 3: the row-major entry point at the tuner's
     # calibration shape, counted on its own
@@ -436,7 +548,8 @@ def phase_cols_kernel():
     for s in range(2):
         check_within(got[:, s], want[:, s], f"histogram (row-major) stat {s}")
     log(f"histogram 16384 x 28, S=2: hist_bf16 launches {launches}, plain "
-        f"calls {plain_calls}")
+        f"calls {plain_calls}; geometry "
+        f"{hist_ops._cols_geometry_on(dev, 16_384, 28, 2, 255, 4, True)}")
     if launches <= 0 or plain_calls != 0:
         raise AssertionError("the row-major histogram did not go through "
                              "hist_bf16 alone")
@@ -643,7 +756,7 @@ def main() -> int:
               rows8[(500_000, 8, 255, "int32")]),
         entry("hist_bf16", "mmlspark_tpu_torch/csrc/hist_bf16.cu",
               "mmlspark_tpu/ops/histogram.py:647", launches3, max_err3,
-              rows3[(2, 255)]),
+              rows3[COLS_MAIN]),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

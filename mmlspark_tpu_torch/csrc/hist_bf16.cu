@@ -11,105 +11,47 @@
 // [F, S, B] f32, zero-filled by the caller (the kernel adds into it). No
 // row is masked; a bin outside [0, B) is skipped, never written.
 //
-// Design: a scatter, like node_hist.cu. The grid runs over (feature, row
-// chunk, stat tile); S is arbitrary, so the stat axis is tiled over
-// gridDim.z with s_tile*B*4 bytes of shared memory per block within 48 KB
-// (48 channels at B=255; a single channel above 48 KB raises the dynamic
-// limit, up to 227 KB). Each block keeps a private s_tile x B f32
-// histogram of its feature, walks its row chunk with coalesced loads,
-// rounds each stat in registers (no rounded copy is ever written) and adds
-// the non-zero ones with shared-memory atomicAdd, then adds its non-zero
-// cells into the output with global atomics. Float atomics make the sums
-// order-dependent; integer-valued stats below 2^24 (counts) stay exact.
-//
-// Bound: memory. A pass must read F*n*sizeof(bin) + 4*S*n bytes and write
-// F*S*B*4; it does S adds per (row, feature). At 1M rows x 28 int32
-// features and S=2 that is about 120 MB, about 36 us at 3.35 TB/s. Each
-// bin byte is read once per stat tile; the stats are re-read once per
-// feature, mostly from the 50 MB L2.
-#include "hist_common.cuh"
-
-namespace {
-
-using mm_hist::kSmemMax;
-using mm_hist::kThreads;
-using mm_hist::round_bf16;
-
-template <typename BinT>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const BinT* __restrict__ binned, const float* __restrict__ stats,
-            float* __restrict__ out, long long n, int S, int B, int s_tile,
-            long long rows_per_chunk, int to_bf16) {
-  extern __shared__ float hist[];  // [st, B]
-  const int f = blockIdx.x;
-  const int s0 = blockIdx.z * s_tile;
-  const int st = min(s_tile, S - s0);
-  const int cells = st * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
-  __syncthreads();
-
-  const long long r0 = (long long)blockIdx.y * rows_per_chunk;
-  const long long r1 = min(n, r0 + rows_per_chunk);
-  const BinT* col = binned + (long long)f * n;
-  const float* tile = stats + (long long)s0 * n;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int b = (int)col[r];
-    if ((unsigned)b >= (unsigned)B) continue;
-    for (int s = 0; s < st; ++s) {
-      float v = tile[(long long)s * n + r];
-      if (to_bf16) v = round_bf16(v);
-      if (v != 0.f) atomicAdd(hist + s * B + b, v);
-    }
-  }
-  __syncthreads();
-
-  // out[f, s0 : s0+st, :] is one contiguous run of `cells` floats
-  float* dst = out + ((long long)f * S + s0) * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float v = hist[i];
-    if (v != 0.f) atomicAdd(dst + i, v);
-  }
-}
-
-template <typename BinT>
-cudaError_t launch(const void* binned, const void* stats, void* out, long long n, int F,
-                   int S, int B, int to_bf16, cudaStream_t stream) {
-  const long long per_chan = (long long)B * (long long)sizeof(float);
-  if (n < 0 || F <= 0 || S <= 0 || B <= 0 || per_chan > kSmemMax)
-    return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const int s_tile = mm_hist::tile_items(per_chan, S);
-  const int smem = (int)(s_tile * per_chan);
-  cudaError_t err = mm_hist::allow_smem(hist_kernel<BinT>, smem);
-  if (err != cudaSuccess) return err;
-  const int s_tiles = (S + s_tile - 1) / s_tile;
-  long long rows_per_chunk = 0, chunks = 0;
-  err = mm_hist::row_chunks(hist_kernel<BinT>, smem, n, (long long)F * s_tiles,
-                            (long long)s_tile * B, &rows_per_chunk, &chunks);
-  if (err != cudaSuccess) return err;
-
-  dim3 grid((unsigned)F, (unsigned)chunks, (unsigned)s_tiles);
-  hist_kernel<BinT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const BinT*>(binned), static_cast<const float*>(stats),
-      static_cast<float*>(out), n, S, B, s_tile, rows_per_chunk, to_bf16);
-  return cudaGetLastError();
-}
-
-}  // namespace
+// The channel mode of the body kernels 1 and 2 share
+// (node_hist_common.cuh, which holds the design and the bound): a block
+// owns a feature group x one stat channel, loads a row vector's stats once
+// per feature group and rounds them in registers (no rounded copy is ever
+// written), and scatters into up to 32 lane-interleaved copies of each
+// shared-memory cell (fewer compare-and-swap retries on the f32 shared
+// atomics); each block sums its copies, and pairs of row blocks sum their
+// histograms through distributed shared memory before one global atomic
+// per cell. Float atomics make the sums order-dependent; integer-valued
+// stats below 2^24 (counts) stay exact.
+#include "node_hist_common.cuh"
 
 extern "C" {
 
 // bin_bytes: 4 = int32, 2 = int16, 1 = uint8; to_bf16: 1 rounds each stat
-// to bf16 before it is added, 0 adds it as given. Returns a cudaError_t code.
+// to bf16 before it is added, 0 adds it as given; the geometry (reps
+// copies of each cell) is ops/histogram.py:_cols_geometry's. Returns a
+// cudaError_t code.
 int mm_hist_bf16(const void* binned, int bin_bytes, const void* stats, void* out, long long n,
-                 int F, int S, int B, int to_bf16, void* stream) {
+                 int F, int S, int B, int to_bf16, int group, int reps, int cluster,
+                 int row_blocks, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bin_bytes) {
-    case 4: return (int)launch<int32_t>(binned, stats, out, n, F, S, B, to_bf16, s);
-    case 2: return (int)launch<int16_t>(binned, stats, out, n, F, S, B, to_bf16, s);
-    case 1: return (int)launch<uint8_t>(binned, stats, out, n, F, S, B, to_bf16, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (to_bf16)
+    return (int)mm_hist::dispatch_cols<mm_hist::Bf16Stats>(binned, bin_bytes, stats, out, n, F,
+                                                           S, B, group, reps, cluster, row_blocks,
+                                                           threads, s);
+  return (int)mm_hist::dispatch_cols<mm_hist::F32Stats>(binned, bin_bytes, stats, out, n, F, S,
+                                                        B, group, reps, cluster, row_blocks,
+                                                        threads, s);
+}
+
+// Clusters of `cluster` blocks of `threads` threads and `smem` bytes of
+// shared memory that the card holds at once, into *result, for the
+// kernel of (bin_bytes, to_bf16).
+int mm_hist_bf16_max_clusters(int bin_bytes, int to_bf16, int smem, int cluster, int threads,
+                              int* result) {
+  if (to_bf16)
+    return (int)mm_hist::dispatch_cols_max_clusters<mm_hist::Bf16Stats>(bin_bytes, smem, cluster,
+                                                                        threads, result);
+  return (int)mm_hist::dispatch_cols_max_clusters<mm_hist::F32Stats>(bin_bytes, smem, cluster,
+                                                                     threads, result);
 }
 
 }  // extern "C"

@@ -26,7 +26,7 @@ extern "C" {
 int mm_node_hist_bf16(const void* binned, int bin_bytes, const void* pos, const void* base,
                       void* out, long long n, int F, int W, int B, int group, int node_tile,
                       int cluster, int row_blocks, int threads, void* stream) {
-  return (int)mm_node::dispatch<mm_node::Bf16Stats>(
+  return (int)mm_hist::dispatch<mm_hist::Bf16Stats>(
       binned, bin_bytes, pos, base, out, n, F, W, B, group, node_tile, cluster, row_blocks,
       threads, static_cast<cudaStream_t>(stream));
 }
@@ -35,7 +35,7 @@ int mm_node_hist_bf16(const void* binned, int bin_bytes, const void* pos, const 
 // shared memory that the card holds at once, into *result.
 int mm_node_hist_bf16_max_clusters(int bin_bytes, int smem, int cluster, int threads,
                                    int* result) {
-  return (int)mm_node::dispatch_max_clusters<mm_node::Bf16Stats>(bin_bytes, smem, cluster, threads,
+  return (int)mm_hist::dispatch_max_clusters<mm_hist::Bf16Stats>(bin_bytes, smem, cluster, threads,
                                                            result);
 }
 

@@ -35,20 +35,30 @@ from . import _build
 from .histogram_scatter import hist_plain, node_hist_plain
 
 KERNELS = ("node_hist", "node_hist_int8", "hist_bf16")
-_NODE_ENTRIES = {"node_hist": "mm_node_hist_bf16",
-                 "node_hist_int8": "mm_node_hist_int8"}
+_ENTRIES = {"node_hist": "mm_node_hist_bf16",
+            "node_hist_int8": "mm_node_hist_int8",
+            "hist_bf16": "mm_hist_bf16"}
 _BIN_BYTES = {torch.int32: 4, torch.int16: 2, torch.uint8: 1}
 _SMEM_MAX = 232448          # the kernels' per-block shared-memory ceiling
 _SM_SMEM = 233472           # shared memory of one Hopper SM (228 KB)
 _BLOCK_RESERVE = 1024       # shared memory the runtime reserves per block
 _NODE_THREADS = 512         # node_hist_common.cuh: kThreads
 _NODE_BLOCKS_PER_SM = 2     # node_hist_common.cuh: kMinBlocks
+# kernel 3's bytes of cell copies per (feature, channel): see _cols_reps
+_COLS_REP_BYTES = 16 * 1024
+# kernel 3's feature groups: at most the unroll of the body's feature loop
+# (4), whose bin loads a block then issues together; in the feature-group
+# sweeps of tools/ab_node_hist.py on an H100 (F=28) groups of 4 beat 2, 7,
+# 14 and 28 at every row measured. Below the cap, _ROW_COST weighs cells
+# against row loads as for kernels 1 and 2
+_COLS_MAX_GROUP = 4
 # a row's pos and stats load against one histogram cell's clear, cluster
 # sum and flush: fitted to the feature-group sweeps of tools/ab_node_hist.py
 # on an H100 (F=28, B=255), whose fastest groups were 7 features at the
 # root pass (n=1,000,000, W=1), 2 at n=500,000 W=8 and 2 (not 1) at W=15
 # and 16; every cost in (0.46, 0.71) picks those
 _ROW_COST = 0.6
+_MAX_BLOCKS = 2 ** 31 - 1   # the most blocks of a one-dimensional grid
 _M32 = 0xFFFFFFFF
 _STATS_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -188,14 +198,19 @@ node_histogram.int8_launches = 0
 
 
 class NodeGeometry(NamedTuple):
-    """How kernels 1 and 2 cut one pass (``csrc/node_hist_common.cuh``).
+    """How one pass of the histogram body (``csrc/node_hist_common.cuh``)
+    is cut: kernels 1 and 2 (node mode), and kernel 3 (channel mode, where
+    the "nodes" are stat channels, one to a block: ``node_tile`` is 1).
 
-    The grid is ``(row_blocks, groups * tiles)``: block ``(x, y)`` owns
-    features ``[g*group, (g+1)*group)`` and frontier nodes
+    The grid is one-dimensional, ``row_blocks * groups * tiles`` blocks
+    (at most 2^31-1), row blocks fastest: block ``x`` is row block ``x %
+    row_blocks`` of item ``y = x // row_blocks``, which owns features
+    ``[g*group, (g+1)*group)`` and frontier nodes (or the stat channel)
     ``[t*node_tile, (t+1)*node_tile)`` (``g, t = divmod(y, tiles)``, the
-    last of each cut short) over row block ``x``, in a ``[group,
-    node_tile, 3, B]`` shared-memory histogram of ``smem`` bytes. Clusters
-    of ``cluster`` consecutive row blocks sum their histograms before the
+    last of each cut short), in a ``[group, node_tile, 3, B]`` (node mode)
+    or ``[group, B, reps]`` (channel mode: ``reps`` copies of each cell)
+    shared-memory histogram of ``smem`` bytes. Clusters of ``cluster``
+    consecutive row blocks of one item sum their histograms before the
     flush into the output."""
     group: int
     node_tile: int
@@ -205,6 +220,7 @@ class NodeGeometry(NamedTuple):
     smem: int
     groups: int
     tiles: int
+    reps: int = 1
 
 
 def _node_rows(bin_bytes: int) -> int:
@@ -213,30 +229,97 @@ def _node_rows(bin_bytes: int) -> int:
     return 8 if bin_bytes == 1 else 16 // bin_bytes
 
 
+def _tiling(items: int, item_bytes: int, most_tile: int):
+    """The tile of ``items`` nodes or stat channels one block holds at
+    ``item_bytes`` bytes of shared memory each, at most ``most_tile``, the
+    tiles balanced: ``(tile, tiles, budget)``. Two blocks of
+    ``_NODE_THREADS`` fit on an SM when a block stays within half the SM's
+    shared memory (``budget``); an item too wide for that takes a whole
+    block's 227 KB, one block per SM."""
+    half_sm = _SM_SMEM // _NODE_BLOCKS_PER_SM - _BLOCK_RESERVE
+    budget = half_sm if item_bytes <= half_sm else _SMEM_MAX
+    tiles = -(-items // min(items, most_tile, budget // item_bytes))
+    return -(-items // tiles), tiles, budget
+
+
 def _node_geometry(n: int, F: int, W: int, B: int, bin_bytes: int,
                    num_sms: int,
                    clusters_held: Optional[Callable[[int, int], int]] = None,
                    cluster: Optional[int] = None) -> NodeGeometry:
-    """The geometry of one node-histogram pass over ``[F, n]`` bins of
-    ``bin_bytes`` bytes, ``W`` frontier nodes and ``B`` bins, on a card of
-    ``num_sms`` SMs.
+    """The geometry of one node-histogram pass (kernels 1 and 2) over
+    ``[F, n]`` bins of ``bin_bytes`` bytes, ``W`` frontier nodes and ``B``
+    bins, on a card of ``num_sms`` SMs: :func:`_hist_geometry` with
+    ``12 B`` bytes per node (three stats), the node tile all ``W`` nodes
+    if one feature's nodes fit (else as many as fit), so the bins are read
+    once per node tile."""
+    _check_node_bins(B)
+    _check_shape(n, F, W, B, bin_bytes)
+    return _hist_geometry(n, F, W, B, bin_bytes, num_sms, 12 * B, W, F,
+                          clusters_held, cluster)
 
-    A block's histogram takes ``12 B`` bytes per (feature, node). Two
-    blocks of ``_NODE_THREADS`` fit on an SM when it stays within half the
-    SM's shared memory; the node tile is then all ``W`` nodes if one
-    feature's nodes fit (else as many as fit, tiles balanced), so the bins
-    are read once per node tile. A node too wide for that takes a whole
-    block's 227 KB, one block per SM.
 
-    The feature group (groups balanced, at most as many features as fit
-    beside the node tile) weighs a block's fixed work, its histogram
-    cells (cleared, summed across the cluster, flushed), against the
-    work that grows with the number of groups, each block loading its
-    rows' pos and stats once per group: it minimizes ``cells +
-    _ROW_COST * rows per block``, with ``rows per block = n * groups *
-    tiles / blocks in a wave`` (the scatter's own work per block does not
-    depend on the group). More features per block pay off at large ``n``
-    and narrow frontiers.
+def _cols_geometry(n: int, F: int, S: int, B: int, bin_bytes: int,
+                   num_sms: int,
+                   clusters_held: Optional[Callable[[int, int], int]] = None,
+                   cluster: Optional[int] = None) -> NodeGeometry:
+    """The geometry of one ``histogram_cols`` pass (kernel 3) over ``[F,
+    n]`` bins and ``S`` stat channels: :func:`_hist_geometry` with one
+    channel per block and ``4 B reps`` bytes per channel (:func:`_cols_reps`
+    copies of each cell). The bins are read once per channel, each
+    channel's stats once per feature group. In the ablation of
+    ``tools/ab_node_hist.py`` (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6),
+    tiles of 2 and 3 channels per block lost to one at S=2 and S=3; at
+    S=48 each channel costs about what S=1 costs: the shared atomics, which
+    a tile does not cut."""
+    _check_cols_bins(B)
+    _check_shape(n, F, S, B, bin_bytes)
+    R = _cols_reps(B)
+    return _hist_geometry(n, F, S, B, bin_bytes, num_sms, 4 * B * R, 1,
+                          min(F, _COLS_MAX_GROUP), clusters_held,
+                          cluster)._replace(reps=R)
+
+
+def _cols_reps(B: int) -> int:
+    """Copies of each kernel-3 cell: as many as fill ``_COLS_REP_BYTES``
+    per (feature, channel), at most 32 (one per lane of a warp), or 1 when
+    that leaves fewer than 4. A warp's 32 lanes add into copy ``lane %
+    reps`` of their cells, so the same-cell collisions that send an f32
+    shared atomic round its compare-and-swap loop again, and the bank
+    conflicts, fall as ``reps`` grows; the copies cost shared memory (fewer
+    features per block) and a sum before the flush. In the copy sweeps of
+    tools/ab_node_hist.py on an H100 this picks the fastest count measured
+    at B=63 (32) and B=255 (16) and none at B=4096, where fewer lanes share
+    a bin and copies only cost."""
+    R = 32
+    while R > 1 and 4 * B * R > _COLS_REP_BYTES:
+        R //= 2
+    return R if R >= 4 else 1
+
+
+def _check_shape(n: int, F: int, W: int, B: int, bin_bytes: int) -> None:
+    if n < 0 or F < 1 or W < 1 or B < 1 or bin_bytes not in (1, 2, 4):
+        raise ValueError(f"bad histogram shape n={n} F={F} W={W} B={B} "
+                         f"bin_bytes={bin_bytes}")
+
+
+def _hist_geometry(n: int, F: int, items: int, B: int, bin_bytes: int,
+                   num_sms: int, item_bytes: int, most_tile: int,
+                   most_group: int,
+                   clusters_held: Optional[Callable[[int, int], int]],
+                   cluster: Optional[int]) -> NodeGeometry:
+    """The geometry of one pass of the histogram body over ``items`` nodes
+    or stat channels of ``item_bytes`` bytes of histogram per feature,
+    tiled by :func:`_tiling`.
+
+    The feature group (groups balanced, at most ``most_group`` features
+    and as many as fit beside the tile) weighs a block's fixed work, its
+    histogram cells (cleared, summed across the cluster, flushed), against
+    the work that grows with the number of groups, each block loading its
+    rows' pos and stats once per group: it minimizes ``cells + _ROW_COST * rows per
+    block``, with ``rows per block = n * groups * tiles / blocks in a
+    wave`` (the scatter's own work per block does not depend on the
+    group). More features per block pay off at large ``n`` and narrow
+    tiles.
 
     The grid is one wave: ``clusters_held(smem, c)`` says how many
     clusters of ``c`` such blocks the card holds at once (the kernel
@@ -246,41 +329,33 @@ def _node_geometry(n: int, F: int, W: int, B: int, bin_bytes: int,
     than the sweeps of a block's threads over the row vectors, rounded up
     to whole clusters (an idle block costs nothing; a block left one
     extra, partial sweep costs a whole sweep's latency), and none walks
-    fewer rows than twice its node tile's bins. A block's threads are then
+    fewer rows than twice its tile's bins. A block's threads are then
     the fewest multiple of 32 that gives every block the same number of
     sweeps. Clusters are pairs of row blocks (or ``cluster``, forced),
     single blocks where a wave of pairs would keep less than 95% of the
     blocks: in the cluster sweeps of ``tools/ab_node_hist.py`` on an H100,
     pairs beat single blocks by 1-9% and clusters of 4 or 8 by 3-21% at
-    every shape measured."""
-    _check_node_bins(B)
-    if n < 0 or F < 1 or W < 1 or B < 1 or bin_bytes not in (1, 2, 4):
-        raise ValueError(f"bad node-histogram shape n={n} F={F} W={W} "
-                         f"B={B} bin_bytes={bin_bytes}")
-    per_node = 12 * B
-    half_sm = _SM_SMEM // _NODE_BLOCKS_PER_SM - _BLOCK_RESERVE
-    budget = half_sm if per_node <= half_sm else _SMEM_MAX
-    tiles = -(-W // min(W, budget // per_node))
-    node_tile = -(-W // tiles)
+    every node-kernel shape measured."""
+    tile, tiles, budget = _tiling(items, item_bytes, most_tile)
 
     def blocks_in_wave(group: int) -> int:
-        smem = group * node_tile * per_node
+        smem = group * tile * item_bytes
         return num_sms * min(_NODE_BLOCKS_PER_SM,
                              _SM_SMEM // (smem + _BLOCK_RESERVE))
 
     def cost(groups: int) -> float:
         group = -(-F // groups)
-        return (group * node_tile * 3 * B
+        return (group * tile * item_bytes // 4
                 + _ROW_COST * n * groups * tiles / blocks_in_wave(group))
 
-    most_group = min(F, budget // (node_tile * per_node))
+    most_group = min(most_group, budget // (tile * item_bytes))
     groups = min(sorted({-(-F // g) for g in range(1, most_group + 1)}),
                  key=cost)
     group = -(-F // groups)
-    smem = group * node_tile * per_node
+    smem = group * tile * item_bytes
     slots = blocks_in_wave(group)
     nv = n // _node_rows(bin_bytes)
-    most = max(1, min(-(-nv // _NODE_THREADS), n // (2 * node_tile * B)))
+    most = max(1, min(-(-nv // _NODE_THREADS), n // (2 * tile * B)))
 
     def row_blocks(c: int) -> int:
         held = slots // c if clusters_held is None else clusters_held(smem, c)
@@ -296,7 +371,10 @@ def _node_geometry(n: int, F: int, W: int, B: int, bin_bytes: int,
     chosen = next((c for c in sizes if fills[c] >= c and
                    fills[c] * 20 >= fullest * 19), 1)
     blocks = max(fills[chosen], chosen)
-    return NodeGeometry(group, node_tile, chosen, blocks,
+    if blocks * groups * tiles > _MAX_BLOCKS:
+        raise ValueError(f"{blocks} row blocks x {groups} feature groups x "
+                         f"{tiles} tiles exceed a grid's {_MAX_BLOCKS} blocks")
+    return NodeGeometry(group, tile, chosen, blocks,
                         _balanced_threads(nv, blocks), smem, groups, tiles)
 
 
@@ -320,17 +398,18 @@ def _device_index(dev: torch.device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _clusters_held(kernel: str, index: int, bin_bytes: int, smem: int,
-                   cluster: int) -> int:
+                   cluster: int, *mode: int) -> int:
     """Clusters of ``cluster`` blocks of ``kernel`` with ``smem`` bytes of
-    shared memory that device ``index`` holds at once."""
+    shared memory that device ``index`` holds at once; ``mode`` is
+    ``(to_bf16,)`` for ``hist_bf16``, whose kernel it selects."""
     lib = _build.load(kernel)
-    fn = getattr(lib, _NODE_ENTRIES[kernel] + "_max_clusters")
+    fn = getattr(lib, _ENTRIES[kernel] + "_max_clusters")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    args = [bin_bytes, *mode, smem, cluster, _NODE_THREADS]
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
     held = ctypes.c_int(0)
     with torch.cuda.device(index):
-        code = fn(bin_bytes, smem, cluster, _NODE_THREADS,
-                  ctypes.byref(held))
+        code = fn(*args, ctypes.byref(held))
     _build.check(lib, code, f"{kernel} cluster occupancy")
     return held.value
 
@@ -343,6 +422,17 @@ def _geometry_on(kernel: str, index: int, n: int, F: int, W: int, B: int,
     return _node_geometry(
         n, F, W, B, bin_bytes, _num_sms_of(index),
         lambda smem, c: _clusters_held(kernel, index, bin_bytes, smem, c))
+
+
+@functools.lru_cache(maxsize=1024)
+def _cols_geometry_on(index: int, n: int, F: int, S: int, B: int,
+                      bin_bytes: int, to_bf16: bool) -> NodeGeometry:
+    """:func:`_cols_geometry` on device ``index``, with the clusters its
+    card holds of the kernel of this rounding."""
+    return _cols_geometry(
+        n, F, S, B, bin_bytes, _num_sms_of(index),
+        lambda smem, c: _clusters_held("hist_bf16", index, bin_bytes, smem,
+                                       c, int(to_bf16)))
 
 
 def _check_node_args(binned_t, row_pos, base_t, W: int, B: int,
@@ -409,7 +499,7 @@ def _node_hist_int8_cuda(binned_t, row_pos, base_t, W: int, B: int,
 
 def _launch_node(kernel: str, binned_t, row_pos, base_t, out, W: int,
                  B: int, geometry: Optional[NodeGeometry]) -> None:
-    _launch(kernel, _NODE_ENTRIES[kernel], _node_args(
+    _launch(kernel, _ENTRIES[kernel], _node_args(
         kernel, binned_t, row_pos, base_t, out, W, B, geometry),
         binned_t.device)
 
@@ -464,10 +554,12 @@ def histogram_cols(binned_t: torch.Tensor, stats_t: torch.Tensor,
 histogram_cols.launches = 0
 
 
-def _hist_cuda(binned_t, stats_t, B: int, stats_dtype: torch.dtype):
+def _hist_cuda(binned_t, stats_t, B: int, stats_dtype: torch.dtype,
+               geometry: Optional[NodeGeometry] = None):
     """Kernel 3: validate, allocate the zeroed output, launch ``hist_bf16``
-    on the current stream. The kernel reads f32 stats and rounds them in
-    registers; bf16 stats are widened (exactly) first."""
+    on the current stream with ``geometry`` (by default
+    :func:`_cols_geometry`'s). The kernel reads f32 stats and rounds them
+    in registers; bf16 stats are widened (exactly) first."""
     if stats_t.dtype not in _STATS_DTYPES:
         raise TypeError(f"stats_t must be float32 or bfloat16, got "
                         f"{stats_t.dtype}")
@@ -481,16 +573,32 @@ def _hist_cuda(binned_t, stats_t, B: int, stats_dtype: torch.dtype):
     if F < 1 or S < 1 or B < 1:
         raise ValueError(f"histogram_cols needs F, S, B >= 1 (got {F}, {S}, "
                          f"{B})")
+    _check_cols_bins(B)
+    out = torch.zeros((F, S, B), dtype=torch.float32, device=binned_t.device)
+    _launch("hist_bf16", _ENTRIES["hist_bf16"], _cols_args(
+        binned_t, stats_t, out, B, stats_dtype == torch.bfloat16, geometry),
+        binned_t.device)
+    histogram_cols.launches += 1
+    return out
+
+
+def _check_cols_bins(B: int) -> None:
     if B * 4 > _SMEM_MAX:
         raise ValueError(f"num_bins={B} needs {4 * B} bytes of shared memory "
                          f"per stat; the kernel takes at most {_SMEM_MAX}")
-    out = torch.zeros((F, S, B), dtype=torch.float32, device=binned_t.device)
+
+
+def _cols_args(binned_t, stats_t, out, B: int, to_bf16: bool,
+               geometry: Optional[NodeGeometry]) -> list:
+    F, n = binned_t.shape
+    S = stats_t.shape[0]
+    bin_bytes = _BIN_BYTES[binned_t.dtype]
+    g = geometry or _cols_geometry_on(_device_index(binned_t.device), n, F,
+                                      S, B, bin_bytes, bool(to_bf16))
     c = ctypes
-    _launch("hist_bf16", "mm_hist_bf16", [
-        (c.c_void_p, binned_t.data_ptr()),
-        (c.c_int, _BIN_BYTES[binned_t.dtype]),
-        (c.c_void_p, stats_t.data_ptr()), (c.c_void_p, out.data_ptr()),
-        (c.c_longlong, n), (c.c_int, F), (c.c_int, S), (c.c_int, B),
-        (c.c_int, int(stats_dtype == torch.bfloat16))], binned_t.device)
-    histogram_cols.launches += 1
-    return out
+    return [(c.c_void_p, binned_t.data_ptr()), (c.c_int, bin_bytes),
+            (c.c_void_p, stats_t.data_ptr()), (c.c_void_p, out.data_ptr()),
+            (c.c_longlong, n), (c.c_int, F), (c.c_int, S), (c.c_int, B),
+            (c.c_int, int(to_bf16)), (c.c_int, g.group), (c.c_int, g.reps),
+            (c.c_int, g.cluster), (c.c_int, g.row_blocks),
+            (c.c_int, g.threads)]

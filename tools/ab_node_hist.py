@@ -1,38 +1,44 @@
-"""A/B of the node-histogram kernels (kernels 1 and 2) on one NVIDIA GPU:
-an earlier version's sources against the ones in the tree, in turns.
+"""A/B of the port's histogram kernels on one NVIDIA GPU: an earlier
+version's sources against the ones in the tree, in turns.
 
     mkdir -p build/ab_old && \\
         git archive <commit> mmlspark_tpu_torch/csrc | tar -x -C build/ab_old
     python3 tools/ab_node_hist.py \\
-        --old-src build/ab_old/mmlspark_tpu_torch/csrc [--out FILE]
+        --old-src build/ab_old/mmlspark_tpu_torch/csrc [--out FILE] \\
+        [--node-ablation]
 
-``--old-src`` holds the earlier ``node_hist.cu`` and ``node_hist_int8.cu``
-(and the headers they include), whose C entry points take no geometry:
+``--old-src`` holds the earlier ``node_hist.cu``, ``node_hist_int8.cu`` and
+``hist_bf16.cu`` (and the headers they include), with the C interfaces of
+commit 15ded84: the node kernels take the geometry as the tree's do,
 ``mm_node_hist_{bf16,int8}(binned, bin_bytes, pos, base, out, n, F, W, B,
-stream)``. They are built with the same ``nvcc`` flags as the tree's
-kernels (``ops/_build.py``) into ``build/ab_old_libs/``.
+group, node_tile, cluster, row_blocks, threads, stream)``, and kernel 3
+takes none, ``mm_hist_bf16(binned, bin_bytes, stats, out, n, F, S, B,
+to_bf16, stream)``. They are built with the same ``nvcc`` flags as the
+tree's kernels (``ops/_build.py``) into ``build/ab_old_libs/``.
 
-At each shape (F=28, int32 bins, B=255: the root pass n=1,000,000 W=1, the
-half pass n=500,000 at W=8, at W=16 for kernel 1 and W=15 for kernel 2,
-and at the narrow frontiers of a fit's early rounds, W in {1, 2, 4}) both
-versions run on the same inputs, are checked against each
-other (kernel 2 bit-equal; kernel 1's count channel bit-equal, grad/hess
-within 1e-4 of the channel's magnitude), and are timed in turns old, new,
-new, old: warm (mean of 20 back-to-back launches) and with L2 cold (a
-256 MB write before each launch, each launch timed alone). Each time is
-the wrapper's: the output's zero-fill and the launch.
+Kernels 1 and 2 run at the main path's rows (F=28, int32 bins, B=255: the
+root pass n=1,000,000 W=1 and the half pass n=500,000 W=8), both versions
+with the tree's geometry; kernel 3 at every row of ``chip_smoke.py``'s
+phase 3c (``COLS_ROWS``). At each row both versions run on the same
+inputs, are checked against each other (kernel 2 bit-equal; kernels 1 and
+3 count channels bit-equal, the other channels within 1e-4 of their
+magnitude), and are timed in turns old, new, new, old: warm (mean of 20
+back-to-back launches) and with L2 cold (a 256 MB write before each
+launch, each launch timed alone). Each time is the wrapper's: the output's
+zero-fill and the launch.
 
-An ablation of the tree's kernel follows, at the four main-path rows and
-at n=500,000 W=1, by geometry alone: one feature per block without
-clusters (16-byte loads, grid sized to the card), then the chosen feature
-groups without clusters, then the chosen geometry; and the chosen
-geometry on inputs offset by one element, so every array row is
-misaligned and takes scalar loads. Then a cluster-size sweep at the chosen
-groups (``cudaOccupancyMaxActiveClusters`` beside each size), the chosen
-geometry with a half and a quarter of its row blocks, a feature-group
-sweep at the chosen cluster size, and an empty pass
-(every row at pos -1: zero-fill, launch, shared-memory clear, cluster
-syncs and a flush with nothing to add).
+An ablation of the tree's kernel 3 follows at four rows (n=1,000,000,
+int32 bins: S=2 and S=3 at B=255, S=2 at B=63 and at B=4096), by geometry
+alone: one feature per block with one copy of each cell and no clusters
+(16-byte loads, grid sized to the card), then the chosen feature groups,
+then the pair flush, then the chosen copies of each cell (the chosen
+geometry); the chosen geometry on misaligned inputs (scalar loads); the
+other copy counts (1 and 4 to 32, as many as fit, set through the module
+constant ``_cols_reps`` reads); single blocks and clusters of 4 and 8;
+feature groups of 2, 4, 7, 14 and 28. With ``--node-ablation``, the
+same for kernels 1 and 2 at their main-path rows and at n=500,000 W=1,
+with a cluster sweep, row blocks halved and quartered, a feature-group
+sweep and an empty pass (every row at pos -1).
 
 Needs a CUDA GPU; prints a report (and writes it to ``--out`` if given).
 """
@@ -40,6 +46,7 @@ Needs a CUDA GPU; prints a report (and writes it to ``--out`` if given).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -51,8 +58,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import (card_line, check_hist, hist_inputs,  # noqa: E402
-                        node_bound_ms, time_cold_ms, time_ms)
+from chip_smoke import (COLS_F, COLS_MAIN, COLS_ROWS,  # noqa: E402
+                        STATS_DTYPES, card_line, check_cols, check_hist,
+                        cols_bound_ms, cols_inputs, cols_key, hist_inputs,
+                        misaligned, node_bound_ms, time_cold_ms, time_ms)
 from mmlspark_tpu_torch.ops import _build  # noqa: E402
 from mmlspark_tpu_torch.ops import histogram as hist_ops  # noqa: E402
 
@@ -62,16 +71,22 @@ KINDS = {"bf16": ("node_hist", "mm_node_hist_bf16", torch.float32,
                   hist_ops._node_hist_cuda),
          "int8": ("node_hist_int8", "mm_node_hist_int8", torch.int32,
                   hist_ops._node_hist_int8_cuda)}
+NODE_ROWS = ((1_000_000, 1), (500_000, 8))
+ABLATION_ROWS = (COLS_MAIN, (1_000_000, 3, B, "int32", "bf16", "aligned"),
+                 (1_000_000, 2, 63, "int32", "bf16", "aligned"),
+                 (1_000_000, 2, 4096, "int32", "bf16", "aligned"))
 
 
-def build_old(src_dir: str) -> dict:
-    """Compile the earlier sources with the tree's flags; returns the
-    loaded libraries by kernel name."""
+def build_old(src_dir: str, say) -> dict:
+    """Compile the earlier sources with the tree's flags (and ``-Xptxas
+    -v``, whose registers and spills are reported); returns the loaded
+    libraries by kernel name."""
     os.makedirs(OLD_LIBS, exist_ok=True)
     procs = {}
-    for name, _, _, _ in KINDS.values():
+    for name in hist_ops.KERNELS:
         out = os.path.join(OLD_LIBS, f"lib{name}-old.so")
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out,
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-o", out,
                os.path.join(src_dir, f"{name}.cu")]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
@@ -81,28 +96,46 @@ def build_old(src_dir: str) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the old {name}:\n{log}")
+        say(f"old {name}: nvcc -Xptxas -v\n{log.rstrip()}")
         libs[name] = ctypes.CDLL(out)
     return libs
 
 
-def old_call(lib, entry, out_dtype, binned, pos, base, W):
-    """The earlier wrapper: zero-filled output, one launch on the current
-    stream."""
-    n = binned.shape[1]
-    out = torch.zeros((F, 3 * W, B), dtype=out_dtype, device="cuda")
+def call_c(lib, entry, args):
+    """``entry(*args, stream)`` on the current stream; ``args`` are
+    (ctypes type, value) pairs."""
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    c = ctypes
-    fn.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p,
-                   c.c_longlong, c.c_int, c.c_int, c.c_int, c.c_void_p]
-    code = fn(binned.data_ptr(), 4, pos.data_ptr(), base.data_ptr(),
-              out.data_ptr(), n, F, W, B,
-              torch.cuda.current_stream().cuda_stream)
+    fn.argtypes = [t for t, _ in args] + [ctypes.c_void_p]
+    code = fn(*(v for _, v in args), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, f"old {entry}")
+
+
+def old_node_call(lib, name, entry, out_dtype, binned, pos, base, W, geo):
+    """The earlier node wrapper: zero-filled output, one launch with the
+    tree's geometry."""
+    out = torch.zeros((F, 3 * W, B), dtype=out_dtype, device="cuda")
+    call_c(lib, entry, hist_ops._node_args(name, binned, pos, base, out, W,
+                                           B, geo))
     return out
 
 
-def inputs(kind, n, W, seed):
+def old_cols_call(lib, binned, stats, nb, stats_dtype):
+    """The earlier kernel-3 wrapper: zero-filled output, one launch that
+    chooses its own grid."""
+    S, n = stats.shape
+    out = torch.zeros((binned.shape[0], S, nb), dtype=torch.float32,
+                      device="cuda")
+    c = ctypes
+    call_c(lib, "mm_hist_bf16", [
+        (c.c_void_p, binned.data_ptr()), (c.c_int, binned.element_size()),
+        (c.c_void_p, stats.data_ptr()), (c.c_void_p, out.data_ptr()),
+        (c.c_longlong, n), (c.c_int, binned.shape[0]), (c.c_int, S),
+        (c.c_int, nb), (c.c_int, int(stats_dtype == torch.bfloat16))])
+    return out
+
+
+def node_inputs(kind, n, W, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     binned, pos, base = hist_inputs(gen, n, F, W, B)
     if kind == "int8":
@@ -118,10 +151,33 @@ def same(kind, got, want, what):
         check_hist(got, want)
 
 
-def with_rows(geo, n, row_blocks):
+def turns(old, new):
+    """Warm and cold ms of ``old`` and ``new`` in turns old, new, new, old;
+    each the mean of its two turns."""
+    times = {"old": [], "new": []}
+    for who in ("old", "new", "new", "old"):
+        fn = old if who == "old" else new
+        times[who].append((time_ms(fn, reps=20), time_cold_ms(fn)))
+    row = {"turns": times}
+    for who in ("old", "new"):
+        row[f"{who}_ms"] = sum(t[0] for t in times[who]) / 2
+        row[f"{who}_ms_cold"] = sum(t[1] for t in times[who]) / 2
+    return row
+
+
+def ab_line(label, row, bound, by):
+    return (f"{label}: old {row['old_ms']:.4f} | {row['old_ms_cold']:.4f}  "
+            f"new {row['new_ms']:.4f} | {row['new_ms_cold']:.4f}  "
+            f"(x{row['old_ms'] / row['new_ms']:.2f} warm, "
+            f"x{row['old_ms_cold'] / row['new_ms_cold']:.2f} cold)  bound "
+            f"{bound:.4f} ({by}); new at {100 * bound / row['new_ms']:.1f}% "
+            f"of bound; turns " + json.dumps(row["turns"]))
+
+
+def with_rows(geo, n, row_blocks, bin_bytes=4):
     """``geo`` with ``row_blocks`` row blocks, its threads balanced for
     them (``_balanced_threads``)."""
-    vectors = n // hist_ops._node_rows(4)
+    vectors = n // hist_ops._node_rows(bin_bytes)
     return geo._replace(row_blocks=row_blocks, threads=(
         hist_ops._balanced_threads(vectors, row_blocks)))
 
@@ -137,78 +193,93 @@ def with_group(geo, n, group, held):
                      max(rb, c))
 
 
-def misaligned(t):
-    """A contiguous copy of ``t`` whose data starts one element past a
-    16-byte boundary."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    view = buf[1:].view(t.shape)
-    view.copy_(t)
-    return view
+@contextlib.contextmanager
+def cell_copies(reps, nb):
+    """``_cols_geometry`` with ``reps`` copies of each cell of ``nb`` bins
+    (1, or 4 to 32): sets the bytes of copies ``_cols_reps`` fills."""
+    saved = hist_ops._COLS_REP_BYTES
+    hist_ops._COLS_REP_BYTES = 4 * nb * reps if reps > 1 else 0
+    try:
+        yield
+    finally:
+        hist_ops._COLS_REP_BYTES = saved
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--old-src", required=True)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("ab_node_hist: no CUDA GPU is available")
-    lines = [card_line()]
+def ablate_cols(dev, sms, say, record):
+    say("== ablation of the new kernel 3 (ms; warm | L2 cold)")
+    for row in ABLATION_ROWS:
+        n, S, nb, _, sd, _ = row
+        stats_dtype = STATS_DTYPES[sd]
+        to_bf16 = int(stats_dtype == torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(n + S + 1)
+        binned, stats = cols_inputs(gen, row)
 
-    def say(msg):
-        print(msg, flush=True)
-        lines.append(msg)
+        def held(smem, c):
+            return hist_ops._clusters_held("hist_bf16", dev, 4, smem, c,
+                                           to_bf16)
 
-    say(lines[0])
-    old_libs = build_old(args.old_src)
-    _build.build_all([k[0] for k in KINDS.values()])
-    dev = torch.cuda.current_device()
-    sms = hist_ops._num_sms_of(dev)
-    record = {"card": lines[0], "ab": [], "ablation": []}
+        def geometry(Fg=COLS_F, reps=None, cluster=None):
+            with (cell_copies(reps, nb) if reps else contextlib.nullcontext()):
+                return hist_ops._cols_geometry(n, Fg, S, nb, 4, sms, held,
+                                               cluster)
 
-    shapes = {"bf16": ((1_000_000, 1), (500_000, 8), (500_000, 16),
-                       (500_000, 1), (500_000, 2), (500_000, 4)),
-              "int8": ((1_000_000, 1), (500_000, 8), (500_000, 15),
-                       (500_000, 1), (500_000, 2), (500_000, 4))}
-    say("== A/B in turns old, new, new, old (ms; warm | L2 cold)")
-    for kind, (name, entry, out_dtype, new_fn) in KINDS.items():
-        for n, W in shapes[kind]:
-            binned, pos, base = inputs(kind, n, W, seed=n + W)
-            geo = hist_ops._geometry_on(name, dev, n, F, W, B, 4)
+        chosen = hist_ops._cols_geometry_on(dev, n, COLS_F, S, nb, 4,
+                                            bool(to_bf16))
+        one = geometry(1, reps=1, cluster=1)
+        per_feature = with_rows(one._replace(groups=COLS_F), n, max(
+            1, held(one.smem, 1) // (COLS_F * one.tiles)))
+        want = hist_ops._hist_cuda(binned, stats, nb, stats_dtype)
+        skewed = (misaligned(binned), misaligned(stats))
+        plain = (binned, stats)
+        steps = [("one feature per block, one copy, no clusters",
+                  per_feature, plain),
+                 ("+ feature groups", geometry(reps=1, cluster=1), plain),
+                 ("+ pair flush", geometry(reps=1), plain),
+                 (f"+ {chosen.reps} copies of each cell (the chosen "
+                  "geometry)" if chosen.reps > 1 else
+                  "the chosen geometry (one copy of each cell)", chosen,
+                  plain),
+                 ("chosen geometry, misaligned rows (scalar loads)", chosen,
+                  skewed)]
+        for R in (1, 4, 8, 16, 32):
+            if R != chosen.reps and 4 * nb * R <= hist_ops._SMEM_MAX and (
+                    R > 1 or chosen.reps > 1):
+                steps.append((f"{R} copies", geometry(reps=R), plain))
+        for c in (1, 4, 8):
+            try:
+                if c != chosen.cluster:
+                    steps.append((f"cluster {c}", geometry(cluster=c), plain))
+            except ValueError as e:   # too few row blocks for one cluster
+                say(f"hist_bf16 {cols_key(row)} cluster {c}: not run ({e})")
+        for g in (2, 4, 7, 14, 28):
+            if g != chosen.group and g * chosen.smem // chosen.group <= (
+                    hist_ops._SMEM_MAX):
+                steps.append((f"group {g}", with_group(chosen, n, g, held),
+                              plain))
+        for label, geo, (b_, s_) in steps:
+            def call(geo=geo, b_=b_, s_=s_):
+                return hist_ops._hist_cuda(b_, s_, nb, stats_dtype,
+                                           geometry=geo)
+            check_cols(call(), want, f"hist_bf16 {label}")
+            ms, cold = time_ms(call, reps=20), time_cold_ms(call)
+            n_held = held(geo.smem, geo.cluster)
+            record["ablation"].append(dict(
+                kernel="hist_bf16", row=cols_key(row), step=label,
+                geometry=geo._asdict(), ms=ms, ms_cold=cold,
+                clusters_held=n_held))
+            say(f"hist_bf16 {cols_key(row)} {label}: {ms:.4f} | {cold:.4f}  "
+                f"[group {geo.group}, copies {geo.reps}, cluster {geo.cluster}, "
+                f"{geo.row_blocks * geo.groups * geo.tiles} blocks; card "
+                f"holds {n_held} clusters]")
+        del binned, stats, skewed, want
 
-            def old():
-                return old_call(old_libs[name], entry, out_dtype, binned,
-                                pos, base, W)
 
-            def new():
-                return new_fn(binned, pos, base, W, B)
-
-            same(kind, new(), old(), f"{name} n={n} W={W}")
-            times = {"old": [], "new": []}
-            for who in ("old", "new", "new", "old"):
-                fn = old if who == "old" else new
-                times[who].append((time_ms(fn, reps=20), time_cold_ms(fn)))
-            bound, by = node_bound_ms(binned, pos, base, W, B)
-            row = dict(kernel=name, n=n, W=W, geometry=geo._asdict(),
-                       bound_ms=bound, bound_by=by, turns=times)
-            for who in ("old", "new"):
-                row[f"{who}_ms"] = sum(t[0] for t in times[who]) / 2
-                row[f"{who}_ms_cold"] = sum(t[1] for t in times[who]) / 2
-            record["ab"].append(row)
-            say(f"{name} n={n} W={W}: old {row['old_ms']:.4f} | "
-                f"{row['old_ms_cold']:.4f}  new {row['new_ms']:.4f} | "
-                f"{row['new_ms_cold']:.4f}  (x{row['old_ms'] / row['new_ms']:.2f}"
-                f" warm, x{row['old_ms_cold'] / row['new_ms_cold']:.2f} cold)"
-                f"  bound {bound:.4f} ({by}); new at "
-                f"{100 * bound / row['new_ms']:.1f}% of bound; turns "
-                + json.dumps(times))
-            del binned, pos, base
-
-    say("== ablation of the new kernel at the main-path rows (ms; warm | "
-        "L2 cold)")
+def ablate_nodes(dev, sms, say, record):
+    say("== ablation of the new kernels 1 and 2 (ms; warm | L2 cold)")
     for kind, (name, _, _, new_fn) in KINDS.items():
-        for n, W in shapes[kind][:2] + shapes[kind][3:4]:
-            binned, pos, base = inputs(kind, n, W, seed=n + W + 1)
+        for n, W in NODE_ROWS + ((500_000, 1),):
+            binned, pos, base = node_inputs(kind, n, W, seed=n + W + 1)
+
             def held(smem, c, name=name):
                 return hist_ops._clusters_held(name, dev, 4, smem, c)
 
@@ -264,6 +335,80 @@ def main() -> int:
                     f"{geo.row_blocks * geo.groups * geo.tiles} blocks; "
                     f"card holds {held(geo.smem, geo.cluster)} clusters]")
             del binned, pos, base, skewed, want
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old-src", required=True)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--node-ablation", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_node_hist: no CUDA GPU is available")
+    lines = [card_line()]
+
+    def say(msg):
+        print(msg, flush=True)
+        lines.append(msg)
+
+    say(lines[0])
+    old_libs = build_old(args.old_src, say)
+    say("new kernels: nvcc -Xptxas -v (below, unless already built)")
+    _build.build_all(hist_ops.KERNELS, verbose=True)
+    dev = torch.cuda.current_device()
+    sms = hist_ops._num_sms_of(dev)
+    record = {"card": lines[0], "ab": [], "ablation": []}
+
+    say("== A/B in turns old, new, new, old (ms; warm | L2 cold)")
+    for kind, (name, entry, out_dtype, new_fn) in KINDS.items():
+        for n, W in NODE_ROWS:
+            binned, pos, base = node_inputs(kind, n, W, seed=n + W)
+            geo = hist_ops._geometry_on(name, dev, n, F, W, B, 4)
+
+            def old():
+                return old_node_call(old_libs[name], name, entry, out_dtype,
+                                     binned, pos, base, W, geo)
+
+            def new():
+                return new_fn(binned, pos, base, W, B)
+
+            same(kind, new(), old(), f"{name} n={n} W={W}")
+            row = turns(old, new)
+            bound, by = node_bound_ms(binned, pos, base, W, B)
+            row.update(kernel=name, n=n, W=W, geometry=geo._asdict(),
+                       bound_ms=bound, bound_by=by)
+            record["ab"].append(row)
+            say(ab_line(f"{name} n={n} W={W}", row, bound, by))
+            del binned, pos, base
+
+    for row_key in COLS_ROWS:
+        n, S, nb, _, sd, _ = row_key
+        stats_dtype = STATS_DTYPES[sd]
+        gen = torch.Generator(device="cuda").manual_seed(n + S + nb)
+        binned, stats = cols_inputs(gen, row_key)
+
+        def old():
+            return old_cols_call(old_libs["hist_bf16"], binned, stats, nb,
+                                 stats_dtype)
+
+        def new():
+            return hist_ops.histogram_cols(binned, stats, nb, stats_dtype)
+
+        check_cols(new(), old(), f"hist_bf16 {cols_key(row_key)}")
+        row = turns(old, new)
+        bound, by = cols_bound_ms(binned, stats, nb)
+        geo = hist_ops._cols_geometry_on(dev, n, COLS_F, S, nb,
+                                         binned.element_size(),
+                                         stats_dtype == torch.bfloat16)
+        row.update(kernel="hist_bf16", row=cols_key(row_key),
+                   geometry=geo._asdict(), bound_ms=bound, bound_by=by)
+        record["ab"].append(row)
+        say(ab_line(f"hist_bf16 {cols_key(row_key)}", row, bound, by))
+        del binned, stats
+
+    ablate_cols(dev, sms, say, record)
+    if args.node_ablation:
+        ablate_nodes(dev, sms, say, record)
 
     say("ab: " + json.dumps(record))
     if args.out:
