@@ -30,14 +30,18 @@ Phases (any failure exits non-zero and prints no result line):
    int32 bins, B=255): F=54 at n=581,012 (W=1) and n=290,506 (W=8), F=136
    at n=1,280,000 (W=1), on uniform bins, and the two F=54 rows again on
    phase 6's layout of bins (44 one-hot columns, most rows of a column in
-   one bin).
+   one bin), and at phase 8's shape (``CAT_ROWS``: F=12, 10 continuous
+   columns and a 4-id and a 40-id categorical column, n=581,012 at W=1 and
+   n=290,506 at W=8).
 3b. Kernel 2, ``node_hist_int8`` (int8 stats, int32 sums), against
    ``node_hist_plain(acc_dtype=int32)``: F=28, n=1,000,000 at W=1,
    n=500,000 at W in {8, 15} and n=499,999 at W=8, B in {255, 63} (255
    only at n=499,999), bins int32/uint8, some rows at pos -1.
    ``torch.equal`` is required (integer sums do not depend on order).
    Same times as phase 3, cold at the same two rows; the yardstick on
-   int32 values.
+   int32 values. Then, warm and cold, kernel 2 at phase 8's shape
+   (``CAT_ROWS``) and at phase 6's one-hot bins (F=54, n=581,012 at W=1
+   and n=290,506 at W=8).
 3c. Kernel 3, ``hist_bf16``, through ``histogram_cols`` against
    ``hist_plain``, F=28, at the rows of ``COLS_ROWS``: n=1,000,000 with S
    in {1, 2, 3, 5, 48}, B in {63, 255, 4096}, int32, int16 and uint8 bins,
@@ -103,6 +107,32 @@ Phases (any failure exits non-zero and prints no result line):
    objective's grad/hess time at the fit's shape; the holdout NDCG@10 must
    beat a random order's on the same groups by the floor of ``PERF.md``;
    cuda and cpu margins within 1e-5.
+8. Categorical multiclass at full width: phase 6's rows (581,012 and
+   100,000 holdout, seeds 0 and 1) with the two one-hots collapsed to
+   category ids, ``X = [cont(10), area, soil]`` (ids 0-3 and 0-39),
+   ``LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
+   categoricalSlotIndexes=[10, 11])``, then ``transform``. Kernel 1 must
+   launch and no plain version run; some internal node must split on a
+   bitset; probabilities finite, rows summing to 1 within 1e-6; the
+   holdout ``multi_logloss`` and accuracy held to the floors of
+   ``PERF.md`` (``CAT_LOGLOSS_SHARE``, ``CAT_ACCURACY_MARGIN``). On cuda:
+   ``to_lightgbm_string`` -> ``from_lightgbm_string`` -> ``predict_raw``
+   within 1e-5 of the model's margins; ``predict_leaf`` is ``[n, 70]`` and
+   equals, tree by tree, the leaves ``growth.leaf_nodes_binned`` (the
+   routing of ``predict_tree_binned``) reaches on the holdout's bins;
+   ``feature_importances("split")`` sums to the forest's internal nodes;
+   cuda and cpu ``predict_raw`` within 1e-5.
+8b. Small categorical fits (20,000 of phase 8's rows, 3 classes) on cuda
+   against cpu, as phase 5: bf16 leafwise (kernel 1), and
+   ``useQuantizedGrad=True, quantWarmupIters=0`` leafwise and depthwise
+   (kernel 2, which must launch): identical trees, bitsets included,
+   margins within 1e-5.
+9. The 12 LightGBM text models of ``tests/resources/lgbm_golden``:
+   ``from_lightgbm_string``, ``predict_raw`` and ``predict`` on cuda
+   against ``expected.json`` (rtol 1e-5, atol 1e-6) and against the cpu.
+   Then one ``LightGBMClassifier`` fit on cuda with a scipy CSR features
+   column against the same fit on its dense copy: identical trees and
+   probabilities.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -113,6 +143,7 @@ row: launches, warm and cold ms, bound, % of bound, plain and
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -125,11 +156,14 @@ from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassifier,
                                                 LightGBMRanker,
                                                 LightGBMRegressor,
                                                 _pad_groups)
+from mmlspark_tpu_torch.models.gbdt.booster import Booster
+from mmlspark_tpu_torch.models.gbdt.growth import Tree, leaf_nodes_binned
 from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
                                                        auc_weighted,
                                                        get_objective)
 from mmlspark_tpu_torch.ops import _build
 from mmlspark_tpu_torch.ops import histogram as hist_ops
+from mmlspark_tpu_torch.ops.binning import bin_cols
 from mmlspark_tpu_torch.ops.histogram_scatter import (hist_plain,
                                                       node_hist_plain)
 
@@ -146,6 +180,10 @@ AUC_FLOOR = 0.75
 MULTI_LOGLOSS_SHARE = 0.85
 ACCURACY_MARGIN = 0.2
 NDCG_MARGIN = 0.2
+# phase 8 quality floors (PERF.md, set from a CPU rehearsal at a small size
+# before its first chip run; no looser than phase 6's)
+CAT_LOGLOSS_SHARE = 0.85
+CAT_ACCURACY_MARGIN = 0.2
 # phase 6 and 7 sizes: Covertype's rows, MSLR-WEB10K's query counts
 COVERTYPE_ROWS, COVERTYPE_HOLDOUT = 581_012, 100_000
 MSLR_QUERIES, MSLR_HOLDOUT_QUERIES, MSLR_GROUP = 10_000, 2_000, 128
@@ -240,6 +278,29 @@ def covertype_bins(gen, n):
         hot = torch.randint(0, width, (n,), generator=gen, device="cuda")
         binned[first + hot, rows] = 1
     return binned
+
+
+def categorical_bins(gen, n):
+    """[12, n] int32 bins laid out as phase 8's: 10 continuous columns over
+    all 255 bins, then the area id (bins 0-3) and the soil id (0-39)."""
+    binned = torch.randint(0, 255, (12, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    binned[10] = torch.randint(0, 4, (n,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+    binned[11] = torch.randint(0, 40, (n,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+    return binned
+
+
+def path_bins(gen, F, n, W, bins):
+    """Bins, pos and f32 stats of a path row: uniform bins, phase 6's
+    one-hot layout or phase 8's categorical one."""
+    binned, pos, base = hist_inputs(gen, n, F, W, 255)
+    if bins == "one-hot":
+        binned = covertype_bins(gen, n)
+    elif bins == "categorical":
+        binned = categorical_bins(gen, n)
+    return binned, pos, base
 
 
 def bound_ms(nbytes: int, ops: float, peak_ops: float) -> tuple:
@@ -365,6 +426,10 @@ MAIN_ROWS = ((1_000_000, 1, 255, "int32"), (500_000, 8, 255, "int32"))
 PATH_ROWS = ((54, 581_012, 1, "uniform"), (54, 290_506, 8, "uniform"),
              (136, 1_280_000, 1, "uniform"), (54, 581_012, 1, "one-hot"),
              (54, 290_506, 8, "one-hot"))
+# phase 8's root and half passes (kernels 1 and 2), on its bins
+CAT_ROWS = ((12, 581_012, 1, "categorical"), (12, 290_506, 8, "categorical"))
+# kernel 2 on phase 6's one-hot bins
+INT8_PATH_ROWS = CAT_ROWS + PATH_ROWS[3:]
 
 
 def log_geometry():
@@ -433,10 +498,8 @@ def phase_kernels():
             log_row("node_hist", key, r, f"max_abs_err {err:.3g}")
             del binned, want, got
         del binned32, pos, base
-    for F_, n, W, bins in PATH_ROWS:
-        binned, pos, base = hist_inputs(gen, n, F_, W, 255)
-        if bins == "one-hot":
-            binned = covertype_bins(gen, n)
+    for F_, n, W, bins in PATH_ROWS + CAT_ROWS:
+        binned, pos, base = path_bins(gen, F_, n, W, bins)
         want = node_hist_plain(binned, pos, base, W, 255)
         got = hist_ops.node_histogram(binned, pos, base, W, 255)
         torch.cuda.synchronize()
@@ -488,6 +551,25 @@ def phase_int8_kernel():
             log_row("node_hist_int8", key, r, "bit-equal")
             del binned, want, got
         del binned32, pos, base, base_f
+    for F_, n, W, bins in INT8_PATH_ROWS:
+        binned, pos, base_f = path_bins(gen, F_, n, W, bins)
+        base, _ = hist_ops.quantize_stats(base_f)
+        want = node_hist_plain(binned, pos, base, W, 255,
+                               acc_dtype=torch.int32)
+        got = hist_ops._node_hist_int8_cuda(binned, pos, base, W, 255)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"node_hist_int8 F={F_} n={n} W={W} {bins} "
+                                 "bins: not bit-equal to the plain version")
+        key = (n, W, 255, "int32", F_, bins)
+        r = node_row(
+            lambda: hist_ops._node_hist_int8_cuda(binned, pos, base, W, 255),
+            lambda: node_hist_plain(binned, pos, base, W, 255,
+                                    acc_dtype=torch.int32),
+            binned, pos, base, W, 255, cold=True)
+        rows[key] = dict(r, max_abs_err=0.0)
+        log_row(f"node_hist_int8 F={F_} {bins} bins", key, r, "bit-equal")
+        del binned, pos, base, base_f, want, got
     return rows, max_err
 
 
@@ -743,14 +825,15 @@ def phase_end_to_end(label, needs, data, check_quality=True, **params):
 
 
 def phase_small_agreement(label, estimator=LightGBMClassifier, cols=None,
-                          **params):
+                          needs=(), **params):
     """The card against the CPU on a small input: the same fit on cuda
-    (the kernels) and on cpu (the plain versions) grows the same trees and
-    predicts the same margins; its best iteration and eval history (if it
-    has a validation set) agree too. Leaves are kept at 500+ rows so the f32
-    parent-minus-left totals, summed in another order on each device, move
-    no leaf value past the 1e-5 tolerance. ``cols`` defaults to 20,000
-    HIGGS-shaped rows."""
+    (the kernels: those of ``needs`` must launch, no plain version may run)
+    and on cpu (the plain versions) grows the same trees, categorical
+    bitsets included, and predicts the same margins; its best iteration and
+    eval history (if it has a validation set) agree too. Leaves are kept at
+    500+ rows so the f32 parent-minus-left totals, summed in another order
+    on each device, move no leaf value past the 1e-5 tolerance. ``cols``
+    defaults to 20,000 HIGGS-shaped rows."""
     log(f"== phase {label}: small {estimator.__name__} fit on cuda vs cpu "
         f"{params}")
     if cols is None:
@@ -759,11 +842,21 @@ def phase_small_agreement(label, estimator=LightGBMClassifier, cols=None,
     kw = dict(numIterations=3, numLeaves=7, minDataInLeaf=500, maxBin=255)
     kw.update(params)
     boosters = {}
+    torch.cuda.synchronize()
+    reset_counts()
     for dev in ("cuda", "cpu"):
         boosters[dev] = estimator(device=dev, **kw).fit(
             Dataset(cols)).booster
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+    for k in needs:
+        if counts[k] <= 0:
+            raise AssertionError(f"the cuda fit never launched {k}: {counts}")
+    if counts["plain"] != 0:
+        raise AssertionError(f"a plain histogram ran on cuda: {counts}")
     g, c = boosters["cuda"], boosters["cpu"]
-    for f in ("feat", "thr_bin", "left", "right", "is_leaf"):
+    for f in ("feat", "thr_bin", "cat_bitset", "left", "right", "is_leaf"):
         if not np.array_equal(g.trees[f], c.trees[f]):
             raise AssertionError(f"tree field {f} differs between cuda and "
                                  "cpu fits")
@@ -868,6 +961,20 @@ def mslr_shaped(queries, seed, largest=MSLR_GROUP, first_query=0):
     return X, y, group
 
 
+def multiclass_quality(probs, pred, y, yh, classes):
+    """(holdout multi_logloss, the class prior's, accuracy, majority
+    share, largest |row sum - 1|)."""
+    pick = probs[np.arange(len(yh)), yh.astype(int)]
+    logloss = float(-np.mean(np.log(np.clip(pick, 1e-15, 1.0))))
+    prior = np.bincount(y.astype(int), minlength=classes) / len(y)
+    prior_ll = float(-np.mean(np.log(prior[yh.astype(int)])))
+    majority = float(np.bincount(yh.astype(int), minlength=classes).max()
+                     / len(yh))
+    acc = float((pred == yh).mean())
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    return logloss, prior_ll, acc, majority, row_err
+
+
 def phase_multiclass():
     """Phase 6: the 7-class Covertype-shaped fit at full width."""
     log(f"== phase 6: LightGBMClassifier multiclass fit -> transform, "
@@ -897,14 +1004,8 @@ def phase_multiclass():
     probs = out.array("probability")
     if probs.shape != (len(yh), 7) or not np.isfinite(probs).all():
         raise AssertionError(f"bad probabilities: shape {probs.shape}")
-    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
-    pick = probs[np.arange(len(yh)), yh.astype(int)]
-    logloss = float(-np.mean(np.log(np.clip(pick, 1e-15, 1.0))))
-    acc = float((out.array("prediction") == yh).mean())
-    prior = np.bincount(y.astype(int), minlength=7) / len(y)
-    prior_ll = float(-np.mean(np.log(prior[yh.astype(int)])))
-    majority = float(np.bincount(yh.astype(int), minlength=7).max()
-                     / len(yh))
+    logloss, prior_ll, acc, majority, row_err = multiclass_quality(
+        probs, out.array("prediction"), y, yh, 7)
     log(f"holdout multi_logloss {logloss:.5f} (class prior {prior_ll:.5f}, "
         f"floor {MULTI_LOGLOSS_SHARE} x prior); accuracy {acc:.5f} "
         f"(majority share {majority:.5f}, floor + {ACCURACY_MARGIN}); "
@@ -1015,6 +1116,188 @@ def phase_ranker():
                 lambdarank_grad_hess_ms=lam_ms)
 
 
+def covertype_categorical(n, seed, classes=7):
+    """Phase 6's Covertype-shaped rows with the two one-hots collapsed to
+    category ids: ``[cont(10), area (0-3), soil (0-39)]``, same labels."""
+    X, y = covertype_shaped(n, seed, classes)
+    area = X[:, 10:14].argmax(axis=1)
+    soil = X[:, 14:54].argmax(axis=1)
+    return (np.column_stack([X[:, :10], area, soil]).astype(np.float32), y)
+
+
+def device_tree(booster, t, dev):
+    """Tree ``t`` of a booster as a growth ``Tree`` on ``dev`` (bitset words
+    as int64)."""
+    return Tree(**{f: torch.tensor(
+        booster.trees[f][t].astype(np.int64) if f == "cat_bitset"
+        else booster.trees[f][t], device=dev) for f in Tree._fields})
+
+
+def phase_categorical():
+    """Phase 8: categorical multiclass at full width, then the model's
+    text round trip, leaves and importances on the card."""
+    log(f"== phase 8: LightGBMClassifier categorical multiclass fit -> "
+        f"transform, {COVERTYPE_ROWS} x 12 (ids 0-3 and 0-39) x 255, 7 "
+        "classes")
+    X, y = covertype_categorical(COVERTYPE_ROWS, seed=0)
+    Xh, yh = covertype_categorical(COVERTYPE_HOLDOUT, seed=1)
+    est = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
+                             categoricalSlotIndexes=[10, 11], device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    model = est.fit(Dataset({"features": X, "label": y}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.transform(Dataset({"features": Xh}))
+    pred_s = time.perf_counter() - t0
+    counts = read_counts()
+    booster = model.booster
+    T = booster.num_trees
+    t = booster.trees
+    internal = ~t["is_leaf"]
+    cat_nodes = int((internal & t["cat_bitset"].any(axis=-1)).sum())
+    log(f"fit {fit_s:.3f} s ({T / fit_s:.3f} trees/s, {T} trees), transform "
+        f"{pred_s:.3f} s ({len(yh) / pred_s:.0f} rows/s); launches {counts}; "
+        f"{cat_nodes} of {int(internal.sum())} internal nodes split on a "
+        "category bitset")
+    if counts["node_hist_bf16"] <= 0 or counts["plain"] != 0:
+        raise AssertionError(f"phase 8 did not go through kernel 1 alone: "
+                             f"{counts}")
+    if cat_nodes <= 0:
+        raise AssertionError("no internal node split on a category bitset")
+    probs = out.array("probability")
+    if probs.shape != (len(yh), 7) or not np.isfinite(probs).all():
+        raise AssertionError(f"bad probabilities: shape {probs.shape}")
+    logloss, prior_ll, acc, majority, row_err = multiclass_quality(
+        probs, out.array("prediction"), y, yh, 7)
+    log(f"holdout multi_logloss {logloss:.5f} (class prior {prior_ll:.5f}, "
+        f"floor {CAT_LOGLOSS_SHARE} x prior); accuracy {acc:.5f} (majority "
+        f"share {majority:.5f}, floor + {CAT_ACCURACY_MARGIN}); probability "
+        f"rows sum to 1 within {row_err:.3g}")
+    if row_err > 1e-6:
+        raise AssertionError(f"probability rows off 1 by {row_err}")
+    if logloss > CAT_LOGLOSS_SHARE * prior_ll:
+        raise AssertionError(f"holdout multi_logloss {logloss} above "
+                             f"{CAT_LOGLOSS_SHARE} x {prior_ll}")
+    if acc < majority + CAT_ACCURACY_MARGIN:
+        raise AssertionError(f"holdout accuracy {acc} below {majority} + "
+                             f"{CAT_ACCURACY_MARGIN}")
+    margins = booster.predict_raw(Xh, device="cuda")
+    diff = margin_diff(margins, booster.predict_raw(Xh, device="cpu"))
+    log(f"predict_raw cuda vs cpu: max abs diff {diff:.3g}")
+    if not diff <= 1e-5:
+        raise AssertionError(f"predict_raw cuda vs cpu differ by {diff}")
+    # LightGBM text and back, scored on the card
+    t0 = time.perf_counter()
+    text = booster.to_lightgbm_string()
+    back = Booster.from_lightgbm_string(text)
+    text_s = time.perf_counter() - t0
+    diff = margin_diff(back.predict_raw(Xh, device="cuda"), margins)
+    log(f"LightGBM text: {len(text)} characters, written and read in "
+        f"{text_s:.3f} s; its margins differ by {diff:.3g} (strict routing "
+        f"{back._cat_strict()})")
+    if not diff <= 1e-5:
+        raise AssertionError(f"the text round trip moved margins by {diff}")
+    # predict_leaf against the binned routing of predict_tree_binned
+    t0 = time.perf_counter()
+    leaves = booster.predict_leaf(Xh, device="cuda")
+    leaf_s = time.perf_counter() - t0
+    if leaves.shape != (len(yh), T):
+        raise AssertionError(f"predict_leaf shape {leaves.shape}")
+    Xhb = bin_cols(torch.from_numpy(Xh).cuda(), torch.from_numpy(
+        booster.binner_state["upper_bounds"])).t().contiguous()
+    is_cat = torch.tensor(booster._is_cat(), device="cuda")
+    for k in range(T):
+        nodes = leaf_nodes_binned(device_tree(booster, k, "cuda"), Xhb,
+                                  booster.depth_cap, is_cat)
+        if not np.array_equal(nodes.cpu().numpy(), leaves[:, k]):
+            raise AssertionError(f"tree {k}: predict_leaf differs from the "
+                                 "binned routing")
+    split = booster.feature_importances("split")
+    log(f"predict_leaf [{len(yh)}, {T}] in {leaf_s:.3f} s, equal to the "
+        f"binned routing of every tree; split importances {split.tolist()} "
+        f"(sum {split.sum():.0f})")
+    if split.sum() != internal.sum():
+        raise AssertionError("split importances do not sum to the internal "
+                             "nodes")
+    return dict(counts=counts, fit_s=fit_s, trees_per_s=T / fit_s,
+                predict_rows_per_s=len(yh) / pred_s, multi_logloss=logloss,
+                prior_logloss=prior_ll, accuracy=acc, majority=majority,
+                categorical_nodes=cat_nodes, text_chars=len(text))
+
+
+def phase_small_categorical():
+    """Phase 8b: small categorical fits, cuda against cpu."""
+    Xc, yc = covertype_categorical(20_000, seed=5, classes=3)
+    cols = {"features": Xc, "label": yc}
+    kw = dict(categoricalSlotIndexes=[10, 11])
+    phase_small_agreement("8b", LightGBMClassifier, cols,
+                          needs=("node_hist_bf16",), **kw)
+    for policy in ("leafwise", "depthwise"):
+        phase_small_agreement("8b", LightGBMClassifier, cols,
+                              needs=("node_hist_int8",),
+                              useQuantizedGrad=True, quantWarmupIters=0,
+                              growthPolicy=policy, **kw)
+
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "resources", "lgbm_golden")
+
+
+def phase_golden():
+    """Phase 9: the LightGBM text corpus scored on the card, and a CSR
+    features column fitted on the card."""
+    log("== phase 9: the LightGBM text corpus on cuda; a CSR fit")
+    names = sorted(os.listdir(GOLDEN_DIR))
+    if len(names) != 12:
+        raise AssertionError(f"the corpus holds {len(names)} models, not 12")
+    worst = 0.0
+    for name in names:
+        with open(os.path.join(GOLDEN_DIR, name, "model.txt")) as f:
+            b = Booster.from_lightgbm_string(f.read())
+        with open(os.path.join(GOLDEN_DIR, name, "expected.json")) as f:
+            exp = json.load(f)
+        X = np.asarray(exp["X"], np.float32)
+        for what, fn in (("raw", b.predict_raw), ("pred", b.predict)):
+            got = fn(X, device="cuda")
+            want = np.asarray(exp[what])
+            if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"{name} {what}: {got} against {want}")
+            cpu = fn(X, device="cpu")
+            if not np.allclose(got, cpu, rtol=0, atol=1e-6):
+                raise AssertionError(f"{name} {what}: cuda {got} against "
+                                     f"cpu {cpu}")
+            worst = max(worst, float(np.abs(got - want).max()))
+        log(f"{name}: {b.num_trees} trees, depth cap {b.depth_cap}, "
+            f"{'categorical' if b._is_cat() is not None else 'numeric'}, "
+            f"missing routing {'stored' if b.missing_dec is not None else 'default'}"
+            ": matches expected.json and the cpu")
+    log(f"corpus: 12 models, largest |cuda - expected| {worst:.3g}")
+    import scipy.sparse as sp
+    X, y = higgs_shaped(20_000, seed=3)
+    X[np.random.default_rng(4).uniform(size=X.shape) < 0.5] = 0.0
+    est = LightGBMClassifier(numIterations=3, numLeaves=15, maxBin=255,
+                             device="cuda")
+    dense = est.fit(Dataset({"features": X, "label": y}))
+    sparse = est.fit(Dataset({"features": sp.csr_matrix(X), "label": y}))
+    for f in ("feat", "thr_bin", "left", "right", "is_leaf"):
+        if not np.array_equal(dense.booster.trees[f],
+                              sparse.booster.trees[f]):
+            raise AssertionError(f"CSR fit: tree field {f} differs")
+    # two fits on the card sum their histograms' floats in another order
+    diff = margin_diff(
+        dense.transform(Dataset({"features": X})).array("rawPrediction"),
+        sparse.transform(Dataset({"features": sp.csr_matrix(X)})).array(
+            "rawPrediction"))
+    log(f"CSR features (20,000 x 28, half zeros): the same trees as the "
+        f"dense copy, margins within {diff:.3g}")
+    if not diff <= 1e-5:
+        raise AssertionError(f"CSR fit: margins differ by {diff}")
+    return dict(golden_max_abs_err=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -1058,7 +1341,10 @@ def main() -> int:
     del X, y, Xh, yh, data
     fits["6"] = phase_multiclass()
     fits["7"] = phase_ranker()
-    log("fits: " + json.dumps(fits))
+    fits["8"] = phase_categorical()
+    phase_small_categorical()
+    golden = phase_golden()
+    log("fits: " + json.dumps(fits) + "; " + json.dumps(golden))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values())

@@ -12,11 +12,15 @@ transform run on.
 Validation sets (``validationIndicatorCol``) with early stopping,
 ``improvementTolerance``, ``metricEvalPeriod``, ``metric`` overrides and
 ``isProvideTrainingMetric`` are ported, as are ``growthPolicy`` (leafwise
-or depthwise) and ``useQuantizedGrad`` with ``quantRenewLeaf`` and
-``quantWarmupIters``. Params whose non-default values select parts of the
-JAX package that are not ported yet (bagging, dart/goss/rf, init scores,
-warm starts, checkpoints, categorical slots, voting, SHAP and leaf outputs)
-raise ``NotImplementedError`` at fit time rather than being ignored.
+or depthwise), ``useQuantizedGrad`` with ``quantRenewLeaf`` and
+``quantWarmupIters``, ``categoricalSlotIndexes``, ``slotNames`` and
+``leafPredictionCol``. Feature columns may be scipy sparse matrices. The
+models export and import LightGBM's text format
+(``get_native_model``/``save_native_model``/``load_native_model``) and
+report feature importances. Params whose non-default values select parts
+of the JAX package that are not ported yet (bagging, dart/goss/rf, init
+scores, warm starts, checkpoints, voting, SHAP) raise
+``NotImplementedError`` at fit time rather than being ignored.
 """
 
 from __future__ import annotations
@@ -27,13 +31,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...core.dataset import Dataset
+from ...core.dataset import Dataset, _is_sparse
 from ...core.params import (HasFeaturesCol, HasGroupCol, HasInitScoreCol,
                             HasLabelCol, HasPredictionCol, HasProbabilityCol,
                             HasRawPredictionCol, HasValidationIndicatorCol,
                             HasWeightCol, Param, TypeConverters)
 from ...core.pipeline import Estimator, Model
-from .booster import Booster, train_booster
+from .booster import Booster, _densify, train_booster
 from .growth import GrowConfig, resolve_growth_backend
 
 
@@ -200,9 +204,7 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
     _NOT_PORTED = ("boostingType", "baggingFraction", "posBaggingFraction",
                    "negBaggingFraction", "initScoreCol", "numBatches",
                    "modelString", "checkpointDir", "parallelism",
-                   "categoricalSlotIndexes",
-                   "categoricalSlotNames", "leafPredictionCol",
-                   "featuresShapCol", "slotNames")
+                   "featuresShapCol")
 
     def _check_ported(self) -> None:
         for name in self._NOT_PORTED:
@@ -237,11 +239,40 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
         ))
 
     def _extract_arrays(self, dataset: Dataset):
-        X = dataset.array(self.get_or_default("featuresCol"), np.float32)
+        X = _features_dense(dataset, self.get_or_default("featuresCol"))
         y = dataset.array(self.get_or_default("labelCol"), np.float32)
         wcol = self.get_or_default("weightCol")
         w = dataset.array(wcol, np.float32) if wcol else None
         return X, y, w
+
+    def _categorical_indexes(self):
+        if self.get_or_default("categoricalSlotNames"):
+            raise ValueError(
+                "categoricalSlotNames requires named feature slots; this "
+                "columnar Dataset API carries plain arrays — use "
+                "categoricalSlotIndexes")
+        idx = self.get_or_default("categoricalSlotIndexes")
+        return tuple(int(i) for i in idx) if idx else ()
+
+    def _apply_slot_names(self, booster: Booster) -> Booster:
+        """Record slotNames as the model's feature names (they become the
+        native model's ``feature_names``; reference: LightGBMParams
+        slotNames)."""
+        names = self.get_or_default("slotNames")
+        if names:
+            F = booster.binner_state.get("num_features")
+            if F is not None and len(names) != F:
+                raise ValueError(
+                    f"slotNames has {len(names)} entries for {F} features")
+            names = [str(x) for x in names]
+            bad = [x for x in names if not x or any(c.isspace() for c in x)]
+            if bad:
+                # the native text format is whitespace-delimited
+                raise ValueError(
+                    f"slotNames must be non-empty and whitespace-free for "
+                    f"native-model interop; got {bad[:3]}")
+            booster.binner_state["feature_names"] = names
+        return booster
 
     def _split_validation(self, dataset: Dataset):
         """validationIndicatorCol semantics (reference:
@@ -270,6 +301,7 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
                 "isProvideTrainingMetric"),
             eval_metric_name=self.get_or_default("metric"),
             max_bin_by_feature=self.get_or_default("maxBinByFeature"),
+            categorical_features=self._categorical_indexes(),
             device=self.get_or_default("device"))
 
     def _fit_booster(self, dataset: Dataset, objective: str, num_class: int,
@@ -280,21 +312,63 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
         valid_set = None
         if valid_ds is not None and len(valid_ds) > 0:
             valid_set = self._extract_arrays(valid_ds)
-        return train_booster(
+        return self._apply_slot_names(train_booster(
             X, y, w, objective=objective, num_class=num_class,
             valid_set=valid_set,
             boost_from_average=self.get_or_default("boostFromAverage"),
             objective_kwargs=objective_kwargs or {},
             bin_dtype=self.get_or_default("binDtype"),
-            **self._train_params())
+            **self._train_params()))
+
+
+def _features_dense(dataset: Dataset, col: str) -> np.ndarray:
+    """The features column as dense f32; a scipy sparse matrix is
+    densified in row blocks (LGBM_DatasetCreateFromCSR parity)."""
+    raw = dataset[col]
+    if _is_sparse(raw):
+        return _densify(raw)
+    return dataset.array(col, np.float32)
 
 
 class _LightGBMModelBase(Model, _LightGBMParams):
-    """Shared trained-model behavior (persistence)."""
+    """Shared trained-model behavior (introspection, native model export,
+    persistence)."""
 
     def __init__(self, booster: Optional[Booster] = None, **kwargs):
         super().__init__(**kwargs)
         self.booster = booster
+
+    def _add_introspection_cols(self, dataset: Dataset, X) -> Dataset:
+        """``leafPredictionCol``: each row's leaf slot in every tree."""
+        if self.get_or_default("featuresShapCol"):
+            raise NotImplementedError(
+                "featuresShapCol is not ported to the PyTorch package yet")
+        leaf_col = self.get_or_default("leafPredictionCol")
+        if leaf_col:
+            dataset = dataset.with_column(
+                leaf_col, self.booster.predict_leaf(
+                    X, device=self.get_or_default("device")
+                ).astype(np.float64))
+        return dataset
+
+    def get_feature_importances(self, importance_type: str = "split"):
+        return self.booster.feature_importances(importance_type).tolist()
+
+    def get_native_model(self) -> str:
+        """The model as LightGBM text (loads in any LightGBM tooling;
+        reference: LightGBMModelMethods getNativeModel)."""
+        return self.booster.to_lightgbm_string()
+
+    def save_native_model(self, path: str) -> None:
+        """Write LightGBM's ``tree`` v3 text format (reference:
+        LightGBMClassifier.scala:172-194 saveNativeModel)."""
+        with open(path, "w") as f:
+            f.write(self.booster.to_lightgbm_string())
+
+    @staticmethod
+    def _read_native(path: str) -> Booster:
+        with open(path) as f:
+            return Booster.from_string(f.read())
 
     def _save_extra(self, path: str) -> None:
         self.booster.save(os.path.join(path, "booster"))
@@ -353,7 +427,7 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasRawPredictionCol,
         return max(self.booster.num_class, 2)
 
     def transform(self, dataset: Dataset) -> Dataset:
-        X = dataset.array(self.get_or_default("featuresCol"), np.float32)
+        X = _features_dense(dataset, self.get_or_default("featuresCol"))
         raw = self.booster.predict_raw(X, device=self.get_or_default("device"))
         if self.booster.num_class == 1:          # binary: [neg, pos] margins
             margins = np.concatenate([-raw, raw], axis=1)
@@ -364,12 +438,19 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasRawPredictionCol,
             probs = torch.softmax(torch.from_numpy(raw), dim=1).numpy()
         th = self.get_or_default("thresholds")
         scaled = probs / np.asarray(th)[None, :] if th else probs
-        return dataset.with_columns({
+        out = dataset.with_columns({
             self.get_or_default("rawPredictionCol"): margins,
             self.get_or_default("probabilityCol"): probs,
             self.get_or_default("predictionCol"):
                 scaled.argmax(axis=1).astype(np.float64),
         })
+        return self._add_introspection_cols(out, X)
+
+    @staticmethod
+    def load_native_model(path: str) -> "LightGBMClassificationModel":
+        booster = _LightGBMModelBase._read_native(path)
+        k = 2 if booster.num_class == 1 else booster.num_class
+        return LightGBMClassificationModel(booster, numClasses=k)
 
 
 class LightGBMRegressor(Estimator, _LightGBMParams):
@@ -402,10 +483,15 @@ class LightGBMRegressor(Estimator, _LightGBMParams):
 
 class LightGBMRegressionModel(_LightGBMModelBase):
     def transform(self, dataset: Dataset) -> Dataset:
-        X = dataset.array(self.get_or_default("featuresCol"), np.float32)
+        X = _features_dense(dataset, self.get_or_default("featuresCol"))
         pred = self.booster.predict(X, device=self.get_or_default("device"))
-        return dataset.with_column(self.get_or_default("predictionCol"),
-                                   pred.astype(np.float64))
+        out = dataset.with_column(self.get_or_default("predictionCol"),
+                                  pred.astype(np.float64))
+        return self._add_introspection_cols(out, X)
+
+    @staticmethod
+    def load_native_model(path: str) -> "LightGBMRegressionModel":
+        return LightGBMRegressionModel(_LightGBMModelBase._read_native(path))
 
 
 def _pad_groups(X: np.ndarray, y: np.ndarray, w: Optional[np.ndarray],
@@ -504,11 +590,11 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
                     f"labelGain has {len(lg)} entries but the data "
                     f"contains relevance grade {max_grade}")
             kwargs["label_gain"] = tuple(float(g) for g in lg)
-        booster = train_booster(
+        booster = self._apply_slot_names(train_booster(
             Xp, yp, wp, objective="lambdarank", num_class=1,
             valid_set=valid_set, boost_from_average=False,
             objective_kwargs=kwargs, row_valid=valid,
-            **self._train_params())
+            **self._train_params()))
         model = LightGBMRankerModel(booster)
         self._copy_params_to(model)
         return model
@@ -516,8 +602,13 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
 
 class LightGBMRankerModel(_LightGBMModelBase):
     def transform(self, dataset: Dataset) -> Dataset:
-        X = dataset.array(self.get_or_default("featuresCol"), np.float32)
+        X = _features_dense(dataset, self.get_or_default("featuresCol"))
         score = self.booster.predict_raw(
             X, device=self.get_or_default("device"))[:, 0]
-        return dataset.with_column(self.get_or_default("predictionCol"),
-                                   score.astype(np.float64))
+        out = dataset.with_column(self.get_or_default("predictionCol"),
+                                  score.astype(np.float64))
+        return self._add_introspection_cols(out, X)
+
+    @staticmethod
+    def load_native_model(path: str) -> "LightGBMRankerModel":
+        return LightGBMRankerModel(_LightGBMModelBase._read_native(path))

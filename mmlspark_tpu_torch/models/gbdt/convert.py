@@ -13,14 +13,10 @@ from typing import Mapping, Optional
 
 import numpy as np
 
-from .booster import Booster
+from .booster import TREE_DTYPES, Booster
 from .growth import Tree
 
-_DTYPES = {"feat": np.int32, "thr_bin": np.int32, "left": np.int32,
-           "right": np.int32, "is_leaf": np.bool_, "leaf_value": np.float32,
-           "node_count": np.int32, "node_grad": np.float32,
-           "node_hess": np.float32, "node_cnt": np.float32,
-           "split_gain": np.float32, "node_value": np.float32}
+_REQUIRED = ("feat", "thr_bin", "left", "right", "is_leaf", "leaf_value")
 
 
 def booster_from_jax_arrays(tree_fields: Mapping[str, np.ndarray],
@@ -35,20 +31,17 @@ def booster_from_jax_arrays(tree_fields: Mapping[str, np.ndarray],
 
     ``tree_fields``: the JAX ``Tree``'s fields as numpy (``feat``,
     ``thr_bin``, ``left``, ``right``, ``is_leaf`` and ``leaf_value`` are
-    required; the bookkeeping fields default to zeros). ``depth_cap``
-    defaults to ``num_leaves - 1`` (``(M - 1) // 2``), which bounds the
-    depth of any tree in ``M`` slots grown leafwise. ``num_class`` and
-    ``objective_kwargs`` carry multiclass boosters (tree ``t`` scores class
-    ``t % num_class``) and rankers (``group_size``, ``label_gain``, ...; a
-    ranker without them scores only). Categorical bitsets and imported
-    missing-value routing are not ported and raise.
+    required; the bookkeeping fields default to zeros, ``cat_bitset`` to
+    no categorical split). ``depth_cap`` defaults to ``num_leaves - 1``
+    (``(M - 1) // 2``), which bounds the depth of any tree in ``M`` slots
+    grown leafwise. ``num_class`` and ``objective_kwargs`` carry multiclass
+    boosters (tree ``t`` scores class ``t % num_class``) and rankers
+    (``group_size``, ``label_gain``, ...; a ranker without them scores
+    only). Categorical bitsets route the features that
+    ``binner_state["categorical_features"]`` names, so bitsets without
+    such a feature are refused; ``missing_dec`` ([T, M] decision_type
+    bytes) carries the missing-value routing of an imported model.
     """
-    if missing_dec is not None:
-        raise NotImplementedError(
-            "imported missing-value routing (missing_dec) is not ported")
-    cat = tree_fields.get("cat_bitset")
-    if cat is not None and np.any(np.asarray(cat)):
-        raise NotImplementedError("categorical splits are not ported")
     feat = np.asarray(tree_fields["feat"])
     if feat.ndim != 2:
         raise ValueError(f"tree fields must be stacked [T, M], got feat "
@@ -56,20 +49,33 @@ def booster_from_jax_arrays(tree_fields: Mapping[str, np.ndarray],
     trees = {}
     for name in Tree._fields:
         if name in tree_fields:
-            trees[name] = np.asarray(tree_fields[name]).astype(_DTYPES[name])
+            trees[name] = np.asarray(tree_fields[name]).astype(
+                TREE_DTYPES[name])
+        elif name in _REQUIRED:
+            raise ValueError(f"tree_fields lacks the required field {name!r}")
         elif name == "node_count":
             trees[name] = np.zeros(feat.shape[0], np.int32)
-        elif name in ("feat", "thr_bin", "left", "right", "is_leaf",
-                      "leaf_value"):
-            raise ValueError(f"tree_fields lacks the required field {name!r}")
-        else:
-            trees[name] = np.zeros(feat.shape, _DTYPES[name])
+        elif name != "cat_bitset":
+            trees[name] = np.zeros(feat.shape, TREE_DTYPES[name])
+    cat = trees.get("cat_bitset")
+    if cat is not None:
+        if cat.shape[:2] != feat.shape:
+            raise ValueError(f"cat_bitset {cat.shape} does not match the "
+                             f"trees {feat.shape}")
+        cats = (binner_state or {}).get("categorical_features") or ()
+        if np.any(cat) and not cats:
+            raise ValueError(
+                "cat_bitset holds categorical splits but binner_state names "
+                "no categorical_features to route them by")
     thr_raw = np.asarray(thr_raw, np.float32)
     if thr_raw.shape != feat.shape:
         raise ValueError(f"thr_raw {thr_raw.shape} does not match the trees "
                          f"{feat.shape}")
+    if missing_dec is not None and np.shape(missing_dec) != feat.shape:
+        raise ValueError(f"missing_dec {np.shape(missing_dec)} does not match "
+                         f"the trees {feat.shape}")
     if depth_cap is None:
         depth_cap = max(1, (feat.shape[1] - 1) // 2)
     return Booster(trees, thr_raw, num_class, base_score, objective,
                    depth_cap, binner_state,
-                   objective_kwargs=objective_kwargs)
+                   objective_kwargs=objective_kwargs, missing_dec=missing_dec)

@@ -15,7 +15,9 @@ package's fixed slot layout, so they pack, save and predict identically:
 
 Both take ``quantized_grad`` (LightGBM use_quantized_grad): the stats are
 quantized to int8 per tree and every histogram pass runs the int8 kernel,
-with exact int32 sums.
+with exact int32 sums. Both take ``is_cat`` ([F] bool): categorical
+features split by LightGBM's sorted-subset search, and the chosen left
+subset is kept as a bitset of bins (``Tree.cat_bitset``).
 
 Where the JAX package compiles one program (``fori_loop`` over rounds,
 ``lax.cond`` to skip finished ones, ``vmap`` over candidates), the port runs
@@ -81,6 +83,11 @@ class GrowConfig(NamedTuple):
     # the JAX package's deterministic blocked reduction; not ported: a value
     # above 1 raises NotImplementedError
     hist_blocks: int = 0
+    # categorical splits (LightGBM cat_smooth / max_cat_threshold): category
+    # bins are ordered by the smoothed ratio g / (h + cat_smooth) and their
+    # prefixes, up to max_cat_threshold bins long, scanned as left subsets
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
 
 
 def resolve_growth_backend(cfg: GrowConfig) -> GrowConfig:
@@ -111,8 +118,9 @@ def _check_plain_geometry(cfg: GrowConfig) -> None:
 
 class Tree(NamedTuple):
     """Fixed-shape tree: node slot 0 is the root; unused slots are inert
-    leaves. Same fields as the JAX package's ``Tree`` except
-    ``cat_bitset`` (categorical splits are not ported)."""
+    leaves. Same fields, in the same order, as the JAX package's ``Tree``.
+    ``cat_bitset`` holds the uint32 words of the JAX layout in int64 (CUDA
+    has few uint32 ops); the Booster stores them as uint32."""
     feat: torch.Tensor        # [M] int32 split feature (internal nodes)
     thr_bin: torch.Tensor     # [M] int32 split bin ("go left if bin <= thr")
     left: torch.Tensor        # [M] int32 child ids
@@ -125,6 +133,8 @@ class Tree(NamedTuple):
     node_cnt: torch.Tensor    # [M] f32
     split_gain: torch.Tensor  # [M] f32 gain of the split at internal nodes
     node_value: torch.Tensor  # [M] f32 expected value at every node
+    cat_bitset: torch.Tensor  # [M, BW] int64 left-subset bitset of bins
+    #                           (categorical splits; all-zero: numeric split)
 
 
 def _soft_threshold(g, l1):
@@ -136,46 +146,109 @@ def _leaf_objective(g, h, cfg):
     return sg * sg / (h + cfg.lambda_l2 + 1e-38)
 
 
-def _best_split(hist, tot_g, tot_h, tot_c, cfg: GrowConfig, feat_mask, allow):
-    """Best numeric split of K nodes from their histograms.
+def bitset_words(num_bins: int) -> int:
+    """Words of a bitset over ``num_bins`` bins: ceil(num_bins / 32)."""
+    return -(-int(num_bins) // 32)
+
+
+def _pack_bits(member: torch.Tensor) -> torch.Tensor:
+    """[..., B] bool -> [..., ceil(B/32)] int64 words (bit ``b % 32`` of word
+    ``b // 32`` is bin ``b``; each word's value is the JAX layout's uint32)."""
+    B = member.shape[-1]
+    BW = bitset_words(B)
+    m = torch.nn.functional.pad(member.to(torch.int64), (0, BW * 32 - B))
+    m = m.reshape(*member.shape[:-1], BW, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=member.device)
+    return (m << shifts).sum(dim=-1)
+
+
+def _word_bit(word: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Bit ``idx % 32`` of each int64 ``word``, as bool."""
+    return ((word >> (idx & 31)) & 1).to(torch.bool)
+
+
+def bit_test(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """bits: [..., BW] int64 words; idx: [...] integer bin ids (< 32*BW):
+    membership, broadcast over the leading dims."""
+    idx = idx.long()
+    word = bits.gather(-1, (idx >> 5)[..., None])[..., 0]
+    return _word_bit(word, idx)
+
+
+def _best_split(hist, tot_g, tot_h, tot_c, cfg: GrowConfig, feat_mask, allow,
+                is_cat=None):
+    """Best split of K nodes from their histograms, numeric or categorical.
 
     hist: [K, F, 3, B] (grad, hess, count per bin); tot_*: [K] node totals;
-    feat_mask: [F] bool; allow: [K] bool. Candidates split "bin <= b" for b
-    in [0, B-2]. Returns [K]-shaped (gain, feat, bin, left_g, left_h,
-    left_c); gain is -inf where no split is allowed. Ties go to the lowest
-    flat (feature, bin) index, as ``jnp.argmax`` does.
+    feat_mask: [F] bool; allow: [K] bool. Numeric features split "bin <= b"
+    for b in [0, B-2]. Categorical features (``is_cat`` [F] bool) take
+    LightGBM's sorted-subset search: bins ordered by the smoothed ratio
+    g / (h + cat_smooth) (empty bins last, as +inf; ties in bin order, as
+    the stable ``jnp.argsort``), prefixes of at most ``max_cat_threshold``
+    bins scanned as left subsets. Returns [K]-shaped (gain, feat, bin,
+    left_g, left_h, left_c) and the winner's [K, BW] int64 bitset (zero for
+    a numeric winner); gain is -inf where no split is allowed. Ties go to
+    the lowest flat (feature, bin) index, as ``jnp.argmax`` does.
     """
     K, F, _, B = hist.shape
-    gl = torch.cumsum(hist[:, :, 0, :], dim=-1)               # [K, F, B]
-    hl = torch.cumsum(hist[:, :, 1, :], dim=-1)
-    cl = torch.cumsum(hist[:, :, 2, :], dim=-1)
+    g, h, c = hist[:, :, 0, :], hist[:, :, 1, :], hist[:, :, 2, :]
+    gl = torch.cumsum(g, dim=-1)                                # [K, F, B]
+    hl = torch.cumsum(h, dim=-1)
+    cl = torch.cumsum(c, dim=-1)
+    ok_extra = feat_mask[None, :, None] & allow[:, None, None]
+    if is_cat is not None:
+        ratio = torch.where(c > 0, g / (h + cfg.cat_smooth),
+                            torch.full_like(g, float("inf")))
+        order = torch.argsort(ratio, dim=-1, stable=True)       # [K, F, B]
+        ar = torch.arange(B, device=hist.device)
+        rank = torch.empty_like(order).scatter_(
+            -1, order, ar.expand(K, F, B).contiguous())
+        icat = is_cat[None, :, None]
+        gl = torch.where(icat, torch.cumsum(g.gather(-1, order), dim=-1), gl)
+        hl = torch.where(icat, torch.cumsum(h.gather(-1, order), dim=-1), hl)
+        cl = torch.where(icat, torch.cumsum(c.gather(-1, order), dim=-1), cl)
+        ok_extra = ok_extra & (~icat | (ar < int(cfg.max_cat_threshold)))
     tg, th, tc = (t.reshape(K, 1, 1) for t in (tot_g, tot_h, tot_c))
     gr, hr, cr = tg - gl, th - hl, tc - cl
     gain = (_leaf_objective(gl, hl, cfg) + _leaf_objective(gr, hr, cfg)
             - _leaf_objective(tg, th, cfg))
     ok = ((cl >= cfg.min_data_in_leaf) & (cr >= cfg.min_data_in_leaf)
           & (hl >= cfg.min_sum_hessian_in_leaf)
-          & (hr >= cfg.min_sum_hessian_in_leaf)
-          & feat_mask[None, :, None] & allow[:, None, None])
+          & (hr >= cfg.min_sum_hessian_in_leaf) & ok_extra)
     ok[:, :, B - 1] = False                   # last bin: empty right side
     gain = torch.where(ok, gain, torch.full_like(gain, NEG_INF))
     flat = torch.argmax(gain.reshape(K, F * B), dim=1)        # [K]
+    f, b = flat // B, flat % B
 
     def pick(a):
         return a.reshape(K, F * B).gather(1, flat[:, None])[:, 0]
 
-    return (pick(gain), (flat // B).to(torch.int32),
-            (flat % B).to(torch.int32), pick(gl), pick(hl), pick(cl))
+    if is_cat is None:
+        bits = torch.zeros((K, bitset_words(B)), dtype=torch.int64,
+                           device=hist.device)
+    else:
+        rank_f = rank.gather(1, f[:, None, None].expand(K, 1, B))[:, 0]
+        bits = _pack_bits(is_cat[f][:, None] & (rank_f <= b[:, None]))
+    return (pick(gain), f.to(torch.int32), b.to(torch.int32), pick(gl),
+            pick(hl), pick(cl), bits)
 
 
-def _route_rows_to_children(binned_t, row_node, slots, do, feats, bins_, lid):
+def _route_rows_to_children(binned_t, row_node, slots, do, feats, bins_,
+                            bits_k, lid, is_cat=None):
     """[K, n] row routing for one batched round or level: rows whose node
     is a splitting candidate move to its left/right child slot (``lid``/
-    ``lid + 1``). Returns (new_row_node, move [K, n], goleft_k [K, n])."""
+    ``lid + 1``); a categorical candidate (``is_cat[feat]``) sends a row
+    left when its bin is in the candidate's bitset (``bits_k`` [K, BW]).
+    Returns (new_row_node, move [K, n], goleft_k [K, n])."""
     move = (row_node[None, :] == slots[:, None]) & do[:, None]
     # widen narrow bin storage once into a [K, n] transient (K is small)
     rows = binned_t.index_select(0, feats.long()).to(torch.int32)
     goleft_k = rows <= bins_[:, None]
+    if is_cat is not None:
+        rows_l = rows.long()
+        member = _word_bit(bits_k.gather(1, rows_l >> 5), rows_l)
+        goleft_k = torch.where(is_cat[feats.long()][:, None], member,
+                               goleft_k)
     in_any = move.any(dim=0)
     go_left_row = (move & goleft_k).any(dim=0)
     lid_row = torch.where(move, lid[:, None], 0).sum(dim=0,
@@ -288,7 +361,7 @@ def _prepare_stats(grad, hess, valid, cfg: GrowConfig, qkey):
 
 
 def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
-                 ng, nh, nc, gain, num_nodes, row_node, grad, hess, vm):
+                 ng, nh, nc, gain, bits, num_nodes, row_node, grad, hess, vm):
     """Leaf values from the node totals (renewed from the f32 stats first
     when quantized), and the ``[M]`` tree without the spare slot."""
     if cfg.quantized_grad and cfg.quant_renew_leaf:
@@ -307,17 +380,20 @@ def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
     return Tree(feat=feat[:M], thr_bin=thr[:M], left=left[:M],
                 right=right[:M], is_leaf=is_leaf, leaf_value=leaf_value,
                 node_count=num_nodes, node_grad=ng, node_hess=nh,
-                node_cnt=nc, split_gain=gain[:M], node_value=node_value)
+                node_cnt=nc, split_gain=gain[:M], node_value=node_value,
+                cat_bitset=bits[:M])
 
 
 def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               valid: torch.Tensor, feat_mask: torch.Tensor, cfg: GrowConfig,
+              is_cat: Optional[torch.Tensor] = None,
               qkey: Optional[Tuple[int, int]] = None):
     """Grow one leafwise tree on one device.
 
     binned_t: [F, n] int32/int16/uint8 (column-major); grad/hess: [n] f32;
     valid: [n] f32 row mask (0 for rows that must not count); feat_mask:
-    [F] bool (feature_fraction). ``cfg`` must be resolved
+    [F] bool (feature_fraction); is_cat: [F] bool categorical features, or
+    None for none. ``cfg`` must be resolved
     (:func:`resolve_growth_backend`). With ``cfg.quantized_grad``, ``qkey``
     (two uint32 words, :func:`...ops.histogram.quant_key`) seeds the
     stochastic rounding; None rounds to nearest. Returns (Tree, row_node
@@ -329,6 +405,7 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     L = int(cfg.num_leaves)
     M = 2 * L - 1
     B = int(cfg.num_bins)
+    BW = bitset_words(B)
 
     vm, base_t, qscales = _prepare_stats(grad, hess, valid, cfg, qkey)
     use_sub = _use_subtraction(cfg, n)
@@ -340,9 +417,9 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     tot = _stat_totals(base_t, qscales)
     root_allow = torch.tensor([cfg.max_depth < 0 or cfg.max_depth >= 1],
                               device=dev)
-    g0, f0, b0, lg0, lh0, lc0 = _best_split(
+    g0, f0, b0, lg0, lh0, lc0, bits0 = _best_split(
         root_hist.reshape(1, F, 3, B), tot[0:1], tot[1:2], tot[2:3], cfg,
-        feat_mask, root_allow)
+        feat_mask, root_allow, is_cat)
 
     def zeros(dtype):                      # M slots + the spare slot M
         return torch.zeros(M + 1, dtype=dtype, device=dev)
@@ -358,6 +435,10 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     clg, clh, clc = (zeros(torch.float32) for _ in range(3))
     cg[0], cf[0], cb[0] = g0[0], f0[0], b0[0]
     clg[0], clh[0], clc[0] = lg0[0], lh0[0], lc0[0]
+    # the candidate's bitset (cbits) and each split node's (tbits)
+    cbits = torch.zeros((M + 1, BW), dtype=torch.int64, device=dev)
+    tbits = torch.zeros_like(cbits)
+    cbits[0] = bits0[0]
     num_nodes = torch.ones((), dtype=torch.int32, device=dev)
     nhist = None
     if use_sub:
@@ -389,9 +470,10 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         rid = lid + 1
         sl_long = slots.long()
         feats, bins_ = cf[sl_long], cb[sl_long]
+        bits_k = cbits[sl_long]                                    # [KB, BW]
 
         row_node, move, goleft_k = _route_rows_to_children(
-            binned_t, row_node, slots, do, feats, bins_, lid)
+            binned_t, row_node, slots, do, feats, bins_, bits_k, lid, is_cat)
         if use_sub:
             # stream only each candidate's smaller child (by raw routed row
             # count, which bounds the n//2 buffer); the larger sibling
@@ -427,8 +509,8 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         can_split = (torch.ones_like(do) if cfg.max_depth < 0
                      else child_depth + 1 <= cfg.max_depth)
         allow2 = torch.repeat_interleave(can_split & do, 2)
-        g2, f2, b2, lg2, lh2, lc2 = _best_split(hw, tg, th, tc, cfg,
-                                                feat_mask, allow2)
+        g2, f2, b2, lg2, lh2, lc2, bits2 = _best_split(
+            hw, tg, th, tc, cfg, feat_mask, allow2, is_cat)
 
         # record splits; slot M is the spare slot for non-splits
         pslot = torch.where(do, slots, slot_m).long()
@@ -441,12 +523,14 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         right[pslot] = rid
         is_leaf[pslot] = False
         gain[pslot] = top_g
+        tbits[pslot] = bits_k
         depth[cslot] = torch.repeat_interleave(child_depth, 2)
         ng[cslot], nh[cslot], nc[cslot] = tg, th, tc
         cg[pslot] = NEG_INF
         cg[cslot] = g2
         cf[cslot], cb[cslot] = f2, b2
         clg[cslot], clh[cslot], clc[cslot] = lg2, lh2, lc2
+        cbits[cslot] = bits2
         num_nodes = num_nodes + 2 * n_split
         if use_sub:
             # the children's histograms are the subtraction parents of
@@ -456,13 +540,14 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         is_leaf[M] = True                  # the spare slot stays inert
 
     tree = _finish_tree(cfg, M, feat, thr, left, right, is_leaf, ng, nh, nc,
-                        gain, num_nodes, row_node, grad, hess, vm)
+                        gain, tbits, num_nodes, row_node, grad, hess, vm)
     return tree, row_node
 
 
 def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor, valid: torch.Tensor,
                         feat_mask: torch.Tensor, cfg: GrowConfig,
+                        is_cat: Optional[torch.Tensor] = None,
                         qkey: Optional[Tuple[int, int]] = None):
     """Grow one tree level by level: one histogram pass per level.
 
@@ -495,6 +580,8 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
     feat, thr, left, right = (zeros(torch.int32) for _ in range(4))
     is_leaf = torch.ones(M + 1, dtype=torch.bool, device=dev)
     ng, nh, nc, gain = (zeros(torch.float32) for _ in range(4))
+    bits = torch.zeros((M + 1, bitset_words(B)), dtype=torch.int64,
+                       device=dev)
     tot0 = _stat_totals(base_t, qscales)
     ng[0], nh[0], nc[0] = tot0[0], tot0[1], tot0[2]
 
@@ -535,8 +622,8 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
 
         pg, ph, pc = ng[fr_l], nh[fr_l], nc[fr_l]
         allow = active & (cfg.max_depth < 0 or depth + 1 <= cfg.max_depth)
-        gains, feats, bins_, lgs, lhs, lcs = _best_split(
-            h, pg, ph, pc, cfg, feat_mask, allow)
+        gains, feats, bins_, lgs, lhs, lcs, bits_w = _best_split(
+            h, pg, ph, pc, cfg, feat_mask, allow, is_cat)
         gains = torch.where(active, gains, torch.full_like(gains, NEG_INF))
 
         # budget: leaves + splits <= num_leaves, best gains first
@@ -553,7 +640,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
 
         row_node, move, goleft_k = _route_rows_to_children(
             binned_t, row_node, torch.where(active, fr, -1), do, feats,
-            bins_, lid)
+            bins_, bits_w, lid, is_cat)
 
         # record splits and children's totals; slot M takes non-splits
         slot = torch.where(do, fr, M).long()
@@ -563,6 +650,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
         right[slot] = rid
         is_leaf[slot] = False
         gain[slot] = gains
+        bits[slot] = bits_w
         lslot = torch.where(do, lid, M).long()
         rslot = torch.where(do, rid, M).long()
         ng[lslot], nh[lslot], nc[lslot] = lgs, lhs, lcs
@@ -595,7 +683,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
         leaves = leaves + n_split
 
     tree = _finish_tree(cfg, M, feat, thr, left, right, is_leaf, ng, nh, nc,
-                        gain, num_nodes, row_node, grad, hess, vm)
+                        gain, bits, num_nodes, row_node, grad, hess, vm)
     return tree, row_node
 
 
@@ -631,39 +719,137 @@ def _sub_level_hist(binned_t, base_t, qscales, aux, frontier, row_node,
     return hw
 
 
-def predict_tree_binned(tree: Tree, binned: torch.Tensor,
-                        depth_cap: int) -> torch.Tensor:
-    """Evaluate one tree on binned rows: [n, F] -> [n] leaf values."""
+def leaf_nodes_binned(tree: Tree, binned: torch.Tensor, depth_cap: int,
+                      is_cat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The leaf slot each binned row reaches in one tree: [n, F] -> [n]
+    int64. A categorical split (``is_cat[feat]``) sends a row left when its
+    bin is in the node's bitset; its one word is gathered from the
+    flattened ``[M * BW]`` bitsets."""
     n = binned.shape[0]
     node = torch.zeros(n, dtype=torch.long, device=binned.device)
     feat, thr = tree.feat.long(), tree.thr_bin
     left, right = tree.left.long(), tree.right.long()
+    BW = tree.cat_bitset.shape[-1]
+    bits = tree.cat_bitset.reshape(-1)
     for _ in range(depth_cap):
-        x = binned.gather(1, feat[node][:, None])[:, 0]
-        nxt = torch.where(x <= thr[node], left[node], right[node])
+        f = feat[node]
+        x = binned.gather(1, f[:, None])[:, 0]
+        go_left = x <= thr[node]
+        if is_cat is not None:
+            xl = x.long()
+            member = _word_bit(bits[node * BW + (xl >> 5)], xl)
+            go_left = torch.where(is_cat[f], member, go_left)
+        nxt = torch.where(go_left, left[node], right[node])
         node = torch.where(tree.is_leaf[node], node, nxt)
-    return tree.leaf_value[node]
+    return node
 
 
-def predict_forest_raw(feat, thr_raw, left, right, is_leaf, leaf_value,
-                       features: torch.Tensor, depth_cap: int) -> torch.Tensor:
-    """Evaluate a stacked forest on raw float features: [T, n] leaf values.
+def predict_tree_binned(tree: Tree, binned: torch.Tensor, depth_cap: int,
+                        is_cat: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Evaluate one tree on binned rows: [n, F] -> [n] leaf values."""
+    return tree.leaf_value[leaf_nodes_binned(tree, binned, depth_cap,
+                                             is_cat)]
 
-    feat/left/right: [T, M] integer; is_leaf: [T, M] bool; leaf_value and
-    thr_raw: [T, M] f32 ("go left if x <= thr"; NaN compares false, so it
-    goes left — the binning convention of NaN -> bin 0). features: [n, F].
-    The depth loop runs ``depth_cap`` steps, as the JAX package's does;
-    rows that reached a leaf stay there.
+
+def raw_to_cat_bin(x: torch.Tensor, max_bin_idx: int) -> torch.Tensor:
+    """Raw categorical value -> bin id (int64): rounded to nearest
+    (``floor(x + 0.5)``), NaN and negatives -> 0, ids past ``max_bin_idx``
+    clipped into it (the binner's 0.5-boundary categorical bins)."""
+    b = torch.where(torch.isnan(x), torch.zeros_like(x), torch.floor(x + 0.5))
+    return b.clamp(0, max_bin_idx).long()
+
+
+def cat_member(bits: torch.Tensor, word0: torch.Tensor, x: torch.Tensor,
+               max_bin_idx: int, strict: bool) -> torch.Tensor:
+    """Categorical membership of raw values ``x`` in bitsets.
+
+    ``bits`` [T, M * BW] holds every node's words flattened; ``word0``
+    ([T, n] int64) is the index of each row's node's first word, so only
+    one word per row and tree is gathered. ``strict=False`` (models
+    trained here): ids bin exactly as training did, NaN and negatives to
+    bin 0 and ids past the last bin into it (the catch-all).
+    ``strict=True`` (models imported from LightGBM, which has no
+    catch-all): ``FindInBitset`` semantics, NaN or any id outside the
+    bitset routes right (not a member).
+    """
+    if not strict:
+        cbin = raw_to_cat_bin(x, max_bin_idx)
+        return _word_bit(bits.gather(1, word0 + (cbin >> 5)), cbin)
+    b = torch.where(torch.isnan(x), torch.full_like(x, -1.0),
+                    torch.floor(x + 0.5))
+    in_range = (b >= 0) & (b <= max_bin_idx)
+    cbin = b.clamp(0, max_bin_idx).long()
+    return _word_bit(bits.gather(1, word0 + (cbin >> 5)), cbin) & in_range
+
+
+def forest_leaf_nodes(feat, thr_raw, left, right, is_leaf,
+                      features: torch.Tensor, depth_cap: int, *,
+                      cat_bitset: Optional[torch.Tensor] = None,
+                      is_cat: Optional[torch.Tensor] = None,
+                      cat_max_bin: int = 0,
+                      missing_dec: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The leaf slot every row reaches in every tree of a stacked forest,
+    on raw float features: [T, n] int64.
+
+    feat/left/right: [T, M] integer; is_leaf: [T, M] bool; thr_raw: [T, M]
+    f32 ("go left if x <= thr"; NaN compares false, so it goes left — the
+    binning convention of NaN -> bin 0). features: [n, F] f32. The depth
+    loop runs ``depth_cap`` steps, as the JAX package's does; rows that
+    reached a leaf stay there.
+
+    ``is_cat`` ([F] bool) routes categorical features by bitset membership
+    of the rounded category id (``cat_bitset`` [T, M, BW] int64 words):
+    with ``cat_max_bin`` > 0 (the binner's ``max_bin``, models trained
+    here) ids clip into the last bin; with 0 (imported models) they route
+    by ``FindInBitset``. ``missing_dec`` ([T, M] integer LightGBM
+    decision_type bytes) switches numeric routing to LightGBM's
+    NumericalDecision: NaN maps to 0.0 unless the node's missing type is
+    NaN; zero-as-missing (``|x| <= 1e-35``) and NaN-missing take the
+    default side, bit 1 of the byte (1 = left); every other value compares
+    ``x <= thr``.
     """
     T = feat.shape[0]
     n = features.shape[0]
     feat, left, right = feat.long(), left.long(), right.long()
     node = torch.zeros((T, n), dtype=torch.long, device=features.device)
+    if is_cat is not None:
+        BW = cat_bitset.shape[-1]
+        bits = cat_bitset.reshape(T, -1)
+        strict = cat_max_bin <= 0
+        max_bin_idx = cat_max_bin - 1 if not strict else BW * 32 - 1
+    if missing_dec is not None:
+        missing_dec = missing_dec.long()
     for _ in range(depth_cap):
         f = feat.gather(1, node)                              # [T, n]
         x = features.gather(1, f.t()).t()                     # [T, n]
-        go_left = ~(x > thr_raw.gather(1, node))
+        t = thr_raw.gather(1, node)
+        if missing_dec is None:
+            go_left = ~(x > t)
+        else:
+            md = missing_dec.gather(1, node)
+            mt = (md >> 2) & 3                # 0 none, 1 zero, 2 NaN
+            x_nan = torch.isnan(x)
+            xv = torch.where(x_nan & (mt != 2), torch.zeros_like(x), x)
+            use_default = (((mt == 1) & (xv.abs() <= 1e-35))
+                           | ((mt == 2) & x_nan))
+            go_left = torch.where(use_default, (md & 2) != 0, ~(xv > t))
+        if is_cat is not None:
+            member = cat_member(bits, node * BW, x, max_bin_idx, strict)
+            go_left = torch.where(is_cat[f], member, go_left)
         nxt = torch.where(go_left, left.gather(1, node),
                           right.gather(1, node))
         node = torch.where(is_leaf.gather(1, node), node, nxt)
+    return node
+
+
+def predict_forest_raw(feat, thr_raw, left, right, is_leaf, leaf_value,
+                       features: torch.Tensor, depth_cap: int,
+                       **routing) -> torch.Tensor:
+    """Evaluate a stacked forest on raw float features: [T, n] leaf values
+    (``leaf_value`` [T, M] f32; the routing and its keyword options as
+    :func:`forest_leaf_nodes`)."""
+    node = forest_leaf_nodes(feat, thr_raw, left, right, is_leaf, features,
+                             depth_cap, **routing)
     return leaf_value.gather(1, node)

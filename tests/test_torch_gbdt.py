@@ -138,7 +138,7 @@ def test_regressor_fit_transform():
 @pytest.mark.parametrize("param,value", [
     ("boostingType", "dart"), ("baggingFraction", 0.5),
     ("parallelism", "voting_parallel"), ("numBatches", 2),
-    ("categoricalSlotIndexes", [0]), ("modelString", "tree"),
+    ("featuresShapCol", "shap"), ("modelString", "tree"),
     ("compactSelector", "argsort"),
 ])
 def test_unported_params_raise(param, value):
@@ -192,9 +192,20 @@ def test_booster_from_jax_arrays_predicts_identically(binary_pair):
 
 
 def test_booster_from_jax_arrays_refuses_categorical(binary_pair):
+    """Categorical bitsets route only the features the binner state names
+    categorical: bitsets with no such feature are refused, as are bitsets
+    that do not match the trees' shape."""
     _, jb, _ = binary_pair
     fields = {k: np.asarray(v) for k, v in jb.trees._asdict().items()}
     fields["cat_bitset"] = np.ones_like(fields["cat_bitset"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="categorical_features"):
         booster_from_jax_arrays(fields, jb.thr_raw, 1, jb.base_score,
                                 jb.objective)
+    with pytest.raises(ValueError, match="categorical_features"):
+        booster_from_jax_arrays(fields, jb.thr_raw, 1, jb.base_score,
+                                jb.objective, binner_state=jb.binner_state)
+    fields["cat_bitset"] = fields["cat_bitset"][:, :3]
+    with pytest.raises(ValueError, match="does not match"):
+        booster_from_jax_arrays(fields, jb.thr_raw, 1, jb.base_score,
+                                jb.objective, binner_state=dict(
+                                    jb.binner_state, categorical_features=[0]))

@@ -3,9 +3,9 @@
   * Importing every module of ``mmlspark_tpu_torch`` (in a fresh
     interpreter) leaves ``jax`` and every ``mmlspark_tpu`` module out of
     ``sys.modules``; no source of the package, nor ``chip_smoke.py`` or
-    the GPU tools (``tools/profile_torch_gbdt.py``,
-    ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``), imports
-    either.
+    the port's tools (``tools/profile_torch_gbdt.py``,
+    ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``,
+    ``tools/rehearse_chip_smoke.py``), imports either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -58,7 +58,8 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
-    assert "mmlspark_tpu_torch.models.gbdt.growth" in mods
+    assert {"mmlspark_tpu_torch.models.gbdt.growth",
+            "mmlspark_tpu_torch.models.gbdt.lgbm_format"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -86,11 +87,13 @@ def test_no_source_imports_jax_or_the_jax_package():
     paths = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_torch_gbdt.py"),
              os.path.join(ROOT, "tools", "ab_node_hist.py"),
-             os.path.join(ROOT, "tools", "node_hist_sweeps.py")]
+             os.path.join(ROOT, "tools", "node_hist_sweeps.py"),
+             os.path.join(ROOT, "tools", "rehearse_chip_smoke.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:4])
+    assert all(os.path.isfile(p) for p in paths[:5])
+    assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     bad = [(os.path.relpath(p, ROOT), line, name) for p in paths
            for line, name in _imports(p) if _forbidden(name)]
     assert bad == []

@@ -1,0 +1,95 @@
+"""Rehearse phases of ``chip_smoke.py`` on the CPU, at a small size.
+
+    python tools/rehearse_chip_smoke.py p6 p8 p8b p9 [--rows 40000]
+
+Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
+device replaced by ``cpu``: the kernels' wrappers then take their plain
+versions (counted as launches here), the card's timers and memory calls
+are stubbed, and the Covertype-shaped phases use ``--rows`` training rows
+(a quarter of that held out). It finds Python-level faults before a chip
+run and gives the quality a phase reaches at a small size, from which its
+floors are set. Times it prints are CPU times, not device times.
+
+Phases: ``p6`` (multiclass on one-hot columns), ``p8`` (categorical
+multiclass), ``p8b`` (small categorical fits, which compare the CPU with
+itself here), ``p9`` (the LightGBM text corpus and a CSR fit).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+import types
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from mmlspark_tpu_torch.ops.histogram_scatter import node_hist_plain  # noqa: E402
+
+
+class _Event:
+    """Host-clock stand-in for ``torch.cuda.Event``."""
+
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def load_on_cpu(rows: int) -> types.ModuleType:
+    """``chip_smoke.py`` executed as a module whose devices are the CPU."""
+    path = os.path.join(ROOT, "chip_smoke.py")
+    src = open(path).read().replace('"cuda"', '"cpu"').replace(
+        ".cuda()", ".cpu()")
+    torch.cuda.synchronize = lambda *a: None
+    torch.cuda._sleep = lambda *a: None
+    torch.cuda.Event = _Event
+    torch.cuda.max_memory_allocated = lambda: 0
+    torch.cuda.reset_peak_memory_stats = lambda: None
+    mod = types.ModuleType("chip_smoke_on_cpu")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    mod.hist_ops._node_hist_int8_cuda = (
+        lambda b, p, q, W, B: node_hist_plain(b, p, q, W, B,
+                                              acc_dtype=torch.int32))
+
+    def read_counts():
+        # on the CPU the plain versions stand in for every kernel
+        calls = node_hist_plain.calls
+        return dict(node_hist_bf16=calls, node_hist_int8=calls, hist_bf16=0,
+                    plain=0)
+
+    mod.read_counts = read_counts
+    mod.COVERTYPE_ROWS, mod.COVERTYPE_HOLDOUT = rows, rows // 4
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("phases", nargs="+", choices=["p6", "p8", "p8b", "p9"])
+    ap.add_argument("--rows", type=int, default=40_000)
+    args = ap.parse_args()
+    torch.set_num_threads(4)
+    mod = load_on_cpu(args.rows)
+    run = {"p6": mod.phase_multiclass, "p8": mod.phase_categorical,
+           "p8b": mod.phase_small_categorical, "p9": mod.phase_golden}
+    t0 = time.perf_counter()
+    for name in args.phases:
+        out = run[name]()
+        if out is not None:
+            mod.log(f"{name}: {out}")
+    mod.log(f"rehearsal of {args.phases} on the CPU: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
