@@ -134,6 +134,27 @@ Phases (any failure exits non-zero and prints no result line):
    column against the same fit on its dense copy: identical trees and
    probabilities.
 
+10. The training options at full width, on phase 4's rows (1,000,000 x
+   28 and the 200,000-row holdout, 255 bins, 31 leaves, 10 rounds), each
+   fit held as phase 4's (launches, no plain version, AUC floor from
+   ``SAMPLING_AUC_FLOORS``, cuda and cpu margins within 1e-5) and
+   printing its fit s, trees/s, peak device memory and largest |leaf|:
+   ``boostingType="goss"``; ``"rf"`` with ``baggingFraction=0.8,
+   baggingFreq=1, featureFraction=0.8``; ``"dart"`` (its defaults);
+   ``baggingFraction=0.5, baggingFreq=5`` with ``useQuantizedGrad=True,
+   quantWarmupIters=0`` (kernel 2 under a bag with zeros); stratified
+   ``posBaggingFraction=0.9, negBaggingFraction=0.3, baggingFreq=1``;
+   ``numBatches=2``; a ``modelString`` warm start from phase 4's model
+   plus 10 rounds; a quantized fit with ``checkpointDir`` (every 5
+   rounds, bagging 0.8) and the same fit again, which resumes from its
+   iteration-4 checkpoint: the checkpoint's trees bit for bit, every
+   tree's structure identical, margins within 1e-5. Then one refit on the cached
+   binned dataset (timed), and the host time of one iteration's per-row
+   uniforms and their copy to the card. Every timed fit empties the
+   binned-dataset cache first, so its time includes its ingest.
+10b. The same options at 20,000 rows on cuda against cpu, as phase 5:
+   identical trees and margins within 1e-5.
+
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
 ``index_add_`` ms), the card's name and power limit, and
@@ -144,6 +165,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -152,11 +174,12 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.models.gbdt import api as gbdt_api
 from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassifier,
                                                 LightGBMRanker,
                                                 LightGBMRegressor,
                                                 _pad_groups)
-from mmlspark_tpu_torch.models.gbdt.booster import Booster
+from mmlspark_tpu_torch.models.gbdt.booster import Booster, _row_uniforms
 from mmlspark_tpu_torch.models.gbdt.growth import Tree, leaf_nodes_binned
 from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
                                                        auc_weighted,
@@ -166,6 +189,7 @@ from mmlspark_tpu_torch.ops import histogram as hist_ops
 from mmlspark_tpu_torch.ops.binning import bin_cols
 from mmlspark_tpu_torch.ops.histogram_scatter import (hist_plain,
                                                       node_hist_plain)
+from mmlspark_tpu_torch.utils.checkpoint import data_fingerprint
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, f32 rate outside the tensor cores, int8 rate
@@ -173,6 +197,17 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12
 AUC_FLOOR = 0.75
+# phase 10 holdout AUC floors, one per training option (PERF.md, set from a
+# CPU rehearsal at a small size before its first chip run)
+SAMPLING_AUC_FLOORS = {"goss": 0.75, "rf": 0.73, "dart": 0.745,
+                       "bagging_int8": 0.75, "stratified": 0.75,
+                       "warm_start": 0.75, "batches": 0.75,
+                       "checkpoint": 0.75}
+# phase 4 and 10 sizes: HIGGS-shaped training and holdout rows
+HIGGS_ROWS, HIGGS_HOLDOUT = 1_000_000, 200_000
+# where phase 10 writes its checkpoints (under the ignored build directory)
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt")
 # phase 6 and 7 quality floors (PERF.md, set from a CPU rehearsal at a
 # small size before the first chip run): holdout multi_logloss at most
 # this share of the class prior's, accuracy at least this far above the
@@ -760,31 +795,49 @@ def higgs_shaped(n, seed):
     return X, y
 
 
-def phase_end_to_end(label, needs, data, check_quality=True, **params):
+def shown(params: dict) -> dict:
+    """``params`` for the log, a long value (a model string) by its
+    length."""
+    return {k: v if len(str(v)) <= 80 else f"<{len(str(v)):,} characters>"
+            for k, v in params.items()}
+
+
+def phase_end_to_end(label, needs, data, check_quality=True,
+                     auc_floor=AUC_FLOOR, prior_trees=0, **params):
     """One fit -> transform at full width; ``needs`` lists the kernels the
     fit must launch. ``check_quality=False`` (phase 4d) reports the
     holdout's non-finite rows and AUC without holding them to the floor.
-    Returns the counts, times, AUC and largest |leaf|."""
-    log(f"== phase {label}: LightGBMClassifier({params}) fit -> transform, "
-        "1M x 28 x 255")
+    The binned-dataset cache is emptied first, so the fit's time includes
+    its ingest. ``prior_trees``: trees of a warm start, not counted as
+    trained. Returns (the counts, times, AUC, largest |leaf| and peak
+    device memory; the booster)."""
     X, y, Xh, yh = data
-    est = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
-                             device="cuda", **params)
+    log(f"== phase {label}: LightGBMClassifier({shown(params)}) fit -> "
+        "transform, "
+        f"{len(y):,} x 28 x 255")
+    est = LightGBMClassifier(**{**dict(numIterations=10, numLeaves=31,
+                                       maxBin=255, device="cuda"),
+                                **params})
     train = Dataset({"features": X, "label": y})
     hold = Dataset({"features": Xh, "label": yh})
+    gbdt_api.clear_binned_dataset_cache()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     model = est.fit(train)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     out = model.transform(hold)
     pred_s = time.perf_counter() - t0
     counts = read_counts()
-    log(f"fit {fit_s:.3f} s ({10 / fit_s:.3f} trees/s), transform "
-        f"{pred_s:.3f} s ({len(yh) / pred_s:.0f} rows/s); launches "
-        f"{counts}")
+    booster = model.booster
+    trees = booster.num_trees - prior_trees
+    log(f"fit {fit_s:.3f} s ({trees} trees, {trees / fit_s:.3f} trees/s), "
+        f"transform {pred_s:.3f} s ({len(yh) / pred_s:.0f} rows/s); peak "
+        f"device memory {peak / 2**30:.3f} GiB; launches {counts}")
     for k in needs:
         if counts[k] <= 0:
             raise AssertionError(f"the main path never launched {k}")
@@ -797,13 +850,12 @@ def phase_end_to_end(label, needs, data, check_quality=True, **params):
     finite = np.isfinite(probs).all(axis=1)
     a = auc_weighted(probs[finite, 1], yh[finite], None)
     log(f"holdout AUC {a:.5f} over {int(finite.sum())} rows with finite "
-        f"probabilities of {len(yh)} (floor {AUC_FLOOR})")
+        f"probabilities of {len(yh)} (floor {auc_floor})")
     if check_quality and not finite.all():
         raise AssertionError(f"{int((~finite).sum())} rows have non-finite "
                              "probabilities")
-    if check_quality and a <= AUC_FLOOR:
-        raise AssertionError(f"holdout AUC {a} <= {AUC_FLOOR}")
-    booster = model.booster
+    if check_quality and a <= auc_floor:
+        raise AssertionError(f"holdout AUC {a} <= {auc_floor}")
     diff = margin_diff(booster.predict_raw(Xh, device="cuda"),
                        booster.predict_raw(Xh, device="cpu"))
     log(f"predict_raw cuda vs cpu: max abs diff {diff:.3g}")
@@ -820,8 +872,9 @@ def phase_end_to_end(label, needs, data, check_quality=True, **params):
         + "; least leaf hessian " + " ".join(
             f"{v:.4g}" for v in np.where(live, t["node_hess"],
                                          np.inf).min(axis=1)))
-    return dict(counts=counts, fit_s=fit_s, trees_per_s=10 / fit_s,
-                predict_rows_per_s=len(yh) / pred_s, auc=a, max_leaf=leaf)
+    return dict(counts=counts, fit_s=fit_s, trees_per_s=trees / fit_s,
+                predict_rows_per_s=len(yh) / pred_s, auc=a, max_leaf=leaf,
+                peak_gib=peak / 2**30), booster
 
 
 def phase_small_agreement(label, estimator=LightGBMClassifier, cols=None,
@@ -835,7 +888,7 @@ def phase_small_agreement(label, estimator=LightGBMClassifier, cols=None,
     on each device, move no leaf value past the 1e-5 tolerance. ``cols``
     defaults to 20,000 HIGGS-shaped rows."""
     log(f"== phase {label}: small {estimator.__name__} fit on cuda vs cpu "
-        f"{params}")
+        f"{shown(params)}")
     if cols is None:
         X, y = higgs_shaped(20_000, seed=2)
         cols = {"features": X, "label": y}
@@ -1055,6 +1108,8 @@ def phase_ranker():
                          earlyStoppingRound=3, numIterations=10,
                          numLeaves=31, maxBin=255, maxGroupSize=MSLR_GROUP,
                          device="cuda")
+    # the peak is this fit's alone: no earlier phase's binned dataset stays
+    gbdt_api.clear_binned_dataset_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1298,6 +1353,206 @@ def phase_golden():
     return dict(golden_max_abs_err=worst)
 
 
+# phase 10: each training option at full width, (label, kernels that must
+# launch, estimator params)
+SAMPLING_FITS = (
+    ("goss", ("node_hist_bf16",), dict(boostingType="goss")),
+    ("rf", ("node_hist_bf16",), dict(boostingType="rf", baggingFraction=0.8,
+                                     baggingFreq=1, featureFraction=0.8)),
+    ("dart", ("node_hist_bf16",), dict(boostingType="dart")),
+    ("bagging_int8", ("node_hist_int8",),
+     dict(baggingFraction=0.5, baggingFreq=5, useQuantizedGrad=True,
+          quantWarmupIters=0)),
+    ("stratified", ("node_hist_bf16",),
+     dict(posBaggingFraction=0.9, negBaggingFraction=0.3, baggingFreq=1)),
+    ("batches", ("node_hist_bf16",), dict(numBatches=2)),
+)
+
+
+def time_host_draw(n: int, reps: int = 5) -> tuple:
+    """Host ms of one iteration's per-row uniforms (``_row_uniforms``) and
+    ms of their copy to the card."""
+    draw = copy = 0.0
+    for step in range(reps):
+        t0 = time.perf_counter()
+        u = _row_uniforms(3, step, n)
+        t1 = time.perf_counter()
+        u.to("cuda")
+        torch.cuda.synchronize()
+        draw += t1 - t0
+        copy += time.perf_counter() - t1
+    return 1e3 * draw / reps, 1e3 * copy / reps
+
+
+def check_resumed(whole: Booster, resumed: Booster, Xh, done: int) -> float:
+    """A resumed fit against the uninterrupted one: its first ``done``
+    trees (the checkpoint's) and its base score bit for bit; every tree's
+    structure and thresholds identical; margins within 1e-5 (the leaf
+    renewal's float ``index_add_`` sums in another order on every run).
+    Returns the largest leaf-value difference."""
+    if resumed.num_trees != whole.num_trees:
+        raise AssertionError(f"{resumed.num_trees} trees resumed, "
+                             f"{whole.num_trees} uninterrupted")
+    for f, a in whole.trees.items():
+        if not np.array_equal(a[:done], resumed.trees[f][:done]):
+            raise AssertionError(f"the checkpoint's trees differ in {f}")
+    for f in ("feat", "thr_bin", "left", "right", "is_leaf", "cat_bitset"):
+        if not np.array_equal(whole.trees[f], resumed.trees[f]):
+            raise AssertionError(f"tree field {f} differs after resuming")
+    if not (np.array_equal(whole.thr_raw, resumed.thr_raw)
+            and np.array_equal(whole.base_score, resumed.base_score)):
+        raise AssertionError("thresholds or base score differ")
+    diff = margin_diff(whole.predict_raw(Xh, device="cuda"),
+                       resumed.predict_raw(Xh, device="cuda"))
+    if not diff <= 1e-5:
+        raise AssertionError(f"resumed margins differ by {diff}")
+    return float(np.abs(whole.trees["leaf_value"]
+                        - resumed.trees["leaf_value"]).max())
+
+
+def masked_stats(gen, n, kind):
+    """[3, n] stats under one training option's row mask: ``goss`` at its
+    defaults (weights 1, 8 and 0), ``goss_odd`` (topRate 0.3, otherRate
+    0.25: weight 2.8, inexact in bf16) or ``bag`` (half the rows 0)."""
+    grad = torch.randn(n, generator=gen, device="cuda")
+    u = torch.rand(n, generator=gen, device="cuda")
+    if kind == "bag":
+        vm = (u < 0.5).float()
+    else:
+        top, amp = (0.2, 8.0) if kind == "goss" else (0.3, 2.8)
+        vm = torch.where(u < top, 1.0, torch.where(u < top + 0.1, amp, 0.0))
+    return torch.stack([grad * vm, grad.abs() * 0.25 * vm, vm]).contiguous()
+
+
+def phase_masked_kernels():
+    """Kernels 1 and 2 against their plain versions under the row masks of
+    phase 10's options, at the main path's two passes."""
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    for n, W in ((1_000_000, 1), (500_000, 8)):
+        binned = torch.randint(0, 255, (28, n), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        pos = torch.randint(-1, W, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        for kind in ("goss", "goss_odd", "bag"):
+            base = masked_stats(gen, n, kind)
+            want = node_hist_plain(binned, pos, base, W, 255)
+            got = hist_ops.node_histogram(binned, pos, base, W, 255)
+            torch.cuda.synchronize()
+            if kind == "goss_odd":       # sums of 2.796875 round in f32
+                for c in range(3):
+                    check_within(got[:, c::3], want[:, c::3], f"stat {c}")
+                err = float((got - want).abs().max())
+            else:
+                err = check_hist(got, want)
+            q, _ = hist_ops.quantize_stats(base)
+            want8 = node_hist_plain(binned, pos, q, W, 255,
+                                    acc_dtype=torch.int32)
+            got8 = hist_ops._node_hist_int8_cuda(binned, pos, q, W, 255)
+            torch.cuda.synchronize()
+            if not torch.equal(got8, want8):
+                raise AssertionError(f"node_hist_int8 under a {kind} mask "
+                                     f"(n={n} W={W}): not bit-equal")
+            log(f"{kind} mask n={n} W={W}: node_hist max_abs_err {err:.3g}"
+                ", node_hist_int8 bit-equal")
+            del base, want, got, q, want8, got8
+
+
+def phase_sampling(data, base: Booster) -> dict:
+    """Phase 10: the training options at full width (phase 4's rows): each
+    fit of ``SAMPLING_FITS``, a ``modelString`` warm start from phase 4's
+    model, a checkpointed fit resumed from its middle checkpoint, and a
+    refit that hits the binned-dataset cache."""
+    X, y, Xh, yh = data
+    log("== phase 10: kernels 1 and 2 vs plain versions under row masks")
+    phase_masked_kernels()
+    draw_ms, copy_ms = time_host_draw(len(y))
+    t0 = time.perf_counter()
+    data_fingerprint(X, y, None)
+    fp_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"== phase 10: host draw of {len(y):,} row uniforms {draw_ms:.3f} ms"
+        f", copy to the card {copy_ms:.3f} ms; the rows' content "
+        f"fingerprint (the cache key and checkpoint identity) {fp_ms:.3f} ms")
+    fits = {}
+    for label, needs, params in SAMPLING_FITS:
+        fits[f"10:{label}"] = phase_end_to_end(
+            f"10 {label}", needs, data,
+            auc_floor=SAMPLING_AUC_FLOORS[label], **params)[0]
+    fits["10:warm_start"] = phase_end_to_end(
+        "10 warm_start", ("node_hist_bf16",), data,
+        auc_floor=SAMPLING_AUC_FLOORS["warm_start"],
+        prior_trees=base.num_trees, modelString=base.model_string())[0]
+
+    # quantized (kernel 2's integer sums do not depend on the order of its
+    # atomics): with bf16 stats two uninterrupted fits on the card differ
+    # past 1e-5 in the leaves of ROADMAP Queue 3 item 1, resumed or not
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    kw = dict(checkpointDir=CKPT_DIR, checkpointInterval=5,
+              baggingFraction=0.8, baggingFreq=1, useQuantizedGrad=True,
+              quantWarmupIters=0)
+    fits["10:checkpoint"], whole = phase_end_to_end(
+        "10 checkpoint", ("node_hist_int8",), data,
+        auc_floor=SAMPLING_AUC_FLOORS["checkpoint"], **kw)
+    files = sorted(os.listdir(CKPT_DIR))
+    if len(files) != 1 or not files[0].endswith("_0000000004.pkl"):
+        raise AssertionError(f"checkpoints {files}: one at iteration 4 "
+                             "expected")
+    # the same fit again resumes from iteration 4's checkpoint
+    fits["10:resumed"], resumed = phase_end_to_end(
+        "10 resumed", ("node_hist_int8",), data,
+        auc_floor=SAMPLING_AUC_FLOORS["checkpoint"], prior_trees=5, **kw)
+    leaf_diff = check_resumed(whole, resumed, Xh, done=5)
+    log("resumed from iteration 4: the checkpoint's 5 trees bit for bit, "
+        "every tree's structure and thresholds identical to the "
+        f"uninterrupted fit's, leaf values within {leaf_diff:.3g}")
+    # the spread of two uninterrupted fits, for scale
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    again = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
+                               device="cuda", **kw).fit(
+        Dataset({"features": X, "label": y})).booster
+    spread = np.abs(again.trees["leaf_value"]
+                    - whole.trees["leaf_value"]).max()
+    log(f"a second uninterrupted fit: leaf values within {spread:.3g} of "
+        "the first")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    # a sweep's second fit on the same rows reuses the binned dataset
+    est = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
+                             device="cuda", learningRate=0.2)
+    train = Dataset({"features": X, "label": y})
+    gbdt_api.clear_binned_dataset_cache()
+    est.fit(train)
+    (ds,) = gbdt_api._BINNED_CACHE.values()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(train)
+    torch.cuda.synchronize()
+    hit_s = time.perf_counter() - t0
+    if list(gbdt_api._BINNED_CACHE.values()) != [ds]:
+        raise AssertionError("the refit did not reuse the binned dataset")
+    log(f"refit on the cached binned dataset: {hit_s:.3f} s "
+        f"({10 / hit_s:.3f} trees/s)")
+    gbdt_api.clear_binned_dataset_cache()
+    fits["10:cache_hit"] = dict(fit_s=hit_s, trees_per_s=10 / hit_s,
+                                host_draw_ms=draw_ms, draw_copy_ms=copy_ms,
+                                fingerprint_ms=fp_ms)
+    return fits
+
+
+def phase_small_sampling():
+    """Phase 10b: the training options at 20,000 rows, cuda against
+    cpu."""
+    X, y = higgs_shaped(20_000, seed=2)
+    base = LightGBMClassifier(numIterations=3, numLeaves=7, maxBin=255,
+                              device="cpu").fit(
+        Dataset({"features": X, "label": y})).booster
+    for label, needs, params in SAMPLING_FITS:
+        if label == "dart":
+            params = dict(params, numIterations=6)
+        phase_small_agreement("10b", needs=needs, **params)
+    phase_small_agreement("10b", needs=("node_hist_bf16",),
+                          modelString=base.model_string())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -1319,35 +1574,38 @@ def main() -> int:
     rows, max_err = phase_kernels()
     rows8, max_err8 = phase_int8_kernel()
     rows3, max_err3, launches3 = phase_cols_kernel()
-    X, y = higgs_shaped(1_000_000, seed=0)
-    Xh, yh = higgs_shaped(200_000, seed=1)
+    X, y = higgs_shaped(HIGGS_ROWS, seed=0)
+    Xh, yh = higgs_shaped(HIGGS_HOLDOUT, seed=1)
     data = (X, y, Xh, yh)
-    fits = {
-        "4": phase_end_to_end("4", ["node_hist_bf16"], data),
-        "4b": phase_end_to_end("4b", ["node_hist_int8"], data,
-                               useQuantizedGrad=True, quantWarmupIters=0),
-        "4c": phase_end_to_end("4c", ["node_hist_int8"], data,
-                               useQuantizedGrad=True, quantWarmupIters=0,
-                               growthPolicy="depthwise"),
-        "4d": phase_end_to_end("4d", ["node_hist_bf16", "node_hist_int8"],
-                               data, check_quality=False,
-                               useQuantizedGrad=True),
-    }
+    fits = {}
+    fits["4"], base = phase_end_to_end("4", ["node_hist_bf16"], data)
+    fits["4b"] = phase_end_to_end("4b", ["node_hist_int8"], data,
+                                  useQuantizedGrad=True,
+                                  quantWarmupIters=0)[0]
+    fits["4c"] = phase_end_to_end("4c", ["node_hist_int8"], data,
+                                  useQuantizedGrad=True, quantWarmupIters=0,
+                                  growthPolicy="depthwise")[0]
+    fits["4d"] = phase_end_to_end("4d", ["node_hist_bf16", "node_hist_int8"],
+                                  data, check_quality=False,
+                                  useQuantizedGrad=True)[0]
     phase_small_agreement("5")
     for policy in ("leafwise", "depthwise"):
         phase_small_agreement("5b", numIterations=4, quantWarmupIters=1,
                               useQuantizedGrad=True, growthPolicy=policy)
     phase_small_objectives()
-    del X, y, Xh, yh, data
     fits["6"] = phase_multiclass()
     fits["7"] = phase_ranker()
     fits["8"] = phase_categorical()
     phase_small_categorical()
     golden = phase_golden()
+    fits.update(phase_sampling(data, base))
+    del X, y, Xh, yh, data
+    phase_small_sampling()
     log("fits: " + json.dumps(fits) + "; " + json.dumps(golden))
 
     def launches(kernel):
-        return sum(f["counts"][kernel] for f in fits.values())
+        return sum(f["counts"][kernel] for f in fits.values()
+                   if "counts" in f)
 
     def entry(name, source, replaces, n_launch, err, r):
         return {"name": name, "route": "cuda", "source": source,

@@ -14,18 +14,23 @@ Validation sets (``validationIndicatorCol``) with early stopping,
 ``isProvideTrainingMetric`` are ported, as are ``growthPolicy`` (leafwise
 or depthwise), ``useQuantizedGrad`` with ``quantRenewLeaf`` and
 ``quantWarmupIters``, ``categoricalSlotIndexes``, ``slotNames`` and
-``leafPredictionCol``. Feature columns may be scipy sparse matrices. The
-models export and import LightGBM's text format
+``leafPredictionCol``; the training options ``boostingType`` (gbdt, goss,
+rf, dart), bagging (plain and pos/neg stratified), warm starts
+(``modelString``, ``numBatches``), ``checkpointDir`` resume and
+``compactSelector``. Fits without ``checkpointDir`` reuse a binned dataset
+of identical data (:func:`_cached_binned_dataset`). Feature columns may be
+scipy sparse matrices. The models export and import LightGBM's text format
 (``get_native_model``/``save_native_model``/``load_native_model``) and
-report feature importances. Params whose non-default values select parts
-of the JAX package that are not ported yet (bagging, dart/goss/rf, init
-scores, warm starts, checkpoints, voting, SHAP) raise
+report feature importances. ``initScoreCol`` is accepted and not read, as
+in the JAX package. Params whose non-default values select parts of the
+JAX package that are not ported yet (voting, SHAP) raise
 ``NotImplementedError`` at fit time rather than being ignored.
 """
 
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -37,8 +42,70 @@ from ...core.params import (HasFeaturesCol, HasGroupCol, HasInitScoreCol,
                             HasRawPredictionCol, HasValidationIndicatorCol,
                             HasWeightCol, Param, TypeConverters)
 from ...core.pipeline import Estimator, Model
-from .booster import Booster, _densify, train_booster
+from ...device import DEFAULT_DEVICE
+from ...utils.checkpoint import data_fingerprint
+from .booster import Booster, LightGBMDataset, _densify, train_booster
 from .growth import GrowConfig, resolve_growth_backend
+
+# Binned datasets of recent fits, keyed by a content fingerprint of the
+# training arrays, every binning param and the device: fits that change
+# only learner params on the same rows (a sweep) reuse one ingest. Two
+# entries bound the device memory they hold.
+_BINNED_CACHE: "OrderedDict" = OrderedDict()
+_BINNED_CACHE_MAX = 2
+
+
+def clear_binned_dataset_cache() -> None:
+    """Release the cached binned datasets and the device memory they
+    hold."""
+    _BINNED_CACHE.clear()
+
+
+def _binned_cache_key(X, y, w, *, max_bin, bin_sample_count, seed,
+                      categorical_features, bin_dtype, max_bin_by_feature,
+                      device) -> tuple:
+    """The cache key: a scipy sparse ``X`` is fingerprinted by its CSR
+    buffers (a hit never densifies); the device (``None`` read as the
+    default, ``cuda``) stands in the JAX package's mesh, so a cpu fit never
+    receives a cuda dataset."""
+    if _is_sparse(X):
+        X = X.tocsr()
+        fp = data_fingerprint(X.data, X.indices, X.indptr,
+                              np.asarray(X.shape), y, w)
+    else:
+        fp = data_fingerprint(X, y, w)
+    return (fp, max_bin, bin_sample_count, seed,
+            tuple(int(i) for i in categorical_features), str(bin_dtype),
+            None if max_bin_by_feature is None
+            else tuple(int(b) for b in max_bin_by_feature),
+            str(torch.device(DEFAULT_DEVICE if device is None else device)))
+
+
+def _cached_binned_dataset(X, y, w, *, max_bin, bin_sample_count, seed,
+                           categorical_features, bin_dtype="int32",
+                           max_bin_by_feature=None,
+                           device=None) -> LightGBMDataset:
+    """The binned dataset of these rows and params on ``device``, built on
+    a miss (the least recently used of :data:`_BINNED_CACHE_MAX` entries
+    goes)."""
+    key = _binned_cache_key(
+        X, y, w, max_bin=max_bin, bin_sample_count=bin_sample_count,
+        seed=seed, categorical_features=categorical_features,
+        bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
+        device=device)
+    ds = _BINNED_CACHE.get(key)
+    if ds is None:
+        ds = LightGBMDataset.construct(
+            X, y, w, max_bin=max_bin, bin_sample_count=bin_sample_count,
+            seed=seed, categorical_features=categorical_features,
+            bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
+            device=device)
+        _BINNED_CACHE[key] = ds
+        while len(_BINNED_CACHE) > _BINNED_CACHE_MAX:
+            _BINNED_CACHE.popitem(last=False)
+    else:
+        _BINNED_CACHE.move_to_end(key)
+    return ds
 
 
 def _to_tristate_bool(v):
@@ -166,8 +233,8 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
                             "compaction. True | False | 'auto' (on for the "
                             "GPU and the CPU)", "auto", _to_tristate_bool)
     compactSelector = Param("compactSelector", "Row-compaction selector for "
-                            "histSubtraction: searchsorted, argsort (not "
-                            "ported) or 'auto' (searchsorted)", "auto",
+                            "histSubtraction: searchsorted, argsort or "
+                            "'auto' (searchsorted)", "auto",
                             TypeConverters.to_string)
     categoricalSlotNames = Param("categoricalSlotNames", "Categorical slots "
                                  "by feature name", None)
@@ -201,10 +268,7 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
 
     # Params whose non-default values reach code that is not ported yet:
     # fit raises instead of silently ignoring them
-    _NOT_PORTED = ("boostingType", "baggingFraction", "posBaggingFraction",
-                   "negBaggingFraction", "initScoreCol", "numBatches",
-                   "modelString", "checkpointDir", "parallelism",
-                   "featuresShapCol")
+    _NOT_PORTED = ("parallelism", "featuresShapCol")
 
     def _check_ported(self) -> None:
         for name in self._NOT_PORTED:
@@ -212,10 +276,6 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
             if v != self.get_param(name).default:
                 raise NotImplementedError(
                     f"{name}={v!r} is not ported to the PyTorch package yet")
-        cs = self.get_or_default("compactSelector")
-        if cs not in ("auto", "searchsorted"):
-            raise NotImplementedError(
-                f"compactSelector={cs!r} is not ported (searchsorted only)")
 
     def _grow_config(self) -> GrowConfig:
         return resolve_growth_backend(GrowConfig(
@@ -236,10 +296,15 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
             quantized_grad=self.get_or_default("useQuantizedGrad"),
             quant_renew_leaf=self.get_or_default("quantRenewLeaf"),
             quant_warmup_iters=self.get_or_default("quantWarmupIters"),
+            compact_selector=self.get_or_default("compactSelector"),
         ))
 
     def _extract_arrays(self, dataset: Dataset):
-        X = _features_dense(dataset, self.get_or_default("featuresCol"))
+        """(X, y, weight or None); a scipy sparse features column stays
+        sparse (training densifies it in row blocks)."""
+        fcol = self.get_or_default("featuresCol")
+        raw = dataset[fcol]
+        X = raw if _is_sparse(raw) else dataset.array(fcol, np.float32)
         y = dataset.array(self.get_or_default("labelCol"), np.float32)
         wcol = self.get_or_default("weightCol")
         w = dataset.array(wcol, np.float32) if wcol else None
@@ -284,41 +349,97 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
         mask = dataset.array(vcol).astype(bool)
         return dataset.filter(~mask), dataset.filter(mask)
 
-    def _train_params(self) -> dict:
-        """The train_booster arguments every estimator passes."""
-        return dict(
-            num_iterations=self.get_or_default("numIterations"),
-            cfg=self._grow_config(),
-            max_bin=self.get_or_default("maxBin"),
-            bin_sample_count=self.get_or_default("binSampleCount"),
-            feature_fraction=self.get_or_default("featureFraction"),
-            seed=self.get_or_default("baggingSeed"),
-            early_stopping_rounds=self.get_or_default("earlyStoppingRound"),
-            early_stopping_tolerance=self.get_or_default(
-                "improvementTolerance"),
-            metric_eval_period=self.get_or_default("metricEvalPeriod"),
-            provide_training_metric=self.get_or_default(
-                "isProvideTrainingMetric"),
-            eval_metric_name=self.get_or_default("metric"),
-            max_bin_by_feature=self.get_or_default("maxBinByFeature"),
-            categorical_features=self._categorical_indexes(),
-            device=self.get_or_default("device"))
-
     def _fit_booster(self, dataset: Dataset, objective: str, num_class: int,
                      objective_kwargs: Optional[dict] = None) -> Booster:
+        """Fit through ``train_booster`` as the JAX estimators do: a
+        ``modelString`` warm start; ``numBatches`` sequential batches, each
+        binned from its own rows and warm-started from the previous one
+        (reference: LightGBMBase.scala:28-50); without ``checkpointDir``, a
+        cached binned dataset."""
         self._check_ported()
         train_ds, valid_ds = self._split_validation(dataset)
         X, y, w = self._extract_arrays(train_ds)
         valid_set = None
         if valid_ds is not None and len(valid_ds) > 0:
             valid_set = self._extract_arrays(valid_ds)
-        return self._apply_slot_names(train_booster(
-            X, y, w, objective=objective, num_class=num_class,
-            valid_set=valid_set,
+        init_booster = None
+        ms = self.get_or_default("modelString")
+        if ms:
+            init_booster = Booster.from_string(ms)
+        common = dict(
+            checkpoint_dir=self.get_or_default("checkpointDir"),
+            checkpoint_period=self.get_or_default("checkpointInterval"),
+            objective=objective, num_class=num_class,
+            cfg=self._grow_config(),
+            max_bin=self.get_or_default("maxBin"),
+            bin_sample_count=self.get_or_default("binSampleCount"),
+            feature_fraction=self.get_or_default("featureFraction"),
+            bagging_fraction=self.get_or_default("baggingFraction"),
+            bagging_freq=self.get_or_default("baggingFreq"),
+            seed=self.get_or_default("baggingSeed"),
+            early_stopping_rounds=self.get_or_default("earlyStoppingRound"),
+            metric_eval_period=self.get_or_default("metricEvalPeriod"),
             boost_from_average=self.get_or_default("boostFromAverage"),
             objective_kwargs=objective_kwargs or {},
+            boosting_type=self.get_or_default("boostingType"),
+            top_rate=self.get_or_default("topRate"),
+            other_rate=self.get_or_default("otherRate"),
+            drop_rate=self.get_or_default("dropRate"),
+            max_drop=self.get_or_default("maxDrop"),
+            skip_drop=self.get_or_default("skipDrop"),
+            drop_seed=self.get_or_default("dropSeed"),
+            categorical_features=self._categorical_indexes(),
             bin_dtype=self.get_or_default("binDtype"),
-            **self._train_params()))
+            pos_bagging_fraction=self.get_or_default("posBaggingFraction"),
+            neg_bagging_fraction=self.get_or_default("negBaggingFraction"),
+            early_stopping_tolerance=self.get_or_default(
+                "improvementTolerance"),
+            provide_training_metric=self.get_or_default(
+                "isProvideTrainingMetric"),
+            max_bin_by_feature=self.get_or_default("maxBinByFeature"),
+            eval_metric_name=self.get_or_default("metric"),
+            device=self.get_or_default("device"))
+        num_iterations = self.get_or_default("numIterations")
+        num_batches = self.get_or_default("numBatches")
+        if num_batches and num_batches > 1:
+            if common["boosting_type"] in ("rf", "dart"):
+                # fail before batch 0 trains: batch 1 would refuse the
+                # warm start
+                raise ValueError(
+                    f"numBatches > 1 is not supported with boostingType="
+                    f"{common['boosting_type']!r} (its trees carry "
+                    "normalization state that a warm-start prefix lacks)")
+            bounds = np.linspace(0, len(y), num_batches + 1).astype(int)
+            booster = init_booster
+            base_ckpt = common["checkpoint_dir"]
+            for i in range(num_batches):
+                sl = slice(bounds[i], bounds[i + 1])
+                if base_ckpt:
+                    # one directory per batch: batch i never resumes from
+                    # batch i-1's checkpoints
+                    common["checkpoint_dir"] = os.path.join(
+                        base_ckpt, f"batch_{i:04d}")
+                booster = train_booster(
+                    X[sl], y[sl], None if w is None else w[sl],
+                    num_iterations=num_iterations, valid_set=valid_set,
+                    init_booster=booster, **common)
+            return self._apply_slot_names(booster)
+        if common["checkpoint_dir"] is None:
+            dset = _cached_binned_dataset(
+                X, y, w, max_bin=common["max_bin"],
+                bin_sample_count=common["bin_sample_count"],
+                seed=common["seed"],
+                categorical_features=common["categorical_features"],
+                bin_dtype=common["bin_dtype"],
+                max_bin_by_feature=common["max_bin_by_feature"],
+                device=common["device"])
+            return self._apply_slot_names(train_booster(
+                X=X if init_booster is not None else None, dataset=dset,
+                num_iterations=num_iterations, valid_set=valid_set,
+                init_booster=init_booster, **common))
+        return self._apply_slot_names(train_booster(
+            X, y, w, num_iterations=num_iterations, valid_set=valid_set,
+            init_booster=init_booster, **common))
 
 
 def _features_dense(dataset: Dataset, col: str) -> np.ndarray:
@@ -558,6 +679,7 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
         if not gcol:
             raise ValueError("LightGBMRanker requires groupCol")
         X, y, w = self._extract_arrays(train_ds)
+        X = _densify(X)            # groups are padded before training
         group = np.asarray(train_ds[gcol])
         sizes = np.unique(group, return_counts=True)[1]
         S = int(min(self.get_or_default("maxGroupSize"),
@@ -567,6 +689,7 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
         valid_set = None
         if valid_ds is not None and len(valid_ds) > 0:
             Xv, yv, _ = self._extract_arrays(valid_ds)
+            Xv = _densify(Xv)
             Xvp, yvp, _, validv, _ = _pad_groups(
                 Xv, yv, None, np.asarray(valid_ds[gcol]), S)
             # per-row metric weight 1/group size: the weighted mean is the
@@ -590,11 +713,32 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
                     f"labelGain has {len(lg)} entries but the data "
                     f"contains relevance grade {max_grade}")
             kwargs["label_gain"] = tuple(float(g) for g in lg)
+        # exactly the JAX ranker's arguments: no categorical slots, bin
+        # dtype, warm start, checkpoints or GOSS/DART/stratified params
+        # (ROADMAP Queue 3); compactSelector reaches it through the config
         booster = self._apply_slot_names(train_booster(
             Xp, yp, wp, objective="lambdarank", num_class=1,
-            valid_set=valid_set, boost_from_average=False,
-            objective_kwargs=kwargs, row_valid=valid,
-            **self._train_params()))
+            cfg=self._grow_config(),
+            max_bin=self.get_or_default("maxBin"),
+            bin_sample_count=self.get_or_default("binSampleCount"),
+            feature_fraction=self.get_or_default("featureFraction"),
+            bagging_fraction=self.get_or_default("baggingFraction"),
+            bagging_freq=self.get_or_default("baggingFreq"),
+            seed=self.get_or_default("baggingSeed"),
+            num_iterations=self.get_or_default("numIterations"),
+            valid_set=valid_set,
+            early_stopping_rounds=self.get_or_default("earlyStoppingRound"),
+            early_stopping_tolerance=self.get_or_default(
+                "improvementTolerance"),
+            provide_training_metric=self.get_or_default(
+                "isProvideTrainingMetric"),
+            max_bin_by_feature=self.get_or_default("maxBinByFeature"),
+            eval_metric_name=self.get_or_default("metric"),
+            metric_eval_period=self.get_or_default("metricEvalPeriod"),
+            boost_from_average=False, objective_kwargs=kwargs,
+            row_valid=valid,
+            boosting_type=self.get_or_default("boostingType"),
+            device=self.get_or_default("device")))
         model = LightGBMRankerModel(booster)
         self._copy_params_to(model)
         return model

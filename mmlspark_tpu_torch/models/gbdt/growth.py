@@ -61,10 +61,15 @@ class GrowConfig(NamedTuple):
     max_delta_step: float = 0.0
     # histogram subtraction: stream only each split's smaller child and
     # derive the larger sibling as parent minus smaller, with the
-    # smaller children's rows compacted by cumsum + binary search (the JAX
-    # package's "searchsorted" selector). True | False | "auto" ("auto"
-    # resolves through resolve_growth_backend before growth)
+    # smaller children's rows compacted to the front of a half-width
+    # buffer. True | False | "auto" ("auto" resolves through
+    # resolve_growth_backend before growth)
     hist_subtraction: "bool | str" = "auto"
+    # the compaction's row selector: "searchsorted" (cumsum + binary
+    # search), "argsort" (one stable sort of the not-selected key) or
+    # "auto" ("searchsorted": the JAX package picks argsort on the TPU
+    # only). Both give the same rows in the same order
+    compact_selector: str = "auto"
     # "leafwise" (best-first, grow_tree) or "depthwise" (one histogram pass
     # per level, grow_tree_depthwise); train_booster dispatches on it
     growth_policy: str = "leafwise"
@@ -91,12 +96,18 @@ class GrowConfig(NamedTuple):
 
 
 def resolve_growth_backend(cfg: GrowConfig) -> GrowConfig:
-    """Resolve ``hist_subtraction="auto"`` to a concrete value.
+    """Resolve ``hist_subtraction`` and ``compact_selector`` ``"auto"`` to
+    concrete values.
 
-    A GPU takes the JAX package's non-TPU rule: ``"auto"`` -> True (with
-    its searchsorted compaction). Idempotent; validates the fields and
-    refuses ``hist_blocks``, which is not ported."""
-    hs = cfg.hist_subtraction
+    A GPU takes the JAX package's non-TPU rule: ``hist_subtraction``
+    ``"auto"`` -> True, ``compact_selector`` ``"auto"`` -> "searchsorted".
+    Idempotent; validates the fields and refuses ``hist_blocks``, which is
+    not ported."""
+    hs, cs = cfg.hist_subtraction, cfg.compact_selector
+    if cs not in ("auto", "argsort", "searchsorted"):
+        raise ValueError(
+            f"compact_selector must be 'auto', 'argsort' or 'searchsorted',"
+            f" got {cs!r}")
     if hs != "auto" and not isinstance(hs, bool):
         raise ValueError(
             f"hist_subtraction must be True, False or 'auto', got {hs!r}")
@@ -104,7 +115,9 @@ def resolve_growth_backend(cfg: GrowConfig) -> GrowConfig:
         raise ValueError(f"growth_policy must be 'leafwise' or 'depthwise', "
                          f"got {cfg.growth_policy!r}")
     _check_plain_geometry(cfg)
-    return cfg._replace(hist_subtraction=True if hs == "auto" else hs)
+    return cfg._replace(hist_subtraction=True if hs == "auto" else hs,
+                        compact_selector=("searchsorted" if cs == "auto"
+                                          else cs))
 
 
 def _check_plain_geometry(cfg: GrowConfig) -> None:
@@ -305,13 +318,25 @@ def _renew_leaf_stats(ng, nh, nc, is_leaf, row_node, grad, hess, vm):
                  for i, v in enumerate((ng, nh, nc)))
 
 
-def _compact_select(sel: torch.Tensor, h_buf: int):
+def _compact_select(sel: torch.Tensor, h_buf: int,
+                    mode: str = "searchsorted"):
     """Indices of the selected rows, compacted to the front of an ``h_buf``
-    buffer (stable order), by cumsum + binary search for the k-th selected
-    row (the JAX package's "searchsorted" mode). Returns (src [h_buf]
-    int64, n_sel 0-d int64 tensor); entries past ``n_sel`` point at
-    unselected rows and are masked by the caller."""
+    buffer (stable order). Returns (src [h_buf] int64, n_sel 0-d int64
+    tensor); entries past ``n_sel`` point at unselected rows and are
+    masked by the caller.
+
+    ``mode`` (``GrowConfig.compact_selector``): "searchsorted" finds the
+    k-th selected row by cumsum + binary search; "argsort" takes a stable
+    argsort of the not-selected key (one ``[n]`` sort). Both give the same
+    entries below ``n_sel``."""
     n = sel.shape[0]
+    if mode == "argsort":
+        key = (~sel).to(torch.int8)
+        src = torch.argsort(key, stable=True)[:h_buf]
+        return src, sel.sum(dtype=torch.int64)
+    if mode != "searchsorted":
+        raise ValueError(f"compact_selector must be 'argsort' or "
+                         f"'searchsorted', got {mode!r}")
     c = torch.cumsum(sel.to(torch.int32), dim=0, dtype=torch.int32)
     want = torch.arange(1, h_buf + 1, dtype=torch.int32, device=sel.device)
     src = torch.searchsorted(c, want, side="left").clamp_(max=n - 1)
@@ -320,7 +345,7 @@ def _compact_select(sel: torch.Tensor, h_buf: int):
 
 def _subtracted_pair_hists(binned_t, base_t, qscales, row_small,
                            small_is_left, parent_hists, K: int, B: int,
-                           h_buf: int):
+                           h_buf: int, selector: str):
     """Smaller-child compaction + subtraction for K sibling pairs, shared by
     both growth policies.
 
@@ -331,9 +356,10 @@ def _subtracted_pair_hists(binned_t, base_t, qscales, row_small,
     buffer, builds the K smaller-child histograms in one kernel pass
     (dequantized when ``qscales`` is set), derives each larger sibling as
     parent minus smaller in f32, and returns [2K, F, 3, B] interleaved as
-    [l0, r0, l1, r1, ...]."""
+    [l0, r0, l1, r1, ...]. ``selector`` is the compaction's mode
+    (:func:`_compact_select`)."""
     F = binned_t.shape[0]
-    src, n_sel = _compact_select(row_small >= 0, h_buf)
+    src, n_sel = _compact_select(row_small >= 0, h_buf, selector)
     keep = torch.arange(h_buf, device=src.device) < n_sel
     pos_h = torch.where(keep, row_small[src], -1).to(torch.int32)
     h_small = node_histogram(binned_t.index_select(1, src).contiguous(),
@@ -487,7 +513,8 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             row_small = torch.where(in_small, spos, -1).to(torch.int32)
             parents = nhist[torch.where(do, slots, 0).long()]
             hw = _subtracted_pair_hists(binned_t, base_t, qscales, row_small,
-                                        small_is_left, parents, KB, B, h_buf)
+                                        small_is_left, parents, KB, B, h_buf,
+                                        cfg.compact_selector)
         else:
             # child position in [0, 2*KB): 2i = left child of candidate i
             cpos = torch.where(goleft_k, 2 * arange_kb[:, None],
@@ -607,7 +634,8 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
 
         if use_sub and depth >= 1:
             h = _sub_level_hist(binned_t, base_t, qscales, aux, frontier,
-                                row_node, W, M, B, h_buf)
+                                row_node, W, M, B, h_buf,
+                                cfg.compact_selector)
         else:
             # each row's frontier position (-1: the row is at a finished
             # leaf); inactive positions write to the spare slot M
@@ -688,7 +716,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
 
 
 def _sub_level_hist(binned_t, base_t, qscales, aux, frontier, row_node,
-                    W: int, M: int, B: int, h_buf: int):
+                    W: int, M: int, B: int, h_buf: int, selector: str):
     """[W, F, 3, B] level histograms by smaller-child compaction: the rows
     of each sibling pair's smaller child (by raw count; at most n//2 in all,
     since the pairs' row sets are disjoint) are gathered into the
@@ -713,7 +741,7 @@ def _sub_level_hist(binned_t, base_t, qscales, aux, frontier, row_node,
     row_small = slot_to_small[row_node.long()]            # [n] in [-1, Wh)
     hw = _subtracted_pair_hists(
         binned_t, base_t, qscales, row_small, small_off == 0,
-        h_prev[pair_parent.clamp(min=0).long()], Wh, B, h_buf)
+        h_prev[pair_parent.clamp(min=0).long()], Wh, B, h_buf, selector)
     if 2 * Wh != W:
         hw = torch.cat([hw, hw.new_zeros((W - 2 * Wh,) + hw.shape[1:])])
     return hw

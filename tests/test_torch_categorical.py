@@ -25,7 +25,8 @@ Seeded numpy inputs go through both packages on the CPU.
     from LightGBM text (strict ``FindInBitset``), against the JAX package;
     ``cat_member`` and ``raw_to_cat_bin`` against the JAX functions.
   * The estimators: ``categoricalSlotIndexes`` grows the JAX estimator's
-    trees; ``categoricalSlotNames`` raises the JAX package's error.
+    trees; ``categoricalSlotNames`` raises the JAX package's error; the
+    ranker drops the slots, as the JAX ranker does.
 """
 
 import numpy as np
@@ -38,6 +39,7 @@ import jax.numpy as jnp
 from mmlspark_tpu.core.dataset import Dataset as JDataset
 from mmlspark_tpu.models.gbdt import growth as JG
 from mmlspark_tpu.models.gbdt.api import LightGBMClassifier as JClassifier
+from mmlspark_tpu.models.gbdt.api import LightGBMRanker as JRanker
 from mmlspark_tpu.models.gbdt.booster import Booster as JBooster
 from mmlspark_tpu.models.gbdt.booster import train_booster as jtrain
 from mmlspark_tpu.parallel.mesh import default_mesh, make_mesh
@@ -325,17 +327,25 @@ def test_out_of_range_categorical_index_raises():
 
 
 def test_ranker_splits_categorical_slots():
-    """The port's ranker passes categoricalSlotIndexes to training (the JAX
-    package's ranker drops them; ROADMAP Queue 3)."""
+    """The port's ranker forwards the JAX ranker's training arguments,
+    which leave ``categoricalSlotIndexes`` out (a reference defect kept on
+    purpose, ROADMAP Queue 3): both rankers split the category ids as
+    numbers and grow the same trees."""
     X, _ = _cat_data(960, seed=12)
     rel = np.isin(X[:, 0], [1, 4, 7, 10]).astype(np.float32) * 2 + (
         X[:, 1] > 0.5)
     cols = {"features": X, "label": rel.astype(np.float32),
             "query": np.repeat(np.arange(80), 12)}
-    model = LightGBMRanker(device="cpu", groupCol="query", numIterations=2,
-                           numLeaves=7, minDataInLeaf=20, maxBin=63,
-                           categoricalSlotIndexes=[0]).fit(TDataset(cols))
-    b = model.booster
-    assert b._is_cat() is not None and b._is_cat()[0]
-    assert b.trees["cat_bitset"][0, 0, 0] == (1 << 1 | 1 << 4 | 1 << 7
-                                              | 1 << 10)
+    kw = dict(groupCol="query", numIterations=2, numLeaves=7,
+              minDataInLeaf=20, maxBin=63, categoricalSlotIndexes=[0])
+    b = LightGBMRanker(device="cpu", **kw).fit(TDataset(cols)).booster
+    with default_mesh(_mesh()):
+        jb = JRanker(**kw).fit(JDataset(cols)).booster
+    assert b._is_cat() is None and jb._is_cat() is None
+    assert not b.trees["cat_bitset"].any()
+    for f in TREE:
+        np.testing.assert_array_equal(b.trees[f],
+                                      np.asarray(getattr(jb.trees, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(b.predict_raw(X, device="cpu"),
+                               jb.predict_raw(X), rtol=0, atol=1e-5)

@@ -136,10 +136,7 @@ def test_regressor_fit_transform():
 
 
 @pytest.mark.parametrize("param,value", [
-    ("boostingType", "dart"), ("baggingFraction", 0.5),
-    ("parallelism", "voting_parallel"), ("numBatches", 2),
-    ("featuresShapCol", "shap"), ("modelString", "tree"),
-    ("compactSelector", "argsort"),
+    ("parallelism", "voting_parallel"), ("featuresShapCol", "shap"),
 ])
 def test_unported_params_raise(param, value):
     X, y, _ = _data(200, seed=4)

@@ -13,7 +13,9 @@ a hessian total near 2000), and every right child inherits that absolute
 difference through its parent-minus-left total. A leaf of a few dozen rows
 then carries it as a relative difference of up to 6e-5 (measured on
 ``test_grow_tree_narrow_bins_and_feature_mask``). Row counts below and
-above 8192 cover growth without and with histogram subtraction.
+above 8192 cover growth without and with histogram subtraction; the
+subtraction's row compaction runs under both selectors, searchsorted and
+argsort.
 """
 
 import numpy as np
@@ -127,6 +129,58 @@ def test_compact_select_matches_jax(frac):
     assert int(tn) == int(jn)
     k = int(tn)
     np.testing.assert_array_equal(tsrc.numpy()[:k], np.asarray(jsrc)[:k])
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.3, 0.5])
+def test_compact_select_argsort_matches_jax(frac):
+    """The argsort selector compacts the same rows, in the same order, as
+    the JAX package's argsort and as the port's searchsorted."""
+    rng = np.random.default_rng(int(frac * 10) + 1)
+    n = 1001
+    sel = rng.uniform(size=n) < frac
+    h_buf = n // 2
+    jsrc, jn = JG._compact_select(jnp.asarray(sel), h_buf, "argsort")
+    tsrc, tn = TG._compact_select(torch.from_numpy(sel), h_buf, "argsort")
+    ssrc, sn = TG._compact_select(torch.from_numpy(sel), h_buf)
+    assert int(tn) == int(jn) == int(sn)
+    k = int(tn)
+    np.testing.assert_array_equal(tsrc.numpy()[:k], np.asarray(jsrc)[:k])
+    np.testing.assert_array_equal(tsrc.numpy()[:k], ssrc.numpy()[:k])
+    with pytest.raises(ValueError, match="compact_selector"):
+        TG._compact_select(torch.from_numpy(sel), h_buf, "bogus")
+
+
+@pytest.mark.parametrize("grow", ["grow_tree", "grow_tree_depthwise"])
+def test_argsort_selector_grows_the_searchsorted_tree(grow):
+    """At 12,000 rows histogram subtraction compacts every smaller child:
+    both selectors grow the same tree, leaf values bit for bit."""
+    binned, grad, hess, valid = _problem(21, 12_000)
+    args = [torch.from_numpy(a) for a in (binned, grad, hess, valid)]
+    fmask = torch.ones(binned.shape[0], dtype=torch.bool)
+    trees = {}
+    for mode in ("argsort", "searchsorted"):
+        cfg = TG.resolve_growth_backend(TG.GrowConfig(
+            num_bins=63, num_leaves=15, compact_selector=mode))
+        assert TG._use_subtraction(cfg, 12_000)
+        trees[mode] = getattr(TG, grow)(*args, fmask, cfg)
+    (ta, ra), (ts, rs) = trees["argsort"], trees["searchsorted"]
+    for f in TG.Tree._fields:
+        assert torch.equal(getattr(ta, f), getattr(ts, f)), f
+    assert torch.equal(ra, rs)
+
+
+def test_compact_selector_resolves_as_jax_off_the_tpu():
+    assert TG.resolve_growth_backend(
+        TG.GrowConfig()).compact_selector == "searchsorted"
+    assert JG.resolve_growth_backend(
+        JG.GrowConfig()).compact_selector == "searchsorted"
+    assert TG.resolve_growth_backend(TG.GrowConfig(
+        compact_selector="argsort")).compact_selector == "argsort"
+    with pytest.raises(ValueError) as jerr:
+        JG.resolve_growth_backend(JG.GrowConfig(compact_selector="sort"))
+    with pytest.raises(ValueError) as terr:
+        TG.resolve_growth_backend(TG.GrowConfig(compact_selector="sort"))
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_predict_tree_binned_matches_jax():

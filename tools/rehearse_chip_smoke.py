@@ -1,18 +1,22 @@
 """Rehearse phases of ``chip_smoke.py`` on the CPU, at a small size.
 
     python tools/rehearse_chip_smoke.py p6 p8 p8b p9 [--rows 40000]
+    python tools/rehearse_chip_smoke.py p10 p10b [--higgs-rows 200000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu``: the kernels' wrappers then take their plain
 versions (counted as launches here), the card's timers and memory calls
-are stubbed, and the Covertype-shaped phases use ``--rows`` training rows
-(a quarter of that held out). It finds Python-level faults before a chip
+are stubbed, the Covertype-shaped phases use ``--rows`` training rows
+(a quarter of that held out) and the HIGGS-shaped ones ``--higgs-rows``
+(a fifth of that held out). It finds Python-level faults before a chip
 run and gives the quality a phase reaches at a small size, from which its
 floors are set. Times it prints are CPU times, not device times.
 
 Phases: ``p6`` (multiclass on one-hot columns), ``p8`` (categorical
 multiclass), ``p8b`` (small categorical fits, which compare the CPU with
-itself here), ``p9`` (the LightGBM text corpus and a CSR fit).
+itself here), ``p9`` (the LightGBM text corpus and a CSR fit), ``p10``
+(phase 4's default fit, then every training option warm-started from it
+or beside it), ``p10b`` (the small fits of the training options).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ class _Event:
         return (other.t - self.t) * 1e3
 
 
-def load_on_cpu(rows: int) -> types.ModuleType:
+def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
     """``chip_smoke.py`` executed as a module whose devices are the CPU."""
     path = os.path.join(ROOT, "chip_smoke.py")
     src = open(path).read().replace('"cuda"', '"cpu"').replace(
@@ -69,18 +73,31 @@ def load_on_cpu(rows: int) -> types.ModuleType:
 
     mod.read_counts = read_counts
     mod.COVERTYPE_ROWS, mod.COVERTYPE_HOLDOUT = rows, rows // 4
+    mod.HIGGS_ROWS, mod.HIGGS_HOLDOUT = higgs_rows, higgs_rows // 5
     return mod
+
+
+def phase_sampling(mod) -> dict:
+    """Phase 4's default fit, then phase 10 on its rows and model."""
+    data = (*mod.higgs_shaped(mod.HIGGS_ROWS, seed=0),
+            *mod.higgs_shaped(mod.HIGGS_HOLDOUT, seed=1))
+    fit4, base = mod.phase_end_to_end("4", ["node_hist_bf16"], data)
+    return {"4": fit4, **mod.phase_sampling(data, base)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phases", nargs="+", choices=["p6", "p8", "p8b", "p9"])
+    ap.add_argument("phases", nargs="+",
+                    choices=["p6", "p8", "p8b", "p9", "p10", "p10b"])
     ap.add_argument("--rows", type=int, default=40_000)
+    ap.add_argument("--higgs-rows", type=int, default=200_000)
     args = ap.parse_args()
     torch.set_num_threads(4)
-    mod = load_on_cpu(args.rows)
+    mod = load_on_cpu(args.rows, args.higgs_rows)
     run = {"p6": mod.phase_multiclass, "p8": mod.phase_categorical,
-           "p8b": mod.phase_small_categorical, "p9": mod.phase_golden}
+           "p8b": mod.phase_small_categorical, "p9": mod.phase_golden,
+           "p10": lambda: phase_sampling(mod),
+           "p10b": mod.phase_small_sampling}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
