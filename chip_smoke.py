@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. Build: compiles every histogram kernel from ``mmlspark_tpu_torch/csrc``
    with ``nvcc -Xptxas -v`` (one process per source, all started
    together; the compiler's registers, shared memory and spills are
-   printed): ``node_hist``, ``node_hist_int8`` and ``hist_bf16``. Then the
+   printed): ``node_hist``, ``node_hist_int8`` and ``hist_bf16``, and
+   beside them the host C++ engine ``native/mmlspark_native.cpp`` (host
+   TreeSHAP, the CSV reader) with the host compiler. Then the
    geometry of kernels 1 and 2 at the main path's two passes, and how many
    of its clusters the card holds at once.
 3. Kernel 1, ``node_hist`` (bf16 stats), against its plain version on the
@@ -154,6 +156,31 @@ Phases (any failure exits non-zero and prints no result line):
    binned-dataset cache first, so its time includes its ingest.
 10b. The same options at 20,000 rows on cuda against cpu, as phase 5:
    identical trees and margins within 1e-5.
+11. The main path's extensions, on the models of phases 4, 4b, 6 and 8.
+   11a, the predict lanes: phase 4b's model scores the 200,000-row
+   holdout with ``predict_raw(predict_dtype=...)`` in f32, bf16 and int8,
+   each on cuda and cpu (within 1e-5); int8's margins within half a
+   quantization step per tree of f32's (routing is exact), bf16's mean
+   |delta| under ``BF16_MEAN_DELTA_FLOOR``; rows/s and upload bytes per
+   row of each lane (int8 uploads f32 rows and bins them on the card), and phase 4's model's int8 delta (printed, not held:
+   its leaves near 1e4 flush its ordinary leaves to 0). 11b,
+   contributions: ``predict_contrib`` on cuda (the device TreeSHAP
+   engine, f64) over the holdout, each row summing to its margin within
+   1e-4, and within 1e-4 of the host C++ engine on its first 2,000 rows;
+   saabas summing to the margin within 1e-4; ``featuresShapCol`` through
+   the transforms of phase 6's model (every class block sums within 1e-6
+   to its margin summed in f64 on the host from the leaves the rows
+   reach; its largest leaf and margin printed, and the f32 margin's own
+   distance from that sum) and of phase 8's categorical model (device vs host on
+   2,000 rows, 1e-4), on 20,000 rows each; rows/s per engine and method
+   and the peak device memory. 11c, out of core: phase 4's rows written
+   as 4 ``.npy`` shards under ``build/``, ``LightGBMDataset.construct(path=
+   ..., label_path=...)`` against the in-memory construct at uint8 (bin
+   bounds and bins bit-equal), a quantized 10-round ``train_booster`` on
+   each (kernel 2 only; identical trees, margins within 1e-5),
+   ``predict_streamed`` over the holdout's shards (65,536-row chunks) bit
+   for bit ``predict``, ``predict_contrib_streamed`` over 20,000 rows bit
+   for bit ``predict_contrib``; ingest seconds and streamed rows/s.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -169,18 +196,26 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch import native
 from mmlspark_tpu_torch.core.dataset import Dataset
 from mmlspark_tpu_torch.models.gbdt import api as gbdt_api
 from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassifier,
                                                 LightGBMRanker,
                                                 LightGBMRegressor,
                                                 _pad_groups)
-from mmlspark_tpu_torch.models.gbdt.booster import Booster, _row_uniforms
-from mmlspark_tpu_torch.models.gbdt.growth import Tree, leaf_nodes_binned
+from mmlspark_tpu_torch.models.gbdt import quantize
+from mmlspark_tpu_torch.models.gbdt.booster import (Booster, LightGBMDataset,
+                                                    _row_uniforms,
+                                                    train_booster)
+from mmlspark_tpu_torch.models.gbdt.growth import (GrowConfig, Tree,
+                                                   leaf_nodes_binned)
+from mmlspark_tpu_torch.models.gbdt.ingest import write_shards
+from mmlspark_tpu_torch.models.gbdt.treeshap import shap_values
 from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
                                                        auc_weighted,
                                                        get_objective)
@@ -1029,7 +1064,8 @@ def multiclass_quality(probs, pred, y, yh, classes):
 
 
 def phase_multiclass():
-    """Phase 6: the 7-class Covertype-shaped fit at full width."""
+    """Phase 6: the 7-class Covertype-shaped fit at full width. Returns
+    its record and its model."""
     log(f"== phase 6: LightGBMClassifier multiclass fit -> transform, "
         f"{COVERTYPE_ROWS} x 54 x 255, 7 classes")
     X, y = covertype_shaped(COVERTYPE_ROWS, seed=0)
@@ -1079,7 +1115,7 @@ def phase_multiclass():
     return dict(counts=counts, fit_s=fit_s,
                 trees_per_s=booster.num_trees / fit_s,
                 predict_rows_per_s=len(yh) / pred_s, multi_logloss=logloss,
-                prior_logloss=prior_ll, accuracy=acc, majority=majority)
+                prior_logloss=prior_ll, accuracy=acc, majority=majority), model
 
 
 def holdout_ndcg(scores, y, group, k=10) -> float:
@@ -1190,7 +1226,8 @@ def device_tree(booster, t, dev):
 
 def phase_categorical():
     """Phase 8: categorical multiclass at full width, then the model's
-    text round trip, leaves and importances on the card."""
+    text round trip, leaves and importances on the card. Returns its record
+    and its model."""
     log(f"== phase 8: LightGBMClassifier categorical multiclass fit -> "
         f"transform, {COVERTYPE_ROWS} x 12 (ids 0-3 and 0-39) x 255, 7 "
         "classes")
@@ -1280,7 +1317,7 @@ def phase_categorical():
     return dict(counts=counts, fit_s=fit_s, trees_per_s=T / fit_s,
                 predict_rows_per_s=len(yh) / pred_s, multi_logloss=logloss,
                 prior_logloss=prior_ll, accuracy=acc, majority=majority,
-                categorical_nodes=cat_nodes, text_chars=len(text))
+                categorical_nodes=cat_nodes, text_chars=len(text)), model
 
 
 def phase_small_categorical():
@@ -1553,6 +1590,286 @@ def phase_small_sampling():
                           modelString=base.model_string())
 
 
+# phase 11a: the bf16 lane's mean |margin - f32 margin| on phase 4b's model
+# may be at most this (PERF.md, set from a CPU rehearsal at a small size
+# before its first chip run)
+BF16_MEAN_DELTA_FLOOR = 5e-3
+# phase 11c: where the shards of phase 4's rows are written (under the
+# ignored build directory), and the streamed chunk
+OOC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_ooc")
+STREAM_CHUNK_ROWS = 65_536
+CONTRIB_ROWS = 20_000
+ENGINE_CHECK_ROWS = 2_000
+
+
+def timed(fn):
+    """``fn()`` and its seconds, the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def margin_f64(booster, X) -> np.ndarray:
+    """``[n, K]`` raw margins summed in f64 on the host from the leaves
+    ``predict_leaf`` routes each row to: ``predict_raw``'s f32 margin
+    without its rounding."""
+    nodes = booster.predict_leaf(X, device="cuda").astype(np.int64)
+    leaf = booster.trees["leaf_value"].astype(np.float64)
+    K = booster.num_class
+    out = np.tile(np.asarray(booster.base_score, np.float64), (len(X), 1))
+    for t in range(nodes.shape[1]):
+        out[:, t % K] += leaf[t, nodes[:, t]]
+    return out
+
+
+def int8_bound(booster) -> np.ndarray:
+    """Per class, the most the int8 lane's margins may differ from f32's:
+    half a quantization step of every tree of the class (routing is
+    exact; each leaf moves by at most ``scale_t / 2``)."""
+    _, scale = quantize.quantize_leaves(booster.trees["leaf_value"])
+    K = booster.num_class
+    return np.array([scale[k::K].astype(np.float64).sum() / 2
+                     for k in range(K)])
+
+
+def phase_lanes(booster, base, Xh) -> dict:
+    """Phase 11a: phase 4b's model scores the holdout in every lane on cuda
+    and cpu; int8 within its leaf-quantization bound of f32, bf16's mean
+    difference under ``BF16_MEAN_DELTA_FLOOR``."""
+    log(f"== phase 11a: predict lanes f32 / bf16 / int8 on phase 4b's model, "
+        f"{len(Xh):,} x 28 holdout rows")
+    F = Xh.shape[1]
+    out, margins = {}, {}
+    for lane in ("f32", "bf16", "int8"):
+        booster.predict_raw(Xh[:1000], device="cuda", predict_dtype=lane)
+        m, s = timed(lambda: booster.predict_raw(Xh, device="cuda",
+                                                 predict_dtype=lane))
+        cpu = booster.predict_raw(Xh, device="cpu", predict_dtype=lane)
+        diff = margin_diff(m, cpu)
+        # host rows go up as bf16 in the bf16 lane, else as f32 (the
+        # int8 lane bins them on the card)
+        upload = (2 if lane == "bf16" else 4) * F
+        log(f"{lane}: {len(Xh) / s:,.0f} rows/s ({s:.4f} s), upload {upload} "
+            f"bytes per row; cuda vs cpu max abs diff {diff:.3g}")
+        if not np.isfinite(m).all() or not diff <= 1e-5:
+            raise AssertionError(f"lane {lane}: cuda vs cpu differ by {diff}")
+        margins[lane] = m
+        out[lane] = dict(rows_per_s=len(Xh) / s, upload_bytes_per_row=upload,
+                         cuda_vs_cpu=diff)
+    bound = int8_bound(booster)
+    d8 = np.abs(margins["int8"] - margins["f32"]).max(axis=0)
+    dbf = np.abs(margins["bf16"] - margins["f32"])
+    log(f"int8 vs f32: max |delta| {d8.tolist()} against the bound "
+        f"{bound.tolist()} (half a step of every tree); bf16 vs f32: mean "
+        f"|delta| {dbf.mean():.4g} (floor {BF16_MEAN_DELTA_FLOOR}), max "
+        f"{dbf.max():.4g}")
+    if not (d8 <= bound + 1e-6).all():
+        raise AssertionError(f"int8 margins off f32 by {d8} > {bound}")
+    if not dbf.mean() <= BF16_MEAN_DELTA_FLOOR:
+        raise AssertionError(f"bf16 mean |delta| {dbf.mean()} > "
+                             f"{BF16_MEAN_DELTA_FLOOR}")
+    # phase 4's bf16 model carries leaves near 1e4 (ROADMAP Queue 3): a
+    # per-tree int8 scale of that size flushes its ordinary leaves to 0
+    b8 = np.abs(base.predict_raw(Xh, device="cuda", predict_dtype="int8")
+                - base.predict_raw(Xh, device="cuda")).max()
+    log(f"phase 4's model (largest |leaf| {np.abs(base.trees['leaf_value']).max():.4g}): "
+        f"int8 vs f32 max |delta| {b8:.4g} (bound {int8_bound(base)[0]:.4g};"
+        " not held)")
+    out.update(int8_max_delta=float(d8.max()), int8_bound=float(bound.max()),
+               bf16_mean_delta=float(dbf.mean()),
+               bf16_max_delta=float(dbf.max()),
+               phase4_int8_max_delta=float(b8))
+    return out
+
+
+def class_sums(contrib, K, F):
+    """``[n, K]``: each class block of a contributions matrix summed."""
+    return np.stack([contrib[:, k * (F + 1):(k + 1) * (F + 1)].sum(axis=1)
+                     for k in range(K)], axis=1)
+
+
+def phase_contributions(booster, Xh, multiclass, categorical) -> dict:
+    """Phase 11b: device TreeSHAP and saabas on phase 4b's model, against
+    the margins and the host engine; ``featuresShapCol`` through the
+    transforms of phase 6's and phase 8's models."""
+    log(f"== phase 11b: contributions on phase 4b's model, {len(Xh):,} rows")
+    F = Xh.shape[1]
+    raw = booster.predict_raw(Xh, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    dev, s_dev = timed(lambda: booster.predict_contrib(Xh, device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    add = np.abs(class_sums(dev, 1, F) - raw).max()
+    log(f"device TreeSHAP: {len(Xh) / s_dev:,.0f} rows/s ({s_dev:.3f} s), "
+        f"peak device memory {peak / 2**30:.3f} GiB; rows sum to the margin "
+        f"within {add:.3g}")
+    if dev.shape != (len(Xh), F + 1) or not add <= 1e-4:
+        raise AssertionError(f"device TreeSHAP sums off the margin by {add}")
+    r = ENGINE_CHECK_ROWS
+    host, s_host = timed(lambda: shap_values(booster, Xh[:r]))
+    eng = np.abs(host - dev[:r]).max()
+    log(f"host TreeSHAP (C++): {r / s_host:,.0f} rows/s ({s_host:.3f} s); "
+        f"device vs host on {r:,} rows: max abs diff {eng:.3g}")
+    if not eng <= 1e-4:
+        raise AssertionError(f"device vs host TreeSHAP differ by {eng}")
+    sa, s_sa = timed(lambda: booster.predict_contrib(Xh, method="saabas",
+                                                     device="cuda"))
+    add_sa = np.abs(class_sums(sa, 1, F) - raw).max()
+    log(f"saabas: {len(Xh) / s_sa:,.0f} rows/s ({s_sa:.3f} s); rows sum to "
+        f"the margin within {add_sa:.3g}")
+    if not add_sa <= 1e-4:
+        raise AssertionError(f"saabas sums off the margin by {add_sa}")
+
+    n = CONTRIB_ROWS
+    Xc, _ = covertype_shaped(n, seed=1)
+    model = multiclass.copy({"featuresShapCol": "shap"})
+    out, s6 = timed(lambda: model.transform(Dataset({"features": Xc})))
+    c6 = out.array("shap")
+    raw6 = margin_f64(multiclass.booster, Xc)
+    add6 = np.abs(class_sums(c6, 7, Xc.shape[1]) - raw6).max()
+    log(f"phase 6's model, transform with featuresShapCol on {n:,} rows: "
+        f"{n / s6:,.0f} rows/s ({s6:.3f} s); every class block sums to its "
+        f"margin summed in f64 within {add6:.3g}")
+    if c6.shape != (n, 7 * 55) or not add6 <= 1e-6:
+        raise AssertionError(f"phase 6's contributions off by {add6}")
+    t6 = multiclass.booster.trees
+    f32_off = np.abs(multiclass.booster.predict_raw(Xc, device="cuda")
+                     - raw6).max()
+    log(f"phase 6's model: largest |leaf| "
+        f"{np.abs(np.where(t6['is_leaf'], t6['leaf_value'], 0)).max():.4g}, "
+        f"largest |margin| {np.abs(raw6).max():.4g}; predict_raw's f32 "
+        f"margin is {f32_off:.3g} off the f64 sum")
+    Xk, _ = covertype_categorical(n, seed=1)
+    model = categorical.copy({"featuresShapCol": "shap"})
+    out, s8 = timed(lambda: model.transform(Dataset({"features": Xk})))
+    c8 = out.array("shap")
+    host8 = shap_values(categorical.booster, Xk[:r])
+    eng8 = np.abs(c8[:r] - host8).max()
+    add8 = np.abs(class_sums(c8, 7, Xk.shape[1])
+                  - categorical.booster.predict_raw(Xk, device="cuda")).max()
+    log(f"phase 8's model, transform with featuresShapCol on {n:,} rows: "
+        f"{n / s8:,.0f} rows/s ({s8:.3f} s); device vs host on {r:,} rows "
+        f"{eng8:.3g}; class blocks sum to the margins within {add8:.3g}")
+    if not eng8 <= 1e-4:
+        raise AssertionError(f"phase 8's device vs host differ by {eng8}")
+    return dict(treeshap_device_rows_per_s=len(Xh) / s_dev,
+                treeshap_host_rows_per_s=r / s_host,
+                saabas_rows_per_s=len(Xh) / s_sa,
+                multiclass_shap_rows_per_s=n / s6,
+                categorical_shap_rows_per_s=n / s8,
+                peak_gib=peak / 2**30, additivity=float(add),
+                device_vs_host=float(eng), saabas_additivity=float(add_sa),
+                multiclass_additivity=float(add6),
+                multiclass_f32_margin_off=float(f32_off),
+                categorical_device_vs_host=float(eng8))
+
+
+def quantized_fit(dataset) -> tuple:
+    """A quantized 10-round fit on a built dataset (kernel 2); returns the
+    booster, its launch counts and seconds."""
+    cfg = GrowConfig(num_leaves=31, quantized_grad=True, quant_warmup_iters=0)
+    reset_counts()
+    b, s = timed(lambda: train_booster(dataset=dataset, objective="binary",
+                                       num_iterations=10, cfg=cfg))
+    counts = read_counts()
+    if counts["node_hist_int8"] <= 0 or counts["plain"] != 0:
+        raise AssertionError(f"the quantized fit did not go through kernel 2 "
+                             f"alone: {counts}")
+    return b, counts, s
+
+
+def phase_out_of_core(data) -> dict:
+    """Phase 11c: phase 4's rows as ``.npy`` shards, built out of core and
+    in memory; equal binners, bins and trees; streamed scores and
+    contributions equal the in-memory ones."""
+    X, y, Xh, _ = data
+    log(f"== phase 11c: out-of-core ingest of {len(y):,} x 28 rows in 4 "
+        f"shards, streamed scoring of {len(Xh):,}")
+    shutil.rmtree(OOC_DIR, ignore_errors=True)
+    x_dir, y_dir, h_dir, c_dir = (os.path.join(OOC_DIR, d)
+                                  for d in ("x", "y", "h", "c"))
+    q = len(y) // 4
+    cuts = [(i * q, len(y) if i == 3 else (i + 1) * q) for i in range(4)]
+    write_shards((X[a:b] for a, b in cuts), x_dir)
+    write_shards((y[a:b] for a, b in cuts), y_dir)
+    write_shards((Xh[i:i + 50_000] for i in range(0, len(Xh), 50_000)), h_dir)
+    write_shards((Xh[:CONTRIB_ROWS // 2], Xh[CONTRIB_ROWS // 2:CONTRIB_ROWS]),
+                 c_dir)
+    mem, s_mem = timed(lambda: LightGBMDataset.construct(
+        X, y, bin_dtype="uint8", device="cuda"))
+    ooc, s_ooc = timed(lambda: LightGBMDataset.construct(
+        path=x_dir, label_path=y_dir, device="cuda"))
+    same_bounds = np.array_equal(mem.binner.upper_bounds,
+                                 ooc.binner.upper_bounds)
+    same_bins = bool(torch.equal(mem.Xbt, ooc.Xbt))
+    log(f"ingest in memory {s_mem:.3f} s, out of core {s_ooc:.3f} s "
+        f"({ooc.Xbt.dtype}); bin bounds bit-equal {same_bounds}, bins equal "
+        f"{same_bins}")
+    if not (same_bounds and same_bins and ooc.Xbt.dtype == torch.uint8
+            and torch.equal(mem.y, ooc.y)):
+        raise AssertionError("the out-of-core dataset differs from the "
+                             "in-memory one")
+    b_mem, c_mem, s_fit_mem = quantized_fit(mem)
+    b_ooc, c_ooc, s_fit_ooc = quantized_fit(ooc)
+    for f in ("feat", "thr_bin", "left", "right", "is_leaf", "cat_bitset"):
+        if not np.array_equal(b_mem.trees[f], b_ooc.trees[f]):
+            raise AssertionError(f"out-of-core fit: tree field {f} differs")
+    leaf = float(np.abs(b_mem.trees["leaf_value"]
+                        - b_ooc.trees["leaf_value"]).max())
+    mdiff = margin_diff(b_mem.predict_raw(Xh, device="cuda"),
+                        b_ooc.predict_raw(Xh, device="cuda"))
+    log(f"quantized fits: {s_fit_mem:.3f} s in memory, {s_fit_ooc:.3f} s out "
+        f"of core, launches {c_mem} / {c_ooc}; identical trees, leaf values "
+        f"within {leaf:.3g}, margins within {mdiff:.3g}")
+    if not mdiff <= 1e-5:
+        raise AssertionError(f"out-of-core fit margins differ by {mdiff}")
+    del mem, ooc
+    want = b_ooc.predict(Xh, device="cuda")
+    got, s_st = timed(lambda: b_ooc.predict_streamed(
+        h_dir, chunk_rows=STREAM_CHUNK_ROWS, device="cuda"))
+    log(f"predict_streamed ({STREAM_CHUNK_ROWS:,}-row chunks): "
+        f"{len(Xh) / s_st:,.0f} rows/s ({s_st:.3f} s); bit-equal to predict "
+        f"{np.array_equal(got, want)}")
+    if not np.array_equal(got, want):
+        raise AssertionError("predict_streamed differs from predict")
+    want = b_ooc.predict_contrib(Xh[:CONTRIB_ROWS], device="cuda")
+    got, s_cs = timed(lambda: b_ooc.predict_contrib_streamed(
+        c_dir, device="cuda"))
+    log(f"predict_contrib_streamed: {CONTRIB_ROWS / s_cs:,.0f} rows/s "
+        f"({s_cs:.3f} s); bit-equal to predict_contrib "
+        f"{np.array_equal(got, want)}")
+    if not np.array_equal(got, want):
+        raise AssertionError("predict_contrib_streamed differs from "
+                             "predict_contrib")
+    shutil.rmtree(OOC_DIR, ignore_errors=True)
+    return dict(fits={"11c:in_memory": dict(counts=c_mem, fit_s=s_fit_mem),
+                      "11c:out_of_core": dict(counts=c_ooc,
+                                              fit_s=s_fit_ooc)},
+                ingest_in_memory_s=s_mem, ingest_out_of_core_s=s_ooc,
+                streamed_rows_per_s=len(Xh) / s_st,
+                contrib_streamed_rows_per_s=CONTRIB_ROWS / s_cs,
+                leaf_diff=leaf)
+
+
+def phase_main_path_extensions(data, base, quantized, multiclass,
+                               categorical) -> dict:
+    """Phase 11: the predict lanes, contributions and the out-of-core
+    ingest with streamed scoring."""
+    t0 = time.perf_counter()
+    Xh = data[2]
+    out = dict(lanes=phase_lanes(quantized, base, Xh),
+               contributions=phase_contributions(quantized, Xh, multiclass,
+                                                 categorical))
+    ooc = phase_out_of_core(data)
+    out["fits"] = ooc.pop("fits")
+    out["out_of_core"] = ooc
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -1563,11 +1880,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("== phase 2: build " + ", ".join(KERNELS))
+    log("== phase 2: build " + ", ".join(KERNELS) + " and the host engine "
+        + native.NAME)
     t0 = time.perf_counter()
-    libs = _build.build_all(KERNELS, verbose=True)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        host = ex.submit(_build.build_host, native.NAME)
+        libs = _build.build_all(KERNELS, verbose=True)
+        libs[native.NAME] = host.result()
     for name in KERNELS:
         _build.load(name)
+    native.get_lib()
     log(f"built {libs} in {time.perf_counter() - t0:.2f} s")
     log_geometry()
 
@@ -1579,9 +1901,9 @@ def main() -> int:
     data = (X, y, Xh, yh)
     fits = {}
     fits["4"], base = phase_end_to_end("4", ["node_hist_bf16"], data)
-    fits["4b"] = phase_end_to_end("4b", ["node_hist_int8"], data,
-                                  useQuantizedGrad=True,
-                                  quantWarmupIters=0)[0]
+    fits["4b"], quantized = phase_end_to_end("4b", ["node_hist_int8"], data,
+                                             useQuantizedGrad=True,
+                                             quantWarmupIters=0)
     fits["4c"] = phase_end_to_end("4c", ["node_hist_int8"], data,
                                   useQuantizedGrad=True, quantWarmupIters=0,
                                   growthPolicy="depthwise")[0]
@@ -1593,15 +1915,19 @@ def main() -> int:
         phase_small_agreement("5b", numIterations=4, quantWarmupIters=1,
                               useQuantizedGrad=True, growthPolicy=policy)
     phase_small_objectives()
-    fits["6"] = phase_multiclass()
+    fits["6"], multiclass = phase_multiclass()
     fits["7"] = phase_ranker()
-    fits["8"] = phase_categorical()
+    fits["8"], categorical = phase_categorical()
     phase_small_categorical()
     golden = phase_golden()
     fits.update(phase_sampling(data, base))
-    del X, y, Xh, yh, data
     phase_small_sampling()
-    log("fits: " + json.dumps(fits) + "; " + json.dumps(golden))
+    p11 = phase_main_path_extensions(data, base, quantized, multiclass,
+                                     categorical)
+    fits.update(p11.pop("fits"))
+    del X, y, Xh, yh, data
+    log("fits: " + json.dumps(fits) + "; " + json.dumps(golden)
+        + "; phase 11: " + json.dumps(p11))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

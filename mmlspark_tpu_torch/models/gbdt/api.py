@@ -13,9 +13,10 @@ Validation sets (``validationIndicatorCol``) with early stopping,
 ``improvementTolerance``, ``metricEvalPeriod``, ``metric`` overrides and
 ``isProvideTrainingMetric`` are ported, as are ``growthPolicy`` (leafwise
 or depthwise), ``useQuantizedGrad`` with ``quantRenewLeaf`` and
-``quantWarmupIters``, ``categoricalSlotIndexes``, ``slotNames`` and
-``leafPredictionCol``; the training options ``boostingType`` (gbdt, goss,
-rf, dart), bagging (plain and pos/neg stratified), warm starts
+``quantWarmupIters``, ``categoricalSlotIndexes``, ``slotNames``,
+``leafPredictionCol`` and ``featuresShapCol`` / ``shapMethod`` (TreeSHAP
+or saabas contributions); the training options ``boostingType`` (gbdt,
+goss, rf, dart), bagging (plain and pos/neg stratified), warm starts
 (``modelString``, ``numBatches``), ``checkpointDir`` resume and
 ``compactSelector``. Fits without ``checkpointDir`` reuse a binned dataset
 of identical data (:func:`_cached_binned_dataset`). Feature columns may be
@@ -23,7 +24,7 @@ scipy sparse matrices. The models export and import LightGBM's text format
 (``get_native_model``/``save_native_model``/``load_native_model``) and
 report feature importances. ``initScoreCol`` is accepted and not read, as
 in the JAX package. Params whose non-default values select parts of the
-JAX package that are not ported yet (voting, SHAP) raise
+JAX package that are not ported yet (``parallelism``: voting) raise
 ``NotImplementedError`` at fit time rather than being ignored.
 """
 
@@ -268,7 +269,7 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
 
     # Params whose non-default values reach code that is not ported yet:
     # fit raises instead of silently ignoring them
-    _NOT_PORTED = ("parallelism", "featuresShapCol")
+    _NOT_PORTED = ("parallelism",)
 
     def _check_ported(self) -> None:
         for name in self._NOT_PORTED:
@@ -460,15 +461,20 @@ class _LightGBMModelBase(Model, _LightGBMParams):
         self.booster = booster
 
     def _add_introspection_cols(self, dataset: Dataset, X) -> Dataset:
-        """``leafPredictionCol``: each row's leaf slot in every tree."""
-        if self.get_or_default("featuresShapCol"):
-            raise NotImplementedError(
-                "featuresShapCol is not ported to the PyTorch package yet")
+        """``leafPredictionCol``: each row's leaf slot in every tree;
+        ``featuresShapCol``: each row's per-feature contributions by
+        ``shapMethod`` (``Booster.predict_contrib``)."""
+        dev = self.get_or_default("device")
         leaf_col = self.get_or_default("leafPredictionCol")
         if leaf_col:
             dataset = dataset.with_column(
                 leaf_col, self.booster.predict_leaf(
-                    X, device=self.get_or_default("device")
+                    X, device=dev).astype(np.float64))
+        shap_col = self.get_or_default("featuresShapCol")
+        if shap_col:
+            dataset = dataset.with_column(
+                shap_col, self.booster.predict_contrib(
+                    X, method=self.get_or_default("shapMethod"), device=dev
                 ).astype(np.float64))
         return dataset
 

@@ -30,6 +30,7 @@ subtraction and its ``n // 2`` buffer engage exactly as they do there.
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,6 +40,7 @@ from ...device import DeviceLike, resolve_device
 from ...ops.binning import QuantileBinner, bin_cols
 from ...ops.histogram import quant_key
 from ...core.dataset import _is_sparse
+from . import quantize as _quantize
 from .growth import (GrowConfig, Tree, forest_leaf_nodes, grow_tree,
                      grow_tree_depthwise, predict_forest_raw,
                      predict_tree_binned, resolve_growth_backend)
@@ -104,11 +106,12 @@ class LightGBMDataset:
         return self.Xbt.device
 
     @classmethod
-    def construct(cls, X, y, weight=None, *, max_bin: int = 255,
+    def construct(cls, X=None, y=None, weight=None, *, max_bin: int = 255,
                   bin_sample_count: int = 200_000, seed: int = 0,
                   bin_dtype=None, max_bin_by_feature=None,
                   row_valid: Optional[np.ndarray] = None,
-                  categorical_features=(),
+                  categorical_features=(), path=None, label_path=None,
+                  weight_path=None, chunk_rows: Optional[int] = None,
                   device: DeviceLike = None) -> "LightGBMDataset":
         """Fit the quantile binner on the host (numpy), move the raw rows
         to ``device`` and bin them there into ``[F, n]``. ``row_valid``
@@ -117,7 +120,46 @@ class LightGBMDataset:
         row, as the JAX package's does. ``categorical_features`` (feature
         indexes) bin as category ids (bin ``c`` holds id ``c``; ids past
         ``max_bin - 1`` share the last bin). A scipy sparse ``X`` is
-        densified first (:func:`_densify`)."""
+        densified first (:func:`_densify`).
+
+        Out of core: ``path`` (a ``.npy`` file, a directory of shards or a
+        list of paths) with ``label_path`` (and optionally
+        ``weight_path``) instead of arrays streams the rows in chunks of
+        ``chunk_rows`` (default 262,144) through
+        :func:`.ingest.construct_from_files`; bins default to uint8 there
+        when ``max_bin <= 256`` (an explicit ``bin_dtype`` is honoured).
+        The binner, the bins and so the trees equal the in-memory
+        construct's."""
+        if path is None and (label_path is not None
+                             or weight_path is not None
+                             or chunk_rows is not None):
+            raise ValueError(
+                "label_path/weight_path/chunk_rows only apply with path= "
+                "(out-of-core); for in-memory arrays pass y/weight directly")
+        if path is not None:
+            if X is not None or y is not None or weight is not None:
+                raise ValueError(
+                    "pass either in-memory arrays or path=..., not both")
+            if label_path is None:
+                raise ValueError("path= requires label_path=")
+            if row_valid is not None:
+                raise ValueError("row_valid is not supported with path= "
+                                 "(ranker group padding is in-memory only)")
+            from .ingest import construct_from_files
+            if bin_dtype is None:
+                bin_dtype = "uint8" if max_bin <= 256 else "int32"
+            _bin_dtype(bin_dtype, max_bin)
+            return construct_from_files(
+                path, label_path, weight_path, max_bin=max_bin,
+                bin_sample_count=bin_sample_count, seed=seed,
+                categorical_features=categorical_features,
+                bin_dtype=bin_dtype,
+                chunk_rows=262_144 if chunk_rows is None else chunk_rows,
+                max_bin_by_feature=max_bin_by_feature, device=device)
+        if X is None or y is None:
+            raise ValueError(
+                "construct needs in-memory arrays (X, y) or file shards "
+                "(path=..., label_path=...)")
         dev = resolve_device(device)
         X = np.asarray(_densify(X), dtype=np.float32)
         y = np.asarray(y, dtype=np.float32)
@@ -212,7 +254,7 @@ class Booster:
         self.eval_history = eval_history or {}
         self.missing_dec = (None if missing_dec is None
                             else np.asarray(missing_dec, np.uint8))
-        self._dev_forest: Dict[str, dict] = {}
+        self._dev_forest: Dict[Tuple[str, str], dict] = {}
         get_objective(objective, self.num_class, **self.objective_kwargs)
 
     @property
@@ -255,26 +297,50 @@ class Booster:
         m[np.asarray(cats, dtype=int)] = True
         return m
 
-    def _forest_on(self, dev: torch.device) -> dict:
-        """The routing arrays, base score, categorical bitsets and mask and
-        missing-value bytes on ``dev``, uploaded once per device. Bitsets
-        go up as int64 words."""
-        ent = self._dev_forest.get(str(dev))
-        if ent is None:
+    def _forest_on(self, dev: torch.device, lane: str = "f32") -> dict:
+        """The routing arrays, base score, categorical bitsets and mask,
+        missing-value bytes and node values on ``dev``, with the
+        thresholds and leaves of predict lane ``lane``
+        (:mod:`.quantize`): f32; bf16 thresholds; uint8 bin-id thresholds
+        and int8 leaves with their per-tree scales (``qleaf``, ``scale``).
+        Uploaded once per device and lane. Bitsets go up as int64
+        words."""
+        key = (str(dev), lane)
+        ent = self._dev_forest.get(key)
+        if ent is not None:
+            return ent
+        base = self._dev_forest.get((str(dev), "f32"))
+        if base is None:
             t = self.trees
-            ent = {k: torch.tensor(a, device=dev) for k, a in (
+            base = {k: torch.tensor(a, device=dev) for k, a in (
                 ("feat", t["feat"]), ("thr", self.thr_raw),
                 ("left", t["left"]), ("right", t["right"]),
                 ("is_leaf", t["is_leaf"]), ("leaf", t["leaf_value"]),
-                ("base", self.base_score))}
+                ("node_value", t["node_value"]), ("base", self.base_score))}
             is_cat = self._is_cat()
-            ent["is_cat"] = (None if is_cat is None
-                             else torch.tensor(is_cat, device=dev))
-            ent["bits"] = (None if is_cat is None else torch.tensor(
+            base["is_cat"] = (None if is_cat is None
+                              else torch.tensor(is_cat, device=dev))
+            base["bits"] = (None if is_cat is None else torch.tensor(
                 t["cat_bitset"].astype(np.int64), device=dev))
-            ent["mdec"] = (None if self.missing_dec is None else torch.tensor(
-                self.missing_dec.astype(np.int64), device=dev))
-            self._dev_forest[str(dev)] = ent
+            base["mdec"] = (None if self.missing_dec is None
+                            else torch.tensor(
+                                self.missing_dec.astype(np.int64),
+                                device=dev))
+            self._dev_forest[(str(dev), "f32")] = base
+        if lane == "f32":
+            return base
+        ent = dict(base)
+        if lane == "int8":
+            ent["thr"] = torch.from_numpy(_quantize.quantize_thresholds(
+                self.thr_raw, self.trees["feat"],
+                _quantize.feature_bounds(self.binner_state))).to(dev)
+            q, scale = _quantize.quantize_leaves(self.trees["leaf_value"])
+            ent["qleaf"] = torch.from_numpy(q).to(dev)
+            ent["scale"] = torch.from_numpy(scale).to(dev)
+            ent["leaf"] = None
+        else:
+            ent["thr"] = _quantize.cast_thresholds_bf16(self.thr_raw).to(dev)
+        self._dev_forest[key] = ent
         return ent
 
     def _routing(self, ent: dict, t_end: int, missing: bool = True) -> dict:
@@ -290,11 +356,37 @@ class Booster:
             kw["missing_dec"] = ent["mdec"][:t_end]
         return kw
 
-    def predict_raw_tensor(self, X: torch.Tensor,
-                           num_iteration: int = -1) -> torch.Tensor:
-        """Raw margins ``[n, num_class]`` f32 for rows ``X`` ([n, F] f32)
-        on ``X``'s device: every tree's leaf value, summed per class (tree
+    def resolved_predict_dtype(self, requested: Optional[str] = None) -> str:
+        """The predict lane this model scores in for ``requested`` (None:
+        ``MMLSPARK_TPU_PREDICT_DTYPE``): :func:`.quantize.
+        resolve_predict_dtype` with this model's missing-value routing and
+        bin grid."""
+        return _quantize.resolve_predict_dtype(
+            requested, has_mdec=self.missing_dec is not None,
+            max_bin=int((self.binner_state or {}).get("max_bin") or 0))
+
+    def _staged(self, X: torch.Tensor, lane: str) -> torch.Tensor:
+        """Rows ``X`` in ``lane``'s staged dtype on their device: rows
+        already in it pass through; f32 rows are quantized to bin ids by
+        the bin apply of training (:func:`bin_cols`, the compare count of
+        :func:`.quantize.quantize_features`) or cast to bf16."""
+        want = _quantize.staging_dtype(lane)
+        if X.dtype == want:
+            return X
+        if lane == "int8":
+            ub = torch.from_numpy(_quantize.feature_bounds(self.binner_state))
+            return bin_cols(X.to(torch.float32), ub, torch.uint8).t()
+        return X.to(want)
+
+    def predict_raw_tensor(self, X: torch.Tensor, num_iteration: int = -1,
+                           predict_dtype: Optional[str] = None
+                           ) -> torch.Tensor:
+        """Raw margins ``[n, num_class]`` f32 for rows ``X`` ([n, F]) on
+        ``X``'s device: every tree's leaf value, summed per class (tree
         ``t`` scores class ``t % num_class``), plus the base score.
+        ``predict_dtype`` picks the lane (:meth:`resolved_predict_dtype`);
+        ``X`` may come in the lane's staged dtype (uint8 bin ids, bf16) or
+        as f32 rows.
 
         Trees are added one at a time, in order, so every device rounds the
         same sums the same way: the margins are bit-identical on the CPU and
@@ -302,49 +394,108 @@ class Booster:
         if num_iteration is None or num_iteration < 0:
             num_iteration = self.num_iterations
         t_end = min(num_iteration * self.num_class, self.num_trees)
-        ent = self._forest_on(X.device)
+        lane = self.resolved_predict_dtype(predict_dtype)
+        X = self._staged(X, lane)
+        ent = self._forest_on(X.device, lane)
         routing = self._routing(ent, t_end)
+        leaf = (ent["leaf"][:t_end] if lane != "int8" else
+                _quantize.dequantize_leaves(ent["qleaf"][:t_end],
+                                            ent["scale"][:t_end]))
         n, K = X.shape[0], self.num_class
         per_class = torch.zeros((K, n), dtype=torch.float32, device=X.device)
         rows = max(1, _PREDICT_BUDGET // max(t_end, 1))
         for s in range(0, n, rows):
             vals = predict_forest_raw(
                 ent["feat"][:t_end], ent["thr"][:t_end], ent["left"][:t_end],
-                ent["right"][:t_end], ent["is_leaf"][:t_end],
-                ent["leaf"][:t_end], X[s:s + rows], self.depth_cap,
-                **routing)                                    # [t_end, r]
+                ent["right"][:t_end], ent["is_leaf"][:t_end], leaf,
+                X[s:s + rows], self.depth_cap, **routing)     # [t_end, r]
             for t in range(t_end):
                 per_class[t % K, s:s + rows] += vals[t]
         return per_class.t() + ent["base"][None, :]
 
-    def _rows_on(self, X, device: DeviceLike) -> torch.Tensor:
+    def _rows_on(self, X, device: DeviceLike,
+                 lane: str = "f32") -> torch.Tensor:
+        """Host rows uploaded to ``device`` for ``lane``: bf16 for the
+        bf16 lane, else f32, which :meth:`_staged` quantizes to bin ids on
+        the device for the int8 lane. A uint8 array is taken as bin ids
+        already quantized for the int8 lane and goes up as it is."""
         dev = resolve_device(device)
-        return torch.tensor(np.asarray(_densify(X), dtype=np.float32),
-                            device=dev)
+        X = _densify(X)
+        if (lane == "int8" and isinstance(X, np.ndarray)
+                and X.dtype == np.uint8):
+            return torch.from_numpy(np.ascontiguousarray(X)).to(dev)
+        if lane == "bf16":
+            return _quantize.cast_features_bf16(X).to(dev)
+        return torch.tensor(np.asarray(X, dtype=np.float32), device=dev)
 
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1,
-                    device: DeviceLike = None) -> np.ndarray:
+                    device: DeviceLike = None,
+                    predict_dtype: Optional[str] = None) -> np.ndarray:
         """Raw margin scores: ``[n, num_class]`` (num_class=1 for binary and
-        regression), computed on ``device`` (default ``cuda``)."""
-        Xt = self._rows_on(X, device)
-        return self.predict_raw_tensor(Xt, num_iteration).cpu().numpy()
+        regression), computed on ``device`` (default ``cuda``) in predict
+        lane ``predict_dtype`` (``f32``/``bf16``/``int8``; None reads
+        ``MMLSPARK_TPU_PREDICT_DTYPE``; see :mod:`.quantize`)."""
+        lane = self.resolved_predict_dtype(predict_dtype)
+        Xt = self._rows_on(X, device, lane)
+        return self.predict_raw_tensor(Xt, num_iteration,
+                                       predict_dtype=lane).cpu().numpy()
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
-                device: DeviceLike = None) -> np.ndarray:
+                device: DeviceLike = None,
+                predict_dtype: Optional[str] = None) -> np.ndarray:
         """Transformed prediction: ``[n]`` (probability for binary), or
-        ``[n, num_class]`` softmax probabilities for multiclass."""
-        Xt = self._rows_on(X, device)
+        ``[n, num_class]`` softmax probabilities for multiclass; the lane
+        as :meth:`predict_raw`, the transform in f32."""
+        lane = self.resolved_predict_dtype(predict_dtype)
+        Xt = self._rows_on(X, device, lane)
         transform = score_transform(self.objective, self.num_class,
                                     **self.objective_kwargs)
-        return transform(self.predict_raw_tensor(Xt, num_iteration)
-                         ).cpu().numpy()
+        return transform(self.predict_raw_tensor(
+            Xt, num_iteration, predict_dtype=lane)).cpu().numpy()
+
+    def predict_streamed(self, source, *, chunk_rows: int = 262_144,
+                         out_dir=None, num_iteration: int = -1,
+                         raw: bool = False, device: DeviceLike = None,
+                         predict_dtype: Optional[str] = None):
+        """Score ``.npy`` feature shards in bounded row chunks (out-of-core
+        inference, :func:`...io.streaming.stream_apply`): each chunk runs
+        :meth:`predict` (``raw``: :meth:`predict_raw`), so the streamed
+        scores equal the in-memory ones bit for bit. Returns the scores,
+        or the output shard paths with ``out_dir``."""
+        from ...io.streaming import stream_apply
+
+        method = self.predict_raw if raw else self.predict
+        return stream_apply(
+            source, lambda c: method(c, num_iteration, device=device,
+                                     predict_dtype=predict_dtype),
+            chunk_rows=chunk_rows, out_dir=out_dir)
+
+    def predict_contrib_streamed(self, source, *, chunk_rows: int = 16_384,
+                                 out_dir=None, method: str = "treeshap",
+                                 device: DeviceLike = None):
+        """:meth:`predict_contrib` over ``.npy`` feature shards in bounded
+        row chunks; contributions are row-independent, so the result equals
+        the in-memory one bit for bit. The output is ``(F + 1) * K`` wide,
+        hence the smaller default chunk."""
+        from ...io.streaming import stream_apply
+
+        if method not in ("treeshap", "saabas"):
+            # checked before stream_apply clears an existing out_dir
+            raise ValueError(
+                f"unknown contribution method {method!r}; expected "
+                "'treeshap' or 'saabas'")
+        return stream_apply(
+            source, lambda c: self.predict_contrib(c, method=method,
+                                                   device=device),
+            chunk_rows=chunk_rows, out_dir=out_dir)
 
     # -- introspection -------------------------------------------------------
     def _check_missing_routing(self, X: np.ndarray) -> None:
-        """``predict_leaf`` routes NaN left and zeros by the threshold. For
-        imported models that store other missing-value handling
-        (``missing_dec``), inputs that would take those rules raise rather
-        than route differently from ``predict``/``predict_raw``."""
+        """``predict_contrib`` and ``predict_leaf`` route NaN left and zeros
+        by the threshold. For imported models that store other
+        missing-value handling (``missing_dec``), inputs that would take
+        those rules raise rather than route differently from
+        ``predict``/``predict_raw``."""
         if self.missing_dec is None:
             return
         # the float32 view the routing traverses: f64 values that underflow
@@ -355,13 +506,91 @@ class Booster:
         if (bool(((mt == 1) & internal).any())
                 and (np.abs(X) <= 1e-35).any()):
             raise NotImplementedError(
-                "predict_leaf does not implement zero-as-missing routing "
-                "for imported models; use predict()/predict_raw()")
+                "predict_contrib/predict_leaf do not implement "
+                "zero-as-missing routing for imported models; use "
+                "predict()/predict_raw()")
         if np.isnan(X).any():
             raise NotImplementedError(
-                "predict_leaf routes NaN left unconditionally, but this "
-                "imported model stores different missing handling; impute "
-                "NaNs or use predict()/predict_raw()")
+                "predict_contrib/predict_leaf route NaN left "
+                "unconditionally, but this imported model stores different "
+                "missing handling; impute NaNs or use "
+                "predict()/predict_raw()")
+
+    def predict_contrib(self, X: np.ndarray, method: str = "treeshap",
+                        device: DeviceLike = None) -> np.ndarray:
+        """Per-feature contributions ``[n, (F + 1) * num_class]``: per class
+        block F values, then the bias (the expected value), summing to the
+        raw margin (reference: ``featuresShapCol``,
+        lightgbm/LightGBMBooster.scala:250-269).
+
+        ``method="treeshap"``: exact Shapley values of the cover-conditional
+        value function, f64. On ``cuda`` (the default) the fixed-shape
+        device engine (:mod:`.treeshap_device`), on ``cpu`` the host engine
+        (:mod:`.treeshap`: the native C++ recursion, numpy where it rejects
+        a tree); ``MMLSPARK_TPU_SHAP_HOST=1`` / ``MMLSPARK_TPU_SHAP_DEVICE=1``
+        force either. ``method="saabas"``: path attribution on ``device``
+        (each split's change in expected node value goes to its feature),
+        f32; it sums to the margin too but is not Shapley on correlated
+        features."""
+        X = np.asarray(_densify(X), dtype=np.float32)
+        self._check_missing_routing(X)
+        dev = resolve_device(device)
+        if method == "treeshap":
+            force_host = os.environ.get("MMLSPARK_TPU_SHAP_HOST") == "1"
+            force_dev = os.environ.get("MMLSPARK_TPU_SHAP_DEVICE") == "1"
+            if force_dev or (dev.type == "cuda" and not force_host):
+                from .treeshap_device import shap_values_device
+                return shap_values_device(self, X, device=dev)
+            from .treeshap import shap_values
+            return shap_values(self, X)
+        if method != "saabas":
+            raise ValueError(
+                f"unknown contribution method {method!r}: use 'treeshap' "
+                "(exact) or 'saabas' (approximate)")
+        return self._saabas(torch.from_numpy(X).to(dev)).cpu().numpy()
+
+    def _saabas(self, X: torch.Tensor) -> torch.Tensor:
+        """Saabas contributions ``[n, (F + 1) * K]`` f32 on ``X``'s device:
+        each tree's rows walk ``depth_cap`` steps; a step from an internal
+        node adds the child's node value minus the node's to the split
+        feature. Per tree the steps sum into ``[rows, F]`` first, then the
+        trees into their class in tree order (the JAX package's scan)."""
+        ent = self._forest_on(X.device)
+        T, K = self.num_trees, self.num_class
+        n, F = X.shape
+        routing = self._routing(ent, T, missing=False)
+        csum = torch.zeros((K, n, F), dtype=torch.float32, device=X.device)
+        feat, left, right = (ent[k].long() for k in ("feat", "left", "right"))
+        nv, is_leaf, thr = ent["node_value"], ent["is_leaf"], ent["thr"]
+        rows = max(1, _PREDICT_BUDGET // max(T * F, 1))
+        for s in range(0, n, rows):
+            Xs = X[s:s + rows]
+            r = Xs.shape[0]
+            node = torch.zeros((T, r), dtype=torch.long, device=X.device)
+            contrib = torch.zeros((T, r, F), dtype=torch.float32,
+                                  device=X.device)
+            for _ in range(self.depth_cap):
+                internal = ~is_leaf.gather(1, node)            # [T, r]
+                f = torch.where(internal, feat.gather(1, node), 0)
+                # one routing step; a row at a leaf stays there
+                nxt = forest_leaf_nodes(
+                    feat, thr, left, right, is_leaf, Xs, 1, start=node,
+                    **routing)
+                delta = torch.where(internal, nv.gather(1, nxt)
+                                    - nv.gather(1, node), 0.0)
+                contrib.scatter_add_(2, f[:, :, None], delta[:, :, None])
+                node = nxt
+            for t in range(T):
+                csum[t % K, s:s + r] += contrib[t]
+        rsum = torch.zeros(K, dtype=torch.float32, device=X.device)
+        for t in range(T):
+            rsum[t % K] += nv[t, 0]
+        out = torch.zeros((n, (F + 1) * K), dtype=torch.float32,
+                          device=X.device)
+        for k in range(K):
+            out[:, k * (F + 1):k * (F + 1) + F] = csum[k]
+            out[:, k * (F + 1) + F] = ent["base"][k] + rsum[k]
+        return out
 
     def predict_leaf(self, X: np.ndarray,
                      device: DeviceLike = None) -> np.ndarray:

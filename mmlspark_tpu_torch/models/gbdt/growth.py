@@ -816,7 +816,8 @@ def forest_leaf_nodes(feat, thr_raw, left, right, is_leaf,
                       cat_bitset: Optional[torch.Tensor] = None,
                       is_cat: Optional[torch.Tensor] = None,
                       cat_max_bin: int = 0,
-                      missing_dec: Optional[torch.Tensor] = None
+                      missing_dec: Optional[torch.Tensor] = None,
+                      start: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """The leaf slot every row reaches in every tree of a stacked forest,
     on raw float features: [T, n] int64.
@@ -837,11 +838,18 @@ def forest_leaf_nodes(feat, thr_raw, left, right, is_leaf,
     NaN; zero-as-missing (``|x| <= 1e-35``) and NaN-missing take the
     default side, bit 1 of the byte (1 = left); every other value compares
     ``x <= thr``.
+
+    The predict lanes (:mod:`.quantize`) pass bf16 features with bf16
+    thresholds, or uint8 bin ids with uint8 threshold ids; categorical
+    membership then reads a bin id as its category id (widened to f32:
+    the binner's identity bins). ``start`` ([T, n] int64) walks from those
+    nodes instead of the roots.
     """
     T = feat.shape[0]
     n = features.shape[0]
     feat, left, right = feat.long(), left.long(), right.long()
-    node = torch.zeros((T, n), dtype=torch.long, device=features.device)
+    node = (torch.zeros((T, n), dtype=torch.long, device=features.device)
+            if start is None else start)
     if is_cat is not None:
         BW = cat_bitset.shape[-1]
         bits = cat_bitset.reshape(T, -1)
@@ -864,7 +872,8 @@ def forest_leaf_nodes(feat, thr_raw, left, right, is_leaf,
                            | ((mt == 2) & x_nan))
             go_left = torch.where(use_default, (md & 2) != 0, ~(xv > t))
         if is_cat is not None:
-            member = cat_member(bits, node * BW, x, max_bin_idx, strict)
+            xc = x if x.is_floating_point() else x.to(torch.float32)
+            member = cat_member(bits, node * BW, xc, max_bin_idx, strict)
             go_left = torch.where(is_cat[f], member, go_left)
         nxt = torch.where(go_left, left.gather(1, node),
                           right.gather(1, node))

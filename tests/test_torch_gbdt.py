@@ -136,7 +136,7 @@ def test_regressor_fit_transform():
 
 
 @pytest.mark.parametrize("param,value", [
-    ("parallelism", "voting_parallel"), ("featuresShapCol", "shap"),
+    ("parallelism", "voting_parallel"),
 ])
 def test_unported_params_raise(param, value):
     X, y, _ = _data(200, seed=4)

@@ -2,6 +2,7 @@
 
     python tools/rehearse_chip_smoke.py p6 p8 p8b p9 [--rows 40000]
     python tools/rehearse_chip_smoke.py p10 p10b [--higgs-rows 200000]
+    python tools/rehearse_chip_smoke.py p11 [--rows 40000 --higgs-rows 200000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu``: the kernels' wrappers then take their plain
@@ -16,7 +17,11 @@ Phases: ``p6`` (multiclass on one-hot columns), ``p8`` (categorical
 multiclass), ``p8b`` (small categorical fits, which compare the CPU with
 itself here), ``p9`` (the LightGBM text corpus and a CSR fit), ``p10``
 (phase 4's default fit, then every training option warm-started from it
-or beside it), ``p10b`` (the small fits of the training options).
+or beside it), ``p10b`` (the small fits of the training options), ``p11``
+(phases 4, 4b, 6 and 8 for their models, then phase 11: the predict lanes,
+contributions through the device TreeSHAP engine, which
+``MMLSPARK_TPU_SHAP_DEVICE=1`` selects on the CPU, and the out-of-core
+ingest with streamed scoring).
 """
 
 from __future__ import annotations
@@ -85,10 +90,26 @@ def phase_sampling(mod) -> dict:
     return {"4": fit4, **mod.phase_sampling(data, base)}
 
 
+def phase_extensions(mod) -> dict:
+    """The fits phase 11 reads its models from, then phase 11."""
+    os.environ["MMLSPARK_TPU_SHAP_DEVICE"] = "1"
+    data = (*mod.higgs_shaped(mod.HIGGS_ROWS, seed=0),
+            *mod.higgs_shaped(mod.HIGGS_HOLDOUT, seed=1))
+    _, base = mod.phase_end_to_end("4", ["node_hist_bf16"], data)
+    _, quantized = mod.phase_end_to_end("4b", ["node_hist_int8"], data,
+                                        useQuantizedGrad=True,
+                                        quantWarmupIters=0)
+    _, multiclass = mod.phase_multiclass()
+    _, categorical = mod.phase_categorical()
+    return mod.phase_main_path_extensions(data, base, quantized, multiclass,
+                                          categorical)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
-                    choices=["p6", "p8", "p8b", "p9", "p10", "p10b"])
+                    choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
+                             "p11"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     args = ap.parse_args()
@@ -97,7 +118,8 @@ def main() -> int:
     run = {"p6": mod.phase_multiclass, "p8": mod.phase_categorical,
            "p8b": mod.phase_small_categorical, "p9": mod.phase_golden,
            "p10": lambda: phase_sampling(mod),
-           "p10b": mod.phase_small_sampling}
+           "p10b": mod.phase_small_sampling,
+           "p11": lambda: phase_extensions(mod)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
