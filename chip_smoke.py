@@ -182,6 +182,32 @@ Phases (any failure exits non-zero and prints no result line):
    for bit ``predict``, ``predict_contrib_streamed`` over 20,000 rows bit
    for bit ``predict_contrib``; ingest seconds and streamed rows/s.
 
+12. Serving, on the models of phases 4b and 6, over HTTP/1.1 keep-alive on
+   ``localhost`` (the clients are threads of this process). 12a, the async
+   engine on phase 4b's booster saved as ``.npz``: the worker wiring
+   ``serving_main._build_async_query`` (``max_batch=32``, the rows path:
+   requests decode into pinned slot tables) in the f32 lane, then with
+   ``MMLSPARK_TPU_PREDICT_DTYPE=int8`` (rows quantized to uint8 bin ids at
+   admission); 16 client threads x 250 one-row requests from the holdout;
+   replies within 1e-6 of ``predict(rows, device="cuda",
+   predict_dtype=lane)``, f32 also within 1e-5 of the cpu. 12b, the
+   threaded engine: ``serve().engine("threaded").pipeline(...)`` on phase
+   6's classification model, 8 x 100 requests, the 7-class probability
+   vectors within 1e-6 of ``transform``. 12c, the contract on the async
+   f32 worker: ``/healthz`` (ready, platform ``gpu``), the serving
+   families on ``/metrics``, a burst past ``queue_limit`` shed with 429
+   and ``Retry-After`` (the ``serving.batch`` failpoint holds the first
+   batch 0.5 s), ``X-Request-Id`` from ``traceparent``, one
+   ``serving.batch`` error answered through one requeue, and a drain under
+   load (clients stop at deregistration, as behind a gateway) without a
+   client-visible error. Every reply outside the fault steps must be 200
+   and ``serving_batch_failures_total`` must read only the injected
+   failure. The measured loads' clients are threads of a separate client
+   process. Per engine and lane: requests/s, client p50/p99, the mean
+   served batch, the device launches (``torch.profiler``, device
+   activity) and host ms of one 32-row batch called as the scoring
+   thread calls it, the peak device memory and the card line.
+
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
 ``index_add_`` ms), the card's name and power limit, and
@@ -190,11 +216,13 @@ row: launches, warm and cold ms, bound, % of bound, plain and
 
 from __future__ import annotations
 
+import http.client
 import json
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -203,6 +231,9 @@ import torch
 
 from mmlspark_tpu_torch import native
 from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.io import serving as serving_mod
+from mmlspark_tpu_torch.io import serving_main
+from mmlspark_tpu_torch.io.aserve import SlotTable
 from mmlspark_tpu_torch.models.gbdt import api as gbdt_api
 from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassifier,
                                                 LightGBMRanker,
@@ -219,18 +250,22 @@ from mmlspark_tpu_torch.models.gbdt.treeshap import shap_values
 from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
                                                        auc_weighted,
                                                        get_objective)
+from mmlspark_tpu_torch.observability import metrics as obs_metrics
+from mmlspark_tpu_torch.observability import roofline
 from mmlspark_tpu_torch.ops import _build
 from mmlspark_tpu_torch.ops import histogram as hist_ops
 from mmlspark_tpu_torch.ops.binning import bin_cols
 from mmlspark_tpu_torch.ops.histogram_scatter import (hist_plain,
                                                       node_hist_plain)
+from mmlspark_tpu_torch.robustness import failpoints
 from mmlspark_tpu_torch.utils.checkpoint import data_fingerprint
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, f32 rate outside the tensor cores, int8 rate
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-PEAK_INT8_OPS_PER_S = 1979e12
+# rate, f32 rate outside the tensor cores, int8 rate; one source with the
+# roofline ledger's table
+PEAK_BYTES_PER_S = roofline.PEAK_BYTES_PER_S
+PEAK_F32_OPS_PER_S = roofline.PEAK_F32_OPS_PER_S
+PEAK_INT8_OPS_PER_S = roofline.PEAK_INT8_OPS_PER_S
 AUC_FLOOR = 0.75
 # phase 10 holdout AUC floors, one per training option (PERF.md, set from a
 # CPU rehearsal at a small size before its first chip run)
@@ -1870,6 +1905,454 @@ def phase_main_path_extensions(data, base, quantized, multiclass,
     return out
 
 
+# phase 12: where the served model is saved (under the ignored build
+# directory), the load of each engine, the bucket cap
+SERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_serve")
+SERVE_MAX_BATCH = 32
+ASYNC_CLIENTS, ASYNC_REQUESTS = 16, 250
+THREADED_CLIENTS, THREADED_REQUESTS = 8, 100
+# the families a worker's /metrics must carry
+SERVING_FAMILIES = ("serving_responses_total", "serving_request_seconds",
+                    "serving_batch_size", "serving_batches_total",
+                    "serving_queue_depth", "serving_inflight_requests",
+                    "serving_stage_seconds", "serving_transform_seconds")
+TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+
+
+def http_call(host, port, path, body=None, headers=None):
+    """One request on its own connection: (status, body, headers)."""
+    conn = http.client.HTTPConnection(host, port, timeout=10)
+    try:
+        conn.request("POST" if body is not None else "GET", path, body,
+                     headers or {})
+        r = conn.getresponse()
+        return r.status, r.read(), dict(r.getheaders())
+    finally:
+        conn.close()
+
+
+def serve_load(server, path, bodies, clients, stop=None):
+    """POST ``bodies`` from ``clients`` threads, each on one keep-alive
+    connection, request i on thread i % clients; a thread stops early
+    once ``stop`` is set. Returns (statuses, bodies, client latencies in
+    s, wall s); an unsent request reads status None."""
+    n = len(bodies)
+    statuses, replies, lat = [None] * n, [None] * n, [0.0] * n
+
+    def client(k):
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=10)
+        try:
+            for i in range(k, n, clients):
+                if stop is not None and stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                conn.request("POST", path, bodies[i],
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                replies[i] = r.read()
+                lat[i] = time.perf_counter() - t0
+                statuses[i] = r.status
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a serving client did not finish in 120 s")
+    return statuses, replies, lat, time.perf_counter() - t0
+
+
+# the measured loads' clients: threads of a separate process (stdlib
+# only), so they take none of the serving process's interpreter lock. It
+# reads {"host", "port", "path", "clients", "bodies"} as JSON on stdin and
+# writes {"statuses", "replies", "latencies", "seconds"} on stdout.
+CLIENT_SRC = r"""
+import http.client, json, sys, threading, time
+job = json.load(sys.stdin)
+bodies = [b.encode() for b in job["bodies"]]
+n, k = len(bodies), job["clients"]
+statuses, replies, lat = [None] * n, [None] * n, [0.0] * n
+def client(j):
+    conn = http.client.HTTPConnection(job["host"], job["port"], timeout=10)
+    try:
+        for i in range(j, n, k):
+            t0 = time.perf_counter()
+            conn.request("POST", job["path"], bodies[i],
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            replies[i] = r.read().decode()
+            lat[i] = time.perf_counter() - t0
+            statuses[i] = r.status
+    finally:
+        conn.close()
+threads = [threading.Thread(target=client, args=(j,)) for j in range(k)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump({"statuses": statuses, "replies": replies, "latencies": lat,
+           "seconds": time.perf_counter() - t0}, sys.stdout)
+"""
+
+
+def serve_load_process(server, path, bodies, clients):
+    """``serve_load`` from a client process: ``clients`` threads there,
+    each on one keep-alive connection."""
+    job = json.dumps({"host": server.host, "port": server.port,
+                      "path": path, "clients": clients,
+                      "bodies": [b.decode() for b in bodies]})
+    r = subprocess.run([sys.executable, "-c", CLIENT_SRC], input=job,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"the client process failed: {r.stderr}")
+    out = json.loads(r.stdout)
+    return (out["statuses"], [b.encode() if b is not None else None
+                              for b in out["replies"]],
+            out["latencies"], out["seconds"])
+
+
+def counter_total(name, **labels) -> float:
+    """The sum of a family's series that carry ``labels``."""
+    fam = obs_metrics.get_registry().snapshot().get(name)
+    if fam is None:
+        return 0.0
+    return float(sum(r["value"] for r in fam["series"]
+                     if all(r["labels"].get(k) == v
+                            for k, v in labels.items())))
+
+
+def wait_for(cond, timeout=10.0) -> bool:
+    end = time.monotonic() + timeout
+    while time.monotonic() < end and not cond():
+        time.sleep(0.01)
+    return cond()
+
+
+def device_launches(prof) -> int:
+    """Device work items (kernels, copies, fills) a profiler window saw."""
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def launches_per_batch(query, rows) -> dict:
+    """Device launches and host ms of one served batch of a full 32-row
+    bucket, called directly as the scoring thread calls it (a rows-path
+    query's scorer on rows staged as its slot table stages them; a
+    threaded query's transform on a batch of requests). Launches come
+    from ``torch.profiler`` (device activity only); None where it saw no
+    device work. A batch's launches do not depend on its rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = rows[:SERVE_MAX_BATCH]
+    scorer = getattr(query, "scorer", None)
+    table = None
+    if scorer is not None:
+        spec = query.server.row_spec
+        table = SlotTable(SERVE_MAX_BATCH, spec.width, spec.dtype,
+                          spec.quantizer, pin_memory=spec.pin_memory)
+        for i, x in enumerate(rows):
+            table.write(i, x)
+        view, _ = SlotTable.bucket_view(table.flip(), SERVE_MAX_BATCH)
+
+        def call():
+            scorer(view)
+    else:
+        ds = Dataset({"id": [str(i) for i in range(len(rows))],
+                      "value": [[float(v) for v in x] for x in rows]})
+
+        def call():
+            query.transform(ds)
+    call()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        call()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    if table is not None:
+        table.release_claim()
+    n = device_launches(prof)
+    return {"launches": n / 10 if n else None, "batch_ms": host_ms}
+
+
+def load_summary(label, statuses, lat, secs, query, before,
+                 mem) -> dict:
+    """Requests/s, client p50/p99, the mean served batch and the device
+    memory (``mem``: allocated at the start, peak) of one load; fails on
+    any reply other than 200."""
+    bad = [x for x in statuses if x != 200]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} replies were not 200: "
+                             f"{sorted(set(map(str, bad)))}")
+    batches = query.batches_served - before[0]
+    served = query.requests_served - before[1]
+    lat = np.asarray(lat)
+    return dict(requests=len(statuses), seconds=secs,
+                requests_per_s=len(statuses) / secs,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                mean_batch=served / batches if batches else None,
+                batches=batches, peak_device_mib=mem[1] / 2**20,
+                peak_above_start_mib=(mem[1] - mem[0]) / 2**20)
+
+
+def row_bodies(X) -> list:
+    return [json.dumps({"features": [float(v) for v in x]}).encode()
+            for x in X]
+
+
+def start_async_worker(path, lane, **overrides):
+    """The async worker of ``serving_main`` for ``path`` in ``lane``,
+    warmed and started, readiness flipped as the worker does."""
+    os.environ["MMLSPARK_TPU_PREDICT_DTYPE"] = lane
+    serving_mod.set_ready(False)
+    args = serving_main.worker_args(path, host="localhost", port=0,
+                                    api_name="higgs",
+                                    max_batch=SERVE_MAX_BATCH, **overrides)
+    query, booster = serving_main._build_async_query(args, device="cuda")
+    query.start()
+    serving_mod.set_ready(True)
+    return query, booster
+
+
+def phase_async_lane(path, lane, Xh, card) -> dict:
+    """Phase 12a for one lane: the async worker under 16 x 250 one-row
+    requests, replies against the port's own predict."""
+    t0 = time.perf_counter()
+    query, booster = start_async_worker(path, lane)
+    steps = {"start_s": time.perf_counter() - t0}
+    try:
+        if query.server.row_spec.dtype != quantize.staging_dtype(lane):
+            raise AssertionError(f"the {lane} worker stages "
+                                 f"{query.server.row_spec.dtype}")
+        rows = Xh[:ASYNC_CLIENTS * ASYNC_REQUESTS]
+        bodies = row_bodies(rows)
+        fails0 = counter_total("serving_batch_failures_total")
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        before = (query.batches_served, query.requests_served)
+        st, replies, lat, secs = serve_load_process(
+            query.server, "/higgs", bodies, ASYNC_CLIENTS)
+        out = load_summary(f"12a {lane}", st, lat, secs, query, before,
+                           (start, torch.cuda.max_memory_allocated()))
+        got = np.asarray([json.loads(b)["prediction"] for b in replies])
+        want = booster.predict(rows, device="cuda", predict_dtype=lane)
+        diff = float(np.abs(got - want).max())
+        out["max_abs_vs_predict"] = diff
+        if got.shape != want.shape or not diff <= 1e-6:
+            raise AssertionError(f"12a {lane}: replies {diff} off predict")
+        if lane == "f32":
+            cpu = float(np.abs(got - booster.predict(rows, device="cpu"))
+                        .max())
+            out["max_abs_vs_cpu"] = cpu
+            if not cpu <= 1e-5:
+                raise AssertionError(f"12a f32: replies {cpu} off the cpu")
+        t0 = time.perf_counter()
+        out["batch_32"] = launches_per_batch(query, rows)
+        steps["profile_s"] = time.perf_counter() - t0
+        out["steps"] = steps
+        if counter_total("serving_batch_failures_total") != fails0:
+            raise AssertionError(f"12a {lane}: a batch failed")
+        log(f"phase 12a async {lane}: {out['requests_per_s']:,.1f} "
+            f"requests/s ({out['requests']} in {secs:.3f} s), client p50 "
+            f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms, mean "
+            f"batch {out['mean_batch']:.2f} ({out['batches']} batches); a "
+            f"32-row batch: {out['batch_32']['launches']} device launches, "
+            f"{out['batch_32']['batch_ms']:.3f} ms of the scoring thread; peak "
+            f"device memory {out['peak_device_mib']:.1f} MiB "
+            f"({out['peak_above_start_mib']:.2f} above the load's start); "
+            f"replies vs predict {diff:.3g}; steps {steps}; {card}")
+        return out
+    finally:
+        query.stop()
+        os.environ.pop("MMLSPARK_TPU_PREDICT_DTYPE", None)
+
+
+def phase_threaded(multiclass, card) -> dict:
+    """Phase 12b: the threaded engine serving phase 6's model through
+    ``serve().pipeline``; replies against ``transform``."""
+    n = THREADED_CLIENTS * THREADED_REQUESTS
+    Xc, _ = covertype_shaped(n, seed=2)
+    serving_mod.set_ready(False)
+    multiclass.transform(Dataset({"features": Xc[:1]}))     # warm
+    query = (serving_mod.serve().address("localhost", 0, "covertype")
+             .batch(SERVE_MAX_BATCH, 5.0).engine("threaded")
+             .pipeline(multiclass, input_col="features",
+                       output_col="probability").start())
+    serving_mod.set_ready(True)
+    try:
+        bodies = [json.dumps([float(v) for v in x]).encode() for x in Xc]
+        fails0 = counter_total("serving_batch_failures_total")
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        before = (query.batches_served, query.requests_served)
+        st, replies, lat, secs = serve_load_process(
+            query.server, "/covertype", bodies, THREADED_CLIENTS)
+        out = load_summary("12b threaded", st, lat, secs, query, before,
+                           (start, torch.cuda.max_memory_allocated()))
+        got = np.asarray([json.loads(b) for b in replies])
+        want = np.asarray(multiclass.transform(
+            Dataset({"features": Xc}))["probability"])
+        diff = float(np.abs(got - want).max())
+        out["max_abs_vs_transform"] = diff
+        if got.shape != (n, 7) or not diff <= 1e-6:
+            raise AssertionError(f"12b: replies {diff} off transform "
+                                 f"({got.shape})")
+        out["batch_32"] = launches_per_batch(query, Xc)
+        if counter_total("serving_batch_failures_total") != fails0:
+            raise AssertionError("12b: a batch failed")
+        log(f"phase 12b threaded: {out['requests_per_s']:,.1f} requests/s "
+            f"({n} in {secs:.3f} s), client p50 {out['p50_ms']:.3f} ms "
+            f"p99 {out['p99_ms']:.3f} ms, mean batch "
+            f"{out['mean_batch']:.2f} ({out['batches']} batches); a 32-row "
+            f"batch: {out['batch_32']['launches']} device launches, "
+            f"{out['batch_32']['batch_ms']:.3f} ms of the batch thread; "
+            f"peak device memory {out['peak_device_mib']:.1f} MiB "
+            f"({out['peak_above_start_mib']:.2f} above the load's start); "
+            f"7-class replies vs transform {diff:.3g}; {card}")
+        return out
+    finally:
+        query.stop()
+
+
+def phase_contract(path, Xh) -> dict:
+    """Phase 12c: health, metrics, shed, trace echo, requeue and drain on
+    the async f32 worker."""
+    bodies = row_bodies(Xh[:400])
+    out = {}
+    fails0 = counter_total("serving_batch_failures_total")
+    query, _ = start_async_worker(path, "f32", max_queue_depth=4)
+    try:
+        srv = query.server
+        st, body, _ = http_call(srv.host, srv.port, "/healthz")
+        health = json.loads(body)
+        if st != 200 or health.get("ready") is not True or \
+                health.get("platform") != "gpu":
+            raise AssertionError(f"12c: /healthz {st} {health}")
+        st, body, _ = http_call(srv.host, srv.port, "/higgs", bodies[0],
+                                {"traceparent":
+                                 f"00-{TRACE_ID}-00f067aa0ba902b7-01"})
+        st2, _, hdrs = http_call(srv.host, srv.port, "/higgs", bodies[1],
+                                 {"traceparent":
+                                  f"00-{TRACE_ID}-00f067aa0ba902b7-01"})
+        if (st, st2) != (200, 200) or \
+                hdrs.get("X-Request-Id") != TRACE_ID:
+            raise AssertionError(f"12c: trace echo {st} {st2} {hdrs}")
+        st, body, _ = http_call(srv.host, srv.port, "/metrics")
+        text = body.decode()
+        missing = [f for f in SERVING_FAMILIES
+                   if f"# TYPE {f} " not in text]
+        if st != 200 or missing:
+            raise AssertionError(f"12c: /metrics {st} lacks {missing}")
+        # a burst past queue_limit: the first batch is held 0.5 s, so the
+        # 32 slots and 4 pending places fill and the rest shed
+        failpoints.configure("serving.batch:delay:500ms@1", seed=0)
+        shed0 = counter_total("serving_shed_total", reason="queue_full")
+        burst = [None] * 64
+
+        def one(i):
+            burst[i] = http_call(srv.host, srv.port, "/higgs", bodies[i])
+
+        ts = [threading.Thread(target=one, args=(i,), daemon=True)
+              for i in range(64)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(15)
+        failpoints.clear()
+        codes = [b[0] if b else None for b in burst]
+        shed = [b for b in burst if b and b[0] == 429]
+        if not shed or set(codes) - {200, 429} or not all(
+                int(b[2].get("Retry-After", 0)) >= 1 for b in shed):
+            raise AssertionError(f"12c: burst statuses {codes}")
+        out["burst"] = {"200": codes.count(200), "429": codes.count(429),
+                        "retry_after": sorted({b[2]["Retry-After"]
+                                               for b in shed})}
+        if counter_total("serving_shed_total", reason="queue_full") - \
+                shed0 != len(shed):
+            raise AssertionError("12c: serving_shed_total disagrees with "
+                                 "the 429s")
+        # one injected batch error: the batch is requeued once and every
+        # request answered 200
+        rq0 = counter_total("serving_requeues_total")
+        failpoints.configure("serving.batch:error@1", seed=0)
+        st, body, _ = http_call(srv.host, srv.port, "/higgs", bodies[5])
+        failpoints.clear()
+        if st != 200 or not wait_for(
+                lambda: counter_total("serving_requeues_total") - rq0 == 1):
+            raise AssertionError(f"12c: requeue step answered {st}, "
+                                 f"requeues "
+                                 f"{counter_total('serving_requeues_total')}")
+        injected = counter_total("serving_batch_failures_total") - fails0
+        if injected != 1:
+            raise AssertionError(f"12c: {injected} batch failures, "
+                                 "expected the one injected")
+        out["requeues"] = counter_total("serving_requeues_total") - rq0
+        # drain under load: the clients stop at deregistration (as a
+        # gateway stops routing), the settle window lets their in-flight
+        # requests finish, then the worker refuses and drains
+        deregistered = threading.Event()
+        result = {}
+        loader = threading.Thread(target=lambda: result.update(
+            load=serve_load(srv, "/higgs", bodies, 8, stop=deregistered)),
+            daemon=True)
+        loader.start()
+        time.sleep(0.3)
+        deregistered.set()
+        stats = query.drain(settle_seconds=0.5, timeout=10)
+        loader.join(15)
+        st = [x for x in result["load"][0] if x is not None]
+        if not stats["clean"] or not st or set(st) != {200}:
+            raise AssertionError(f"12c: drain {stats}, statuses "
+                                 f"{sorted(set(map(str, st)))}")
+        out["drain"] = dict(stats, requests=len(st))
+    finally:
+        failpoints.clear()
+        query.stop()
+        os.environ.pop("MMLSPARK_TPU_PREDICT_DTYPE", None)
+    if counter_total("serving_batch_failures_total") - fails0 != 1:
+        raise AssertionError("12c: batch failures besides the injected one")
+    log(f"phase 12c: /healthz ready on gpu; serving families on /metrics; "
+        f"burst {out['burst']}; trace id echoed; requeues "
+        f"{out['requeues']:.0f} with every reply 200; drain {out['drain']}")
+    return out
+
+
+def phase_serving(quantized, multiclass, Xh, card) -> dict:
+    """Phase 12: the async engine on phase 4b's booster in the f32 and
+    int8 lanes, the threaded engine on phase 6's model, the contract."""
+    t0 = time.perf_counter()
+    log(f"== phase 12: serving phase 4b's booster (async, f32 / int8) and "
+        f"phase 6's model (threaded) over HTTP on localhost")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    path = os.path.join(SERVE_DIR, "higgs_4b.npz")
+    quantized.save(path)
+    obs_metrics.reset()
+    out = {"async": {lane: phase_async_lane(path, lane, Xh, card)
+                     for lane in ("f32", "int8")}}
+    t1 = time.perf_counter()
+    out["threaded"] = phase_threaded(multiclass, card)
+    t2 = time.perf_counter()
+    out["contract"] = phase_contract(path, Xh)
+    out["threaded"]["phase_s"] = t2 - t1
+    out["contract"]["phase_s"] = time.perf_counter() - t2
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -1925,9 +2408,11 @@ def main() -> int:
     p11 = phase_main_path_extensions(data, base, quantized, multiclass,
                                      categorical)
     fits.update(p11.pop("fits"))
+    p12 = phase_serving(quantized, multiclass, Xh, card)
     del X, y, Xh, yh, data
     log("fits: " + json.dumps(fits) + "; " + json.dumps(golden)
-        + "; phase 11: " + json.dumps(p11))
+        + "; phase 11: " + json.dumps(p11) + "; phase 12: "
+        + json.dumps(p12))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

@@ -95,7 +95,7 @@ def stream_apply(source: Union[PathLike, ShardedMatrixSource],
     bounds = [(lo, min(lo + chunk_rows, src.n))
               for lo in range(0, src.n, chunk_rows)]
     reads = ((lambda lo=lo, hi=hi: src.read(lo, hi)) for lo, hi in bounds)
-    for i, chunk in enumerate(iter_prefetched(reads)):
+    for i, chunk in enumerate(iter_prefetched(reads, site="stream_apply")):
         out = np.asarray(fn(chunk))
         if out_dir is not None:
             p = os.path.join(out_dir, f"{prefix}-{i:05d}.npy")

@@ -418,8 +418,15 @@ class Booster:
         """Host rows uploaded to ``device`` for ``lane``: bf16 for the
         bf16 lane, else f32, which :meth:`_staged` quantizes to bin ids on
         the device for the int8 lane. A uint8 array is taken as bin ids
-        already quantized for the int8 lane and goes up as it is."""
+        already quantized for the int8 lane and goes up as it is, and so
+        does a host tensor already in the lane's staged dtype (the serving
+        slot table's rows): from pinned memory without blocking the host,
+        since the caller's read of the results waits for the upload."""
         dev = resolve_device(device)
+        if (isinstance(X, torch.Tensor)
+                and X.dtype == _quantize.staging_dtype(lane)):
+            return X.to(dev, non_blocking=dev.type == "cuda"
+                        and X.is_pinned())
         X = _densify(X)
         if (lane == "int8" and isinstance(X, np.ndarray)
                 and X.dtype == np.uint8):

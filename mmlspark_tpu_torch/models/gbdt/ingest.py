@@ -434,7 +434,7 @@ def binned_matrix_from_source(src: ShardedMatrixSource,
         return lo, host
 
     reads = ((lambda lo=lo: load_chunk(lo)) for lo in range(0, n, c))
-    for lo, host in iter_prefetched(reads):
+    for lo, host in iter_prefetched(reads, site="ingest"):
         hi = lo + host.shape[0]
         if host_quant:
             q = torch.from_numpy(_quantize.quantize_features(host, ub))

@@ -16,16 +16,21 @@ dtype rows and thresholds are compared in while a forest is scored:
 
 Both narrow lanes keep the per-class sum, the base score and the objective
 transform in f32. ``MMLSPARK_TPU_PREDICT_DTYPE`` (the JAX package's name,
-so a setting carries over) picks the lane when a call names none.
+so a setting carries over) picks the lane when a call names none. Every
+degrade to ``f32`` leaves one ``predict_dtype`` flight event per distinct
+(requested, effective, reason), as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ...observability import flight as _flight
 
 __all__ = [
     "PREDICT_DTYPES", "PREDICT_DTYPE_ENV", "resolve_predict_dtype",
@@ -41,6 +46,23 @@ PREDICT_DTYPE_ENV = "MMLSPARK_TPU_PREDICT_DTYPE"
 _STAGING = {"f32": torch.float32, "bf16": torch.bfloat16,
             "int8": torch.uint8}
 
+# one degrade flight event per distinct (requested, effective, reason):
+# resolve runs on every predict call, the ring must not fill with repeats
+_SEEN_DEGRADES: set = set()
+_SEEN_LOCK = threading.Lock()
+
+
+def _degrade(requested: str, effective: str, reason: str) -> str:
+    key = (requested, effective, reason)
+    with _SEEN_LOCK:
+        fresh = key not in _SEEN_DEGRADES
+        if fresh:
+            _SEEN_DEGRADES.add(key)
+    if fresh:
+        _flight.record("predict_dtype", requested=requested,
+                       effective=effective, reason=reason)
+    return effective
+
 
 def resolve_predict_dtype(requested: Optional[str] = None, *,
                           has_mdec: bool = False,
@@ -53,20 +75,25 @@ def resolve_predict_dtype(requested: Optional[str] = None, *,
     lanes degrade to ``f32`` for models that carry LightGBM's missing-value
     routing (``has_mdec``: NaN and zero tests need the raw values), and
     ``int8`` also without the model's bin grid (``0 < max_bin <= 256``).
+    Each degrade records a ``predict_dtype`` flight event (reasons
+    ``unknown_env_value``, ``imported_missing_semantics``,
+    ``no_binner_grid``), once per distinct degrade.
     """
     if requested is None:
         env = os.environ.get(PREDICT_DTYPE_ENV, "") or "f32"
         if env not in PREDICT_DTYPES:
-            return "f32"
+            return _degrade(env, "f32", "unknown_env_value")
         requested = env
     elif requested not in PREDICT_DTYPES:
         raise ValueError(
             f"predict_dtype must be one of {PREDICT_DTYPES}, "
             f"got {requested!r}")
-    if requested == "f32" or has_mdec:
+    if requested == "f32":
         return "f32"
+    if has_mdec:
+        return _degrade(requested, "f32", "imported_missing_semantics")
     if requested == "int8" and not (0 < int(max_bin) <= 256):
-        return "f32"
+        return _degrade(requested, "f32", "no_binner_grid")
     return requested
 
 

@@ -2,7 +2,8 @@
 
   * Importing every module of ``mmlspark_tpu_torch`` (in a fresh
     interpreter) leaves ``jax`` and every ``mmlspark_tpu`` module out of
-    ``sys.modules``; no source of the package, nor ``chip_smoke.py`` or
+    ``sys.modules``, and so does importing each serving entry module alone
+    (which also starts no CUDA context); no source of the package, nor ``chip_smoke.py`` or
     the port's tools (``tools/profile_torch_gbdt.py``,
     ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``,
     ``tools/rehearse_chip_smoke.py``), imports either.
@@ -56,10 +57,30 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+#: the serving stack and the host modules it stands on
+SERVING_MODULES = (
+    "mmlspark_tpu_torch.observability",
+    "mmlspark_tpu_torch.observability.metrics",
+    "mmlspark_tpu_torch.observability.device",
+    "mmlspark_tpu_torch.observability.roofline",
+    "mmlspark_tpu_torch.observability.blackbox",
+    "mmlspark_tpu_torch.robustness",
+    "mmlspark_tpu_torch.robustness.policy",
+    "mmlspark_tpu_torch.tuning",
+    "mmlspark_tpu_torch.tuning.store",
+    "mmlspark_tpu_torch.io.serving",
+    "mmlspark_tpu_torch.io.aserve",
+    "mmlspark_tpu_torch.io.aserve.server",
+    "mmlspark_tpu_torch.io.serving_main",
+    "mmlspark_tpu_torch.utils.profiling",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
             "mmlspark_tpu_torch.models.gbdt.lgbm_format"} <= set(mods)
+    assert set(SERVING_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -68,6 +89,25 @@ def test_importing_the_port_loads_no_jax():
             "'mmlspark_tpu.')))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("mod", ["mmlspark_tpu_torch.io.aserve",
+                                 "mmlspark_tpu_torch.io.serving_main",
+                                 "mmlspark_tpu_torch.observability"])
+def test_serving_imports_load_no_jax_and_start_no_cuda(mod):
+    """Each serving entry module alone, in a fresh interpreter: no jax, no
+    JAX package, and no CUDA context (the device probes wait for one)."""
+    code = ("import importlib, sys\n"
+            f"m = importlib.import_module({mod!r})\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'mmlspark_tpu'))\n"
+            "t = sys.modules.get('torch')\n"
+            "cuda = bool(t is not None and t.cuda.is_initialized())\n"
+            "print(bad, cuda)\n"
+            "sys.exit(1 if bad or cuda else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -94,6 +134,13 @@ def test_no_source_imports_jax_or_the_jax_package():
                   if f.endswith(".py")]
     assert all(os.path.isfile(p) for p in paths[:5])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
+    for sub in ("observability", "robustness", "tuning",
+                os.path.join("io", "aserve")):
+        assert os.path.join(PKG, sub, "__init__.py") in paths
+    for f in (os.path.join("io", "serving.py"),
+              os.path.join("io", "serving_main.py"),
+              os.path.join("utils", "profiling.py")):
+        assert os.path.join(PKG, f) in paths
     bad = [(os.path.relpath(p, ROOT), line, name) for p in paths
            for line, name in _imports(p) if _forbidden(name)]
     assert bad == []

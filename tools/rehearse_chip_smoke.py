@@ -3,9 +3,11 @@
     python tools/rehearse_chip_smoke.py p6 p8 p8b p9 [--rows 40000]
     python tools/rehearse_chip_smoke.py p10 p10b [--higgs-rows 200000]
     python tools/rehearse_chip_smoke.py p11 [--rows 40000 --higgs-rows 200000]
+    python tools/rehearse_chip_smoke.py p12 [--rows 40000 --higgs-rows 20000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
-device replaced by ``cpu``: the kernels' wrappers then take their plain
+device replaced by ``cpu`` (and the profiler's device activity by its
+host activity): the kernels' wrappers then take their plain
 versions (counted as launches here), the card's timers and memory calls
 are stubbed, the Covertype-shaped phases use ``--rows`` training rows
 (a quarter of that held out) and the HIGGS-shaped ones ``--higgs-rows``
@@ -21,7 +23,9 @@ or beside it), ``p10b`` (the small fits of the training options), ``p11``
 (phases 4, 4b, 6 and 8 for their models, then phase 11: the predict lanes,
 contributions through the device TreeSHAP engine, which
 ``MMLSPARK_TPU_SHAP_DEVICE=1`` selects on the CPU, and the out-of-core
-ingest with streamed scoring).
+ingest with streamed scoring), ``p12`` (phases 4b and 6 for their models,
+then phase 12's serving on the CPU; ``/healthz`` is told it runs on a
+card, which it cannot see here).
 """
 
 from __future__ import annotations
@@ -57,12 +61,15 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
     """``chip_smoke.py`` executed as a module whose devices are the CPU."""
     path = os.path.join(ROOT, "chip_smoke.py")
     src = open(path).read().replace('"cuda"', '"cpu"').replace(
-        ".cuda()", ".cpu()")
+        ".cuda()", ".cpu()").replace(
+        "activities=[ProfilerActivity.CUDA]",
+        "activities=[ProfilerActivity.CPU]")
     torch.cuda.synchronize = lambda *a: None
     torch.cuda._sleep = lambda *a: None
     torch.cuda.Event = _Event
     torch.cuda.max_memory_allocated = lambda: 0
     torch.cuda.reset_peak_memory_stats = lambda: None
+    torch.cuda.memory_allocated = lambda: 0
     mod = types.ModuleType("chip_smoke_on_cpu")
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
@@ -105,11 +112,25 @@ def phase_extensions(mod) -> dict:
                                           categorical)
 
 
+def phase_serving(mod) -> dict:
+    """The fits phase 12 serves, then phase 12."""
+    data = (*mod.higgs_shaped(mod.HIGGS_ROWS, seed=0),
+            *mod.higgs_shaped(mod.HIGGS_HOLDOUT, seed=1))
+    _, quantized = mod.phase_end_to_end("4b", ["node_hist_int8"], data,
+                                        useQuantizedGrad=True,
+                                        quantWarmupIters=0)
+    _, multiclass = mod.phase_multiclass()
+    # the device probe of /healthz reads CUDA, which this host lacks
+    mod.serving_mod._device_probe = {"devices": 1, "platform": "gpu"}
+    return mod.phase_serving(quantized, multiclass, data[2],
+                             "CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
-                             "p11"])
+                             "p11", "p12"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     args = ap.parse_args()
@@ -119,7 +140,8 @@ def main() -> int:
            "p8b": mod.phase_small_categorical, "p9": mod.phase_golden,
            "p10": lambda: phase_sampling(mod),
            "p10b": mod.phase_small_sampling,
-           "p11": lambda: phase_extensions(mod)}
+           "p11": lambda: phase_extensions(mod),
+           "p12": lambda: phase_serving(mod)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
