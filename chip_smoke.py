@@ -207,6 +207,42 @@ Phases (any failure exits non-zero and prints no result line):
    served batch, the device launches (``torch.profiler``, device
    activity) and host ms of one 32-row batch called as the scoring
    thread calls it, the peak device memory and the card line.
+13. The predict plan, bundles, the fleet and the checkpoint modes, on the
+   models of phases 4, 4b and 6 (13b runs first, alone on the host; the
+   bundle build and the gateway then start while 13a and 13e run). 13a:
+   phase 4b's and phase 6's boosters
+   score 1, 7, 32, 100 and 8192 rows at every lane, all iterations and
+   half of them, through ``predict`` (and f32 ``predict_raw``): each
+   result bit-equal to the eager body (``predict_raw_tensor`` and the
+   transform) on the card, f32 margins within 1e-5 of the cpu; a
+   20,000-row exact-shape batch (no graph) alike; phases 4's and 4b's
+   boosters, one plan key, scored in turn 10 times, each equal to its own
+   eager result; cache misses equal the distinct keys, and every bucketed
+   key on the card is one captured CUDA graph (capture seconds and the
+   memory the graphs pin printed). 13b: one 32-row batch of each model as
+   the scoring thread passes it (slot-table rows), eager against graph:
+   host ms, CPU-side ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls and
+   device ms (``torch.profiler``); one graph launch and no kernel launch
+   per graph call is held. 13c: ``python -m mmlspark_tpu_torch.bundles
+   build`` for phase 4b's ``.npz`` (``--max-batch 32``, f32 and int8) and
+   an async ``serving_main worker --bundle`` subprocess: ``/healthz`` never
+   ready before its prewarm completed, every entry loaded, no capture in
+   its ring and ``gbdt_compiles_total`` unmoved across a load; a second
+   worker on a copy of the bundle whose fingerprint was edited degrades
+   loudly (a ``fingerprint_mismatch`` flight event) and serves correctly.
+   13d: a ``serving_main gateway`` over those two workers on the one card
+   takes phase 12's async f32 load (16 client threads in a client process
+   x 250 one-row requests): requests/s and client p50/p99, replies within
+   1e-6 of ``predict``; the gateway's ``/metrics`` carries both workers'
+   families; 16 x 100 requests with the second worker SIGTERM'd mid-load,
+   no client-visible error; and, while the two workers start, an
+   in-process ``DistributedServing`` with 2 workers on one Booster under
+   16 concurrent clients, every reply bit-equal to the eager body. 13e:
+   on the card at 20,000 rows,
+   ``MMLSPARK_TPU_STRICT_RESUME=1`` against a mismatched checkpoint raises
+   ``CheckpointMismatchError``; with ``MMLSPARK_TPU_CHECKPOINT_ON_UNHEALTHY
+   =1`` a NaN validation loss injected at round 3 writes one emergency
+   checkpoint (step 2, ``nan_loss``) that resumes to the same trees.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -224,6 +260,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -240,6 +277,7 @@ from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassifier,
                                                 LightGBMRegressor,
                                                 _pad_groups)
 from mmlspark_tpu_torch.models.gbdt import quantize
+from mmlspark_tpu_torch.models.gbdt import booster as booster_mod
 from mmlspark_tpu_torch.models.gbdt.booster import (Booster, LightGBMDataset,
                                                     _row_uniforms,
                                                     train_booster)
@@ -249,16 +287,21 @@ from mmlspark_tpu_torch.models.gbdt.ingest import write_shards
 from mmlspark_tpu_torch.models.gbdt.treeshap import shap_values
 from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
                                                        auc_weighted,
-                                                       get_objective)
+                                                       get_objective,
+                                                       score_transform)
+from mmlspark_tpu_torch.observability import flight as obs_flight
 from mmlspark_tpu_torch.observability import metrics as obs_metrics
 from mmlspark_tpu_torch.observability import roofline
+from mmlspark_tpu_torch.observability import watchdog as obs_watchdog
 from mmlspark_tpu_torch.ops import _build
 from mmlspark_tpu_torch.ops import histogram as hist_ops
 from mmlspark_tpu_torch.ops.binning import bin_cols
 from mmlspark_tpu_torch.ops.histogram_scatter import (hist_plain,
                                                       node_hist_plain)
 from mmlspark_tpu_torch.robustness import failpoints
-from mmlspark_tpu_torch.utils.checkpoint import data_fingerprint
+from mmlspark_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                 CheckpointMismatchError,
+                                                 data_fingerprint)
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, f32 rate outside the tensor cores, int8 rate; one source with the
@@ -2353,6 +2396,583 @@ def phase_serving(quantized, multiclass, Xh, card) -> dict:
     return out
 
 
+# phase 13: the predict plan's graphs, bundles, the worker and gateway
+# roles, the checkpoint modes (files under the ignored build directory)
+P13_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_p13")
+P13_SIZES = (1, 7, 32, 100, 8192)
+P13_EXACT_ROWS = 20_000
+P13_CKPT_ROWS = 20_000
+FLEET_CLIENTS, FLEET_REQUESTS = 16, 250
+# requests per client of the load a worker is SIGTERM'd in
+SIGTERM_REQUESTS = 100
+
+
+def eager_scores(booster, X, it, lane, transformed, dev) -> np.ndarray:
+    """The eager body on ``dev``: ``predict_raw_tensor``, then the
+    objective's transform, read back."""
+    raw = booster.predict_raw_tensor(torch.from_numpy(X).to(dev), it,
+                                     predict_dtype=lane)
+    if transformed:
+        raw = score_transform(booster.objective, booster.num_class,
+                              **booster.objective_kwargs)(raw)
+    return raw.cpu().numpy()
+
+
+def same_bits(a, b, what) -> None:
+    if a.shape != b.shape or a.tobytes() != b.tobytes():
+        d = (float(np.nanmax(np.abs(a - b))) if a.shape == b.shape
+             else "shape")
+        raise AssertionError(f"{what}: plan route differs from the eager "
+                             f"body ({d})")
+
+
+def phase_graphs(base, quantized, multiclass, Xh, Xc) -> dict:
+    """Phase 13a: every predict through the plan against the eager body on
+    the card, bit for bit."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    booster_mod._PREDICT_CACHE.clear()
+    obs_metrics.reset()
+    obs_flight.clear()
+    keys, checked = set(), 0          # (device, plan key) pairs
+    # two boosters of one key, in turn: each must score with its own trees
+    # (first, so no later key evicts theirs between their calls)
+    if base.predict_plan(32).key != quantized.predict_plan(32).key:
+        raise AssertionError("13a: phases 4 and 4b's models should share "
+                             "a plan key")
+    want = {id(b): eager_scores(b, Xh[:32], -1, "f32", True, dev)
+            for b in (base, quantized)}
+    for _ in range(10):
+        for b in (base, quantized):
+            same_bits(b.predict(Xh[:32], device="cuda"), want[id(b)],
+                      "13a two boosters of one key")
+    keys.add(("cuda", base.predict_plan(32).key))
+    if want[id(base)].tobytes() == want[id(quantized)].tobytes():
+        raise AssertionError("13a: the two models score alike")
+    for label, b, X in (("4b", quantized, Xh), ("6", multiclass, Xc)):
+        half = max(1, b.num_iterations // 2)
+        for lane in ("f32", "bf16", "int8"):
+            for n in P13_SIZES:
+                for it in (-1, half):
+                    Xn = X[:n]
+                    outs = [(True, b.predict(Xn, it, device="cuda",
+                                             predict_dtype=lane))]
+                    if lane == "f32":
+                        outs.append((False, b.predict_raw(
+                            Xn, it, device="cuda", predict_dtype=lane)))
+                    for tr, got in outs:
+                        keys.add(("cuda", b.predict_plan(
+                            len(Xn), it, tr, predict_dtype=lane).key))
+                        same_bits(got, eager_scores(b, Xn, it, lane, tr,
+                                                    dev),
+                                  f"13a {label} {lane} n={n} it={it} "
+                                  f"transformed={tr}")
+                        checked += 1
+                    if lane == "f32":
+                        cpu = b.predict_raw(Xn, it, device="cpu")
+                        keys.add(("cpu", b.predict_plan(len(Xn), it,
+                                                        False).key))
+                        diff = float(np.abs(outs[1][1] - cpu).max())
+                        if not diff <= 1e-5:
+                            raise AssertionError(f"13a {label} n={n}: cuda "
+                                                 f"{diff} off the cpu")
+    # an exact-shape batch past the buckets runs the body eagerly
+    Xe = Xh[:P13_EXACT_ROWS]
+    same_bits(quantized.predict(Xe, device="cuda"),
+              eager_scores(quantized, Xe, -1, "f32", True, dev),
+              f"13a {P13_EXACT_ROWS}-row exact batch")
+    keys.add(("cuda", quantized.predict_plan(len(Xe)).key))
+    misses = counter_total("gbdt_predict_cache_misses_total")
+    if misses != len(keys):
+        raise AssertionError(f"13a: {misses} cache misses for {len(keys)} "
+                             "distinct keys")
+    compiles = [e for e in obs_flight.events() if e.get("kind") == "compile"]
+    graphs = [e for e in compiles if e.get("graph")]
+    caps = [e["seconds"] for e in graphs] or [float("nan")]
+    out = dict(checked=checked, keys=len(keys), misses=misses,
+               graphs=len(graphs), capture_s_mean=float(np.mean(caps)),
+               capture_s_max=float(np.max(caps)),
+               pinned_mib=sum(e["pinned_bytes"] for e in graphs) / 2**20,
+               seconds=time.perf_counter() - t0)
+    # every bucketed key on the card is a graph; the exact batch is not
+    bucketed = sum(1 for d, k in keys if d == "cuda" and k[3] <= 8192)
+    if torch.cuda.is_available() and len(graphs) != bucketed:
+        raise AssertionError(f"13a: {len(graphs)} graphs for {bucketed} "
+                             "bucketed keys")
+    log(f"phase 13a: {checked} plan-route results bit-equal to the eager "
+        f"body on the card ({len(keys)} keys, {misses:.0f} misses, "
+        f"{len(graphs)} graphs captured: mean {out['capture_s_mean']:.4f} s,"
+        f" max {out['capture_s_max']:.4f} s, pinning "
+        f"{out['pinned_mib']:.1f} MiB); the {P13_EXACT_ROWS}-row batch "
+        f"and two boosters of one key x 10 alike; {out['seconds']:.1f} s")
+    return out
+
+
+def runtime_calls(prof) -> dict:
+    """CPU-side CUDA runtime calls a profiler window saw."""
+    names = [e.name for e in prof.events()]
+    return {"cudaLaunchKernel": sum(n.startswith("cudaLaunchKernel")
+                                    for n in names),
+            "cudaGraphLaunch": sum(n.startswith("cudaGraphLaunch")
+                                   for n in names)}
+
+
+def device_ms(prof) -> float:
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def batch_costs(call, calls=20) -> dict:
+    """Host ms on the calling thread, runtime calls and device ms per call
+    of ``call``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    rc = runtime_calls(prof)
+    return {"host_ms": host_ms,
+            "launch_kernel": rc["cudaLaunchKernel"] / 10,
+            "graph_launch": rc["cudaGraphLaunch"] / 10,
+            "device_ms": device_ms(prof) / 10}
+
+
+def phase_batch_costs(quantized, multiclass, Xh, Xc, card) -> dict:
+    """Phase 13b: one 32-row batch of each model, as the scoring thread
+    passes it (slot-table rows in the lane's staged dtype), through the
+    eager body and through the plan's graph."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, b, X, lane in (("4b f32", quantized, Xh, "f32"),
+                              ("4b int8", quantized, Xh, "int8"),
+                              ("6 f32", multiclass, Xc, "f32")):
+        rows = X[:SERVE_MAX_BATCH]
+        bounds = (quantize.feature_bounds(b.binner_state)
+                  if lane == "int8" else None)
+        table = SlotTable(SERVE_MAX_BATCH, rows.shape[1],
+                          quantize.staging_dtype(lane),
+                          quantize.row_quantizer(lane, bounds),
+                          pin_memory=torch.cuda.is_available())
+        for i, x in enumerate(rows):
+            table.write(i, x)
+        view, _ = SlotTable.bucket_view(table.flip(), SERVE_MAX_BATCH)
+        transform = score_transform(b.objective, b.num_class,
+                                    **b.objective_kwargs)
+
+        def eager():
+            Xd = b._rows_on(view, dev, lane)
+            return transform(b.predict_raw_tensor(
+                Xd, -1, predict_dtype=lane)).cpu().numpy()
+
+        def graph():
+            return b.predict(view, device="cuda", predict_dtype=lane)
+
+        same_bits(graph(), eager(), f"13b {label}")
+        row = {"eager": batch_costs(eager), "graph": batch_costs(graph)}
+        table.release_claim()
+        g = row["graph"]
+        if torch.cuda.is_available() and (g["graph_launch"] != 1
+                                          or g["launch_kernel"] != 0):
+            raise AssertionError(f"13b {label}: {g['graph_launch']} graph "
+                                 f"launches and {g['launch_kernel']} kernel "
+                                 "launches per call")
+        out[label] = row
+        e = row["eager"]
+        log(f"phase 13b {label}, one 32-row batch: eager {e['host_ms']:.3f}"
+            f" ms host, {e['launch_kernel']:.1f} cudaLaunchKernel, "
+            f"{e['device_ms']:.3f} ms device; graph {g['host_ms']:.3f} ms "
+            f"host, {g['graph_launch']:.1f} cudaGraphLaunch + "
+            f"{g['launch_kernel']:.1f} cudaLaunchKernel, "
+            f"{g['device_ms']:.3f} ms device; {card}")
+    return out
+
+
+class Proc:
+    """A subprocess of this repository's entry points with one reader
+    thread on its standard output."""
+
+    def __init__(self, args, env=None):
+        import queue
+        self.lines: "queue.Queue" = queue.Queue()
+        self.seen = []
+        e = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        e.update(env or {})
+        self.p = subprocess.Popen(
+            [sys.executable, *args], env=e, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.p.stdout:
+            self.lines.put(line)
+
+    def wait_line(self, pattern, timeout=120.0) -> "re.Match":
+        import queue
+        import re
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            try:
+                line = self.lines.get(timeout=0.5)
+            except queue.Empty:
+                if self.p.poll() is not None:
+                    break
+                continue
+            self.seen.append(line)
+            m = re.search(pattern, line)
+            if m:
+                return m
+        raise AssertionError(f"no line {pattern!r} from {self.p.args}: "
+                             f"{''.join(self.seen)[-3000:]}")
+
+    def stop(self, sig=None, timeout=30.0):
+        import signal
+        if self.p.poll() is None:
+            self.p.send_signal(sig or signal.SIGTERM)
+        try:
+            return self.p.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.p.kill()
+            return self.p.wait(10)
+
+
+def http_json(host, port, path):
+    st, body, _ = http_call(host, port, path)
+    if st != 200:
+        raise AssertionError(f"GET {path} on {port}: {st}")
+    return json.loads(body)
+
+
+def metric_value(text, name, **labels) -> float:
+    """Sum of a family's samples in an exposition that carry ``labels``."""
+    from mmlspark_tpu_torch.observability.federation import \
+        parse_prometheus_text
+    fam = parse_prometheus_text(text).get(name)
+    if fam is None:
+        return 0.0
+    return float(sum(v for lb, v in fam[1]
+                     if all(lb.get(k) == x for k, x in labels.items())))
+
+
+def start_worker(model, bundle, registry, port, extra_env=None) -> Proc:
+    return Proc(["-m", "mmlspark_tpu_torch.io.serving_main", "worker",
+                 "--model", model, "--registry", registry, "--engine",
+                 "async", "--bundle", bundle, "--host", "localhost",
+                 "--advertise-host", "localhost", "--port", str(port),
+                 "--api-name", "higgs", "--max-batch", str(SERVE_MAX_BATCH),
+                 "--device", "cuda"], env=extra_env)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_fleet(quantized) -> dict:
+    """Phase 13c's first steps, started early so their interpreters come
+    up while the card runs 13a and 13e: phase 4b's model saved as ``.npz``,
+    ``bundles build`` for it (f32 and int8, the 32-row cap) and the
+    gateway over an empty file registry."""
+    shutil.rmtree(P13_DIR, ignore_errors=True)
+    os.makedirs(P13_DIR)
+    model = os.path.join(P13_DIR, "higgs_4b.npz")
+    quantized.save(model)
+    bundle = os.path.join(P13_DIR, "higgs_4b.bundle")
+    registry = os.path.join(P13_DIR, "registry")
+    gw_port = free_port()
+    gateway = Proc(["-m", "mmlspark_tpu_torch.io.serving_main", "gateway",
+                    "--registry", registry, "--host", "localhost",
+                    "--port", str(gw_port), "--api-name", "higgs"],
+                   env={"MMLSPARK_TPU_FEDERATION_INTERVAL_SECONDS": "0.3"})
+    build = Proc(["-m", "mmlspark_tpu_torch.bundles", "build", "--model",
+                  model, "--out", bundle, "--max-batch",
+                  str(SERVE_MAX_BATCH), "--predict-dtypes", "f32,int8",
+                  "--device", "cuda"])
+    return dict(model=model, bundle=bundle, registry=registry,
+                gw_port=gw_port, gateway=gateway, build=build,
+                t0=time.perf_counter())
+
+
+def in_process_fleet(quantized, Xh) -> float:
+    """Phase 13d's last step: two in-process workers on one Booster under
+    16 concurrent clients; every reply must be the eager body's (the
+    per-entry lock keeps concurrent replays of one program apart).
+    Returns requests/s."""
+    from mmlspark_tpu_torch.io.distributed_serving import DistributedServing
+    eager = eager_scores(quantized, Xh[:800], -1, "f32", True,
+                         torch.device("cuda"))
+
+    def transform(ds):
+        r = np.asarray([v["features"] for v in ds["value"]], np.float32)
+        return ds.with_column("reply", [
+            {"entity": {"p": float(p)}, "statusCode": 200}
+            for p in quantized.predict(r, device="cuda")])
+
+    d = DistributedServing(transform, num_workers=2,
+                           api_name="higgs").start()
+    try:
+        st, replies, _, secs = serve_load(d.gateway, "/higgs",
+                                          row_bodies(Xh[:800]), 16)
+    finally:
+        d.stop()
+    got = np.asarray([json.loads(r)["p"] for r in replies], np.float32)
+    # bit for bit on the card, where an elementwise result does not
+    # depend on a row's place in its batch; the CPU's vectorized loops
+    # round a row by its place (an ulp), so a rehearsal holds 1e-6
+    same = (got.tobytes() == eager.tobytes() if torch.cuda.is_available()
+            else float(np.abs(got - eager).max()) <= 1e-6)
+    if set(st) != {200} or not same:
+        raise AssertionError("13d: in-process workers on one Booster "
+                             "differ from the eager body")
+    return len(st) / secs
+
+
+def phase_fleet(quantized, Xh, fleet, card) -> dict:
+    """Phases 13c and 13d: two bundled async workers (the second on a copy
+    of the bundle whose fingerprint was edited) behind the gateway, phase
+    12's load through it, the load again with one worker SIGTERM'd
+    mid-load; two in-process workers on one Booster while the two start."""
+    t0 = fleet["t0"]
+    model, bundle = fleet["model"], fleet["bundle"]
+    registry, gw_port = fleet["registry"], fleet["gw_port"]
+    gateway, build = fleet["gateway"], fleet["build"]
+    procs = [gateway, build]
+    out = {}
+    try:
+        build.wait_line(r"bundle written")
+        if build.p.wait(120) != 0:
+            raise AssertionError("13c: bundles build failed")
+        manifest = json.load(open(os.path.join(bundle, "MANIFEST.json")))
+        entries = len(manifest["entries"])
+        skewed = bundle + ".skewed"
+        shutil.copytree(bundle, skewed)
+        manifest["fingerprint"]["torch_version"] = "0.0.0-edited"
+        with open(os.path.join(skewed, "MANIFEST.json"), "w") as f:
+            json.dump(manifest, f)
+        ports = [free_port(), free_port()]
+        t_start = time.perf_counter()
+        workers = [start_worker(model, bundle, registry, ports[0]),
+                   start_worker(model, skewed, registry, ports[1])]
+        procs += workers
+        out["in_process_requests_per_s"] = in_process_fleet(quantized, Xh)
+        # /healthz while the first worker comes up: never ready before
+        # its prewarm is done (the socket binds after it)
+        early = []
+        while workers[0].p.poll() is None:
+            try:
+                early.append(json.loads(http_call(
+                    "localhost", ports[0], "/healthz")[1])["ready"])
+                if early[-1]:
+                    break
+            except OSError:
+                early.append(None)
+            time.sleep(0.05)
+        ids = [w.wait_line(r"worker (\w+) serving on").group(1)
+               for w in workers]
+        out["worker_start_s"] = time.perf_counter() - t_start
+        gateway.wait_line(r"gateway on")
+        ring = http_json("localhost", ports[0], "/debug/flight")["events"]
+        done = [e for e in ring if e.get("kind") == "bundle"
+                and e.get("event") == "prewarm_complete"]
+        loaded = [e for e in ring if e.get("kind") == "bundle"
+                  and e.get("event") == "entry_loaded"]
+        if (not done or done[0]["entries_loaded"] != entries
+                or len(loaded) != entries or True in early[:-1]
+                or early[-1] is not True):
+            raise AssertionError(f"13c: prewarm {done} ({len(loaded)} of "
+                                 f"{entries} loaded), healthz {early}")
+        if any(e.get("kind") == "compile" for e in ring):
+            raise AssertionError("13c: the bundled worker captured online")
+        ring1 = http_json("localhost", ports[1], "/debug/flight")["events"]
+        skew = [e for e in ring1 if e.get("kind") == "bundle"
+                and e.get("event") == "fingerprint_mismatch"]
+        if not skew or not any("torch_version" in m
+                               for m in skew[0]["mismatches"]):
+            raise AssertionError("13c: the edited bundle did not degrade "
+                                 "loudly")
+        metrics0 = [http_call("localhost", p, "/metrics")[1].decode()
+                    for p in ports]
+        # 13d: phase 12's async f32 load through the gateway
+        gw = types.SimpleNamespace(host="localhost", port=gw_port)
+        rows = Xh[:FLEET_CLIENTS * FLEET_REQUESTS]
+        bodies = row_bodies(rows)
+        st, replies, lat, secs = serve_load_process(gw, "/higgs", bodies,
+                                                    FLEET_CLIENTS)
+        bad = [x for x in st if x != 200]
+        if bad:
+            raise AssertionError(f"13d: {len(bad)} replies were not 200")
+        got = np.asarray([json.loads(r)["prediction"] for r in replies])
+        diff = float(np.abs(got - quantized.predict(rows,
+                                                    device="cuda")).max())
+        if not diff <= 1e-6:
+            raise AssertionError(f"13d: replies {diff} off predict")
+        lat = np.asarray(lat)
+        out["fleet"] = dict(requests_per_s=len(st) / secs, seconds=secs,
+                            p50_ms=float(np.percentile(lat, 50) * 1e3),
+                            p99_ms=float(np.percentile(lat, 99) * 1e3),
+                            max_abs_vs_predict=diff)
+        metrics1 = [http_call("localhost", p, "/metrics")[1].decode()
+                    for p in ports]
+        comp = [metric_value(m, "gbdt_compiles_total") for m in metrics0 +
+                metrics1]
+        if comp[0] != comp[2]:
+            raise AssertionError(f"13c: the bundled worker compiled under "
+                                 f"load ({comp})")
+        out["compiles"] = comp
+        served = [metric_value(m, "serving_responses_total", code="200")
+                  for m in metrics1]
+        if min(served) <= 0:
+            raise AssertionError(f"13d: a worker served nothing {served}")
+
+        def federated():
+            text = http_call("localhost", gw_port, "/metrics")[1].decode()
+            return all(f'worker="localhost:{p}"' in text and
+                       "cluster_serving_responses_total" in text
+                       for p in ports)
+
+        if not wait_for(federated, timeout=10):
+            raise AssertionError("13d: the gateway's /metrics lacks a "
+                                 "worker's families")
+        # one worker SIGTERM'd mid-load: no client-visible error
+        import signal
+        killer = threading.Timer(0.5, lambda: workers[1].p.send_signal(
+            signal.SIGTERM))
+        killer.start()
+        st, _, lat, secs = serve_load_process(
+            gw, "/higgs", bodies[:FLEET_CLIENTS * SIGTERM_REQUESTS],
+            FLEET_CLIENTS)
+        killer.join()
+        bad = [x for x in st if x != 200]
+        drained = workers[1].wait_line(r"worker \w+ drained", timeout=60)
+        if bad or workers[1].p.wait(30) != 0 or not drained:
+            raise AssertionError(f"13d: {len(bad)} errors through the "
+                                 "SIGTERM")
+        out["sigterm"] = dict(requests=len(st), seconds=secs,
+                              requests_per_s=len(st) / secs)
+        out["worker_ids"] = ids
+    finally:
+        for p in procs:
+            p.stop()
+    out["seconds"] = time.perf_counter() - t0
+    f = out["fleet"]
+    log(f"phase 13c: bundle of {entries} plans; bundled worker ready after "
+        f"its prewarm (healthz {early[-3:]}), no capture under load "
+        f"(gbdt_compiles_total {comp}); the edited bundle degraded loudly "
+        f"and served correctly")
+    log(f"phase 13d: gateway over 2 workers: {f['requests_per_s']:,.1f} "
+        f"requests/s, client p50 {f['p50_ms']:.3f} ms p99 "
+        f"{f['p99_ms']:.3f} ms, replies vs predict {diff:.3g}; SIGTERM "
+        f"mid-load: {out['sigterm']['requests']} replies all 200; both "
+        f"workers' families on the gateway's /metrics; in-process workers "
+        f"on one Booster bit-equal to eager "
+        f"({out['in_process_requests_per_s']:,.1f} requests/s); "
+        f"{out['seconds']:.1f} s; {card}")
+    return out
+
+
+def phase_checkpoint_modes(X, y, Xh, yh) -> dict:
+    """Phase 13e: strict resume against a mismatched checkpoint, and an
+    emergency checkpoint of the last good round on an injected NaN
+    validation loss, on the card at 20,000 rows."""
+    t0 = time.perf_counter()
+    X, y = X[:P13_CKPT_ROWS], y[:P13_CKPT_ROWS]
+    valid = (Xh[:5_000], yh[:5_000], None)
+    d = os.path.join(P13_DIR, "ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+
+    def fit(directory, leaves=31, **kw):
+        return train_booster(X, y, objective="binary", max_bin=255,
+                             cfg=GrowConfig(num_leaves=leaves),
+                             checkpoint_dir=directory, device="cuda", **kw)
+
+    fit(d, num_iterations=4, checkpoint_period=2)
+    os.environ["MMLSPARK_TPU_STRICT_RESUME"] = "1"
+    try:
+        fit(d, leaves=15, num_iterations=4, checkpoint_period=2)
+        raise AssertionError("13e: strict resume trained a mismatched run")
+    except CheckpointMismatchError:
+        pass
+    finally:
+        os.environ.pop("MMLSPARK_TPU_STRICT_RESUME", None)
+    real = obs_watchdog.report_training_metric
+
+    def report(model, iteration, loss=None, **kw):
+        if loss is not None and iteration == 3:
+            loss = float("nan")
+        return real(model, iteration, loss=loss, **kw)
+
+    d2 = os.path.join(P13_DIR, "ckpt_emergency")
+    shutil.rmtree(d2, ignore_errors=True)
+    os.environ["MMLSPARK_TPU_CHECKPOINT_ON_UNHEALTHY"] = "1"
+    obs_watchdog.report_training_metric = report
+    try:
+        whole = fit(d2, num_iterations=6, checkpoint_period=100,
+                    valid_set=valid)
+    finally:
+        obs_watchdog.report_training_metric = real
+        os.environ.pop("MMLSPARK_TPU_CHECKPOINT_ON_UNHEALTHY", None)
+    mgr = CheckpointManager(d2)
+    if len(mgr.steps()) != 1:
+        raise AssertionError(f"13e: checkpoints {mgr.steps()}")
+    step, payload = mgr.latest()
+    if (step, payload.get("emergency"), payload.get("reason")) != \
+            (2, True, "nan_loss"):
+        raise AssertionError(f"13e: emergency checkpoint {step} "
+                             f"{payload.get('reason')}")
+    resumed = fit(d2, num_iterations=3, checkpoint_period=100,
+                  valid_set=valid)
+    dumped = Booster.from_string(payload["model"])
+    for f in ("feat", "thr_bin", "left", "right", "is_leaf", "leaf_value"):
+        if not (np.array_equal(resumed.trees[f], dumped.trees[f])
+                and np.array_equal(dumped.trees[f], whole.trees[f][:3])):
+            raise AssertionError(f"13e: resumed trees differ in {f}")
+    out = {"seconds": time.perf_counter() - t0, "emergency_step": step}
+    log(f"phase 13e: strict resume raised CheckpointMismatchError; the "
+        f"injected NaN at round 3 wrote one emergency checkpoint (step "
+        f"{step}, nan_loss) that resumes to its trees; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def phase_plan_and_fleet(base, quantized, multiclass, data, card) -> dict:
+    """Phase 13: the predict plan's graphs against the eager body, the
+    costs of one batch both ways, bundles and the worker and gateway
+    roles, the trainer's checkpoint modes."""
+    t0 = time.perf_counter()
+    X, y, Xh, yh = data
+    log("== phase 13: the predict plan as CUDA graphs (phases 4, 4b and "
+        "6's models), bundles, a gateway fleet, the checkpoint modes")
+    Xc, _ = covertype_shaped(P13_EXACT_ROWS, seed=3)
+    mc = multiclass.booster
+    # 13b first, with nothing else on the host; the bundle build and the
+    # gateway then start while the card runs 13a and 13e
+    out = {"batch": phase_batch_costs(quantized, mc, Xh, Xc, card)}
+    fleet = start_fleet(quantized)
+    try:
+        out["graphs"] = phase_graphs(base, quantized, mc, Xh, Xc)
+        out["checkpoint"] = phase_checkpoint_modes(X, y, Xh, yh)
+    except BaseException:
+        for p in (fleet["gateway"], fleet["build"]):
+            p.stop()
+        raise
+    out["fleet"] = phase_fleet(quantized, Xh, fleet, card)
+    shutil.rmtree(P13_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -2409,10 +3029,11 @@ def main() -> int:
                                      categorical)
     fits.update(p11.pop("fits"))
     p12 = phase_serving(quantized, multiclass, Xh, card)
+    p13 = phase_plan_and_fleet(base, quantized, multiclass, data, card)
     del X, y, Xh, yh, data
     log("fits: " + json.dumps(fits) + "; " + json.dumps(golden)
         + "; phase 11: " + json.dumps(p11) + "; phase 12: "
-        + json.dumps(p12))
+        + json.dumps(p12) + "; phase 13: " + json.dumps(p13))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

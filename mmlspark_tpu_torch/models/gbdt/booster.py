@@ -17,10 +17,21 @@ Counterpart of ``mmlspark_tpu/models/gbdt/booster.py`` for one device:
     the device (``predict_raw`` / ``predict``, categorical splits and the
     missing-value routing of imported models included; ``predict_leaf``;
     ``feature_importances``), saved as ``.npz`` in the JAX package's layout
-    and read and written as LightGBM's text model format.
+    and read and written as LightGBM's text model format;
+  * the predict plan and the process-wide predictor cache
+    (:meth:`Booster.predict_plan`, ``_PREDICT_CACHE``): ``predict`` and
+    ``predict_raw`` run one cached program per plan key, which on ``cuda``
+    is a CUDA graph captured per shape bucket (:class:`_PredictProgram`).
 
 Sparse scipy feature matrices are densified in row blocks
 (:func:`_densify`) before binning and scoring.
+
+The JAX package packs the forest into one int32 buffer before its upload
+(``_pack_trees_host``) because each of its transfers crosses a slow link
+and its executable takes one flat argument. The port leaves that pack out:
+its forest arguments go up once per ``(device, T_pad, lane)`` and stay
+resident, so their transfer count is paid once per model, not per call,
+and a graph reads them as the separate tensors the traversal gathers from.
 
 On one device the padded row count equals the row count (the JAX package
 pads rows only to a multiple of the mesh's shard count), so histogram
@@ -29,17 +40,30 @@ subtraction and its ``n // 2`` buffer engage exactly as they do there.
 
 from __future__ import annotations
 
+import hashlib
+import itertools
 import json
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import threading
+import time
+from collections import OrderedDict
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
+from ...observability import flight as _flight
+from ...observability import hbm as _hbm
+from ...observability import metrics as _metrics
+from ...observability import roofline as _roofline
+from ...observability import spans as _spans
+from ...observability import watchdog as _watchdog
 from ...ops.binning import QuantileBinner, bin_cols
 from ...ops.histogram import quant_key
 from ...core.dataset import _is_sparse
+from ... import tuning as _tuning
+from ...tuning.decisions import ladder_pad
 from . import quantize as _quantize
 from .growth import (GrowConfig, Tree, forest_leaf_nodes, grow_tree,
                      grow_tree_depthwise, predict_forest_raw,
@@ -218,6 +242,452 @@ def _with_tree_defaults(trees: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             else v for k, v in trees.items()}
 
 
+# --- the fused predictor ----------------------------------------------------
+# ``predict`` and ``predict_raw`` run one cached program per plan key: the
+# forest traversal over T_pad trees, the mask of trees past t_end, the
+# per-class sum, the base score and the optional transform. The forest
+# rides as device tensors beside the program, so any Booster of the same
+# key reuses it. On cuda the program of a bucketed batch size is a CUDA
+# graph captured on its first call (one graph launch per call instead of
+# hundreds of eager launches); elsewhere it runs the same body eagerly.
+
+def _pow2_ceil(v: int) -> int:
+    """Smallest power of two >= max(1, v)."""
+    return 1 << (max(1, int(v)) - 1).bit_length()
+
+
+# batch sizes up to this are bucketed (padded to a ladder rung) and, on
+# cuda, scored through a captured graph; larger batches keep their shape
+_GRAPH_MAX_ROWS = 8192
+
+
+def _to_device(x: torch.Tensor, dev: torch.device,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The predict path's ONLY host->device transfer funnel (tests shim it
+    to count one upload per scoring call): ``x`` onto ``dev``, or into
+    ``out`` there (a graph's static input). Pinned host rows go up without
+    blocking the host; the read-back that follows waits for them."""
+    nb = dev.type == "cuda" and x.device.type == "cpu" and x.is_pinned()
+    if out is not None:
+        return out.copy_(x, non_blocking=nb)
+    return x.to(dev, non_blocking=nb)
+
+
+def _from_device(x: torch.Tensor) -> np.ndarray:
+    """The predict path's ONLY device->host transfer funnel."""
+    return x.cpu().numpy()
+
+
+def _forest_routing(forest: dict, cat_max_bin: int,
+                    missing: bool = True) -> dict:
+    """The keyword options of :func:`forest_leaf_nodes` for a forest's
+    tensors: the categorical mask and bitsets where the model has
+    categorical features, the LightGBM missing-value bytes of imported
+    models (``missing=False``: without them, NaN left). ``cat_max_bin`` 0
+    routes categories strictly (``FindInBitset``: models without a
+    binner)."""
+    kw = {}
+    if forest["is_cat"] is not None:
+        kw.update(is_cat=forest["is_cat"], cat_bitset=forest["bits"],
+                  cat_max_bin=cat_max_bin)
+    if missing and forest["mdec"] is not None:
+        kw["missing_dec"] = forest["mdec"]
+    return kw
+
+
+def _forest_margins(forest: dict, X: torch.Tensor, K: int, depth_cap: int,
+                    routing: dict, lane: str,
+                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Raw margins ``[n, K]`` f32 of every tree of ``forest`` on staged rows
+    ``X`` (tree ``t`` scores class ``t % K``), plus the base score. Trees
+    are added one at a time, in order, so every device rounds the same
+    sums the same way. ``active`` ([T] f32, 1 below ``t_end`` and 0 past
+    it) masks the trees a bucket holds beyond the ones asked for: a leaf
+    times 1 is the leaf, and an added masked 0 leaves an f32 sum as it was,
+    so the margins equal those of the first ``t_end`` trees alone for
+    finite leaves. A non-finite leaf past ``t_end`` gives NaN under the
+    mask (inf * 0), as it does in the JAX program."""
+    T = forest["feat"].shape[0]
+    leaf = (forest["leaf"] if lane != "int8" else
+            _quantize.dequantize_leaves(forest["qleaf"], forest["scale"]))
+    n = X.shape[0]
+    per_class = torch.zeros((K, n), dtype=torch.float32, device=X.device)
+    rows = max(1, _PREDICT_BUDGET // max(T, 1))
+    for s in range(0, n, rows):
+        vals = predict_forest_raw(
+            forest["feat"], forest["thr"], forest["left"], forest["right"],
+            forest["is_leaf"], leaf, X[s:s + rows], depth_cap,
+            **routing)                                          # [T, r]
+        if active is not None:
+            vals = vals * active[:, None]
+        for t in range(T):
+            per_class[t % K, s:s + rows] += vals[t]
+    return per_class.t() + forest["base"][None, :]
+
+
+def _forest_nbytes(forest: dict) -> float:
+    """Device bytes a forest-argument dict pins (the ``packed_trees``
+    HBM-ledger claim)."""
+    return float(sum(v.numel() * v.element_size() for v in forest.values()
+                     if isinstance(v, torch.Tensor)))
+
+
+# the process-wide predictor cache: keyed on (device, plan key), NEVER on a
+# Booster, so a serving worker's reloaded model, or a num_iteration sweep,
+# reuses programs (and their captured graphs) instead of building anew
+_PREDICT_CACHE: "OrderedDict" = OrderedDict()
+_PREDICT_CACHE_MAX = 64
+_PREDICT_CACHE_LOCK = threading.Lock()
+# one capture at a time in the process: the allocator's capture pools
+# and the warm-up side stream are simplest to reason about serialized
+_CAPTURE_LOCK = threading.Lock()
+# forest-argument identities: a graph copies a forest in when the serial
+# of the forest it last copied differs
+_FOREST_SERIAL = itertools.count(1)
+# guards each Booster's LRUs of device arguments (check, then insert or
+# evict)
+_DEVICE_ARGS_LOCK = threading.Lock()
+
+
+class _PredictProgram:
+    """The fused scoring program of one plan key on one device.
+
+    Graph route (``cuda`` and ``n_pad <= 8192``, the bucketed sizes): the
+    first call (:meth:`prepare`) allocates static buffers — the forest
+    for ``T_pad`` trees, the ``active`` mask, the ``[n_pad, F]`` input in
+    the lane's staged dtype — warms the body up on a side stream and
+    captures it into a ``torch.cuda.CUDAGraph``. A call then copies its
+    rows into the static input, zero-pads the rest, replays and reads
+    back ``[:n]``. Larger batches come in exact shapes that rarely repeat,
+    and the memory a graph's pool pins grows with its batch, so they run
+    the same body eagerly on the rows as they come (one program object per
+    key all the same), as every call on the CPU does. A failed capture
+    raises: nothing scores eagerly in a graph's place.
+
+    Captured pointers: a graph bakes in the addresses of the buffers it
+    read at capture, while the cache is shared by every Booster of one
+    key. So the program owns static forest buffers, and before a replay
+    for a forest other than the one last copied in (a forest's serial), it
+    copies that forest in, device to device — else a second model of the
+    same key would score with the first model's trees.
+
+    Concurrent replays: a graph and its static buffers are not reentrant,
+    and several threads reach one entry at once (the threaded engine,
+    in-process gateway workers on one Booster). A per-entry lock spans
+    copy-in, replay and read-back. The capture runs in
+    ``capture_error_mode="thread_local"``, so a probe thread reading
+    ``torch.cuda`` meanwhile does not break it.
+
+    Host work inside the captured region: the body makes no ``.item()``,
+    ``.cpu()``, ``nonzero`` or boolean-mask index, and rows are staged
+    (the int8 lane's bin apply, whose bounds stay resident per device)
+    before they reach the static input, outside the graph."""
+
+    def __init__(self, key: tuple, device: torch.device, T_pad: int,
+                 n_pad: int, num_features: int, K: int, depth_cap: int,
+                 cat_max_bin: int, lane: str, transform):
+        self.key, self.device = key, device
+        self.T_pad, self.n_pad, self.F, self.K = T_pad, n_pad, num_features, K
+        self.depth_cap, self.cat_max_bin = depth_cap, cat_max_bin
+        self.lane, self.transform = lane, transform
+        self.graph_route = device.type == "cuda" and n_pad <= _GRAPH_MAX_ROWS
+        self._lock = threading.Lock()
+        self._graph = None
+        self._static: Optional[dict] = None
+        self.pinned_bytes = 0
+
+    def _body(self, forest: dict, active: torch.Tensor,
+              X: torch.Tensor) -> torch.Tensor:
+        raw = _forest_margins(forest, X, self.K, self.depth_cap,
+                              _forest_routing(forest, self.cat_max_bin),
+                              self.lane, active)
+        return raw if self.transform is None else self.transform(raw)
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def prepare(self, forest: dict, active: torch.Tensor,
+                t_end: int) -> None:
+        """Capture the graph against static copies of ``forest`` and
+        ``active`` (graph route; nothing to do on the eager route)."""
+        if not self.graph_route or self._graph is not None:
+            return
+        dev = self.device
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
+            before = torch.cuda.memory_reserved(dev)
+            st = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                  for k, v in forest.items()}
+            st_active = active.clone()
+            x = torch.zeros((self.n_pad, self.F),
+                            dtype=_quantize.staging_dtype(self.lane),
+                            device=dev)
+            # warm-up on a side stream (allocator pools, lazy kernel
+            # loads), as torch.cuda.graphs asks, then the capture
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._body(st, st_active, x)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = self._body(st, st_active, x)
+            torch.cuda.synchronize(dev)
+            # the static buffers and the graph's private pool
+            self.pinned_bytes = torch.cuda.memory_reserved(dev) - before
+        self._static = {"forest": st, "serial": forest["serial"],
+                        "active": st_active, "t_end": t_end, "x": x,
+                        "out": out}
+        self._graph = graph
+
+    def __call__(self, forest: dict, active: torch.Tensor, t_end: int,
+                 stage_rows: Callable) -> np.ndarray:
+        """Score one batch: ``stage_rows(out)`` performs the call's one
+        upload (into ``out`` when given) and returns the staged device
+        rows ``[n, F]``. Returns the host result ``[:n]``."""
+        if not self.graph_route:
+            # no padding: rows score independently, and the CPU's
+            # vectorized elementwise loops round a row by where it falls
+            # in the batch, so only the rows as they came match the eager
+            # body bit for bit
+            return _from_device(self._body(forest, active, stage_rows(None)))
+        with self._lock:
+            st = self._static
+            if st["serial"] != forest["serial"]:
+                for k, v in st["forest"].items():
+                    if isinstance(v, torch.Tensor):
+                        v.copy_(forest[k])
+                st["serial"] = forest["serial"]
+            if st["t_end"] != t_end:
+                st["active"].copy_(active)
+                st["t_end"] = t_end
+            # ping-pong slot rows: a pinned slot buffer is copied into the
+            # static input without blocking, on the stream the replay runs
+            # on; the read-back below waits for both, so the caller
+            # rewrites that buffer only after this call returns
+            n = stage_rows(st["x"]).shape[0]
+            if n > self.n_pad:
+                raise ValueError(f"{n} rows do not fit the program's "
+                                 f"{self.n_pad}")
+            if n < self.n_pad:
+                st["x"][n:].zero_()        # as the JAX package's np.pad
+            self._graph.replay()
+            return _from_device(st["out"][:n])
+
+
+def _build_predict_program(key: tuple, device: torch.device, T_pad: int,
+                           n_pad: int, num_features: int, K: int,
+                           depth_cap: int, cat_max_bin: int, transform,
+                           predict_dtype: str) -> "_PredictProgram":
+    """The fused scoring program of one plan on ``device`` (JAX
+    ``booster.py:539-586``): all ``T_pad`` trees, the ``active`` mask, the
+    per-class sum, the base score and ``transform`` (None: raw margins)."""
+    return _PredictProgram(key, device, T_pad, n_pad, num_features, K,
+                           depth_cap, cat_max_bin, predict_dtype, transform)
+
+
+class _ObservedProgram:
+    """Cache entry that makes the capture observable: its first call
+    prepares the program (the capture, on the graph route) and records a
+    flight ``compile`` event with the key and wall seconds
+    (``persistent_cache=""``: the port keeps no compile cache), feeds
+    ``gbdt_compiles_total`` / ``gbdt_compile_seconds``, notes the card's
+    name for the roofline's peaks and registers the program in the
+    roofline ledger. Its bytes accessed are reckoned from the plan (forest
+    arguments, the batch, the ``[n_pad, K]`` result); its FLOPs are None,
+    since torch has no ``cost_analysis``. While metrics are on, each call
+    is timed (copy-in to read-back) into ``observe_call``."""
+
+    __slots__ = ("_prog", "_key", "_key_hash", "_lock", "_dtype", "_ready")
+
+    def __init__(self, prog: _PredictProgram, key, dtype=None):
+        self._prog = prog
+        self._key = key
+        self._key_hash = predict_key_hash(key)
+        self._lock = threading.Lock()
+        self._dtype = dtype
+        self._ready = False
+
+    @property
+    def program(self) -> _PredictProgram:
+        return self._prog
+
+    def _bytes_accessed(self, forest: dict) -> float:
+        p = self._prog
+        item = torch.empty((), dtype=_quantize.staging_dtype(p.lane)
+                           ).element_size()
+        return (_forest_nbytes(forest) + 4.0 * p.T_pad
+                + float(p.n_pad * p.F * item) + 4.0 * p.n_pad * p.K)
+
+    def prepare(self, forest: dict, active: torch.Tensor, t_end: int,
+                observed: bool = True) -> float:
+        """Prepare once (serialized: two threads on a cold entry must not
+        both capture). ``observed=False`` is the bundle prewarm: no
+        ``compile`` event or compile counter, as the JAX prewarm's
+        deserialize-and-compile records none. Returns the seconds taken
+        (0.0 when it was ready)."""
+        with self._lock:
+            if self._ready:
+                return 0.0
+            t0 = time.perf_counter()
+            self._prog.prepare(forest, active, t_end)
+            dt = time.perf_counter() - t0
+            self._ready = True
+        p = self._prog
+        if p.device.type == "cuda":
+            _roofline.note_device_kind(torch.cuda.get_device_name(p.device))
+        if observed:
+            _metrics.safe_counter("gbdt_compiles_total",
+                                  cache="predict").inc()
+            _metrics.safe_histogram("gbdt_compile_seconds",
+                                    cache="predict").observe(dt)
+            _flight.record("compile", cache="predict", key=repr(self._key),
+                           seconds=round(dt, 6), persistent_cache="",
+                           device=str(p.device), graph=p.captured,
+                           pinned_bytes=p.pinned_bytes)
+        _roofline.register_executable(
+            self._key_hash, kind="predict", flops=None,
+            bytes_accessed=self._bytes_accessed(forest), compile_seconds=dt,
+            label="gbdt_predict" if observed else "gbdt_predict(prewarm)",
+            dtype=self._dtype)
+        return dt
+
+    def __call__(self, forest: dict, active: torch.Tensor, t_end: int,
+                 stage_rows: Callable) -> np.ndarray:
+        if not self._ready:
+            self.prepare(forest, active, t_end)
+        if not _metrics.enabled():
+            return self._prog(forest, active, t_end, stage_rows)
+        t0 = time.perf_counter()
+        out = self._prog(forest, active, t_end, stage_rows)
+        # the call ends in a blocking read-back, so this is device time
+        # plus the call's host work
+        _roofline.observe_call(self._key_hash, time.perf_counter() - t0)
+        return out
+
+
+def _predict_program(cache_key, build: Callable, dtype=None
+                     ) -> _ObservedProgram:
+    """Get-or-build in the bounded process-wide predictor cache, counting
+    ``gbdt_predict_cache_{hits,misses}_total``."""
+    with _PREDICT_CACHE_LOCK:
+        fn = _PREDICT_CACHE.get(cache_key)
+        if fn is not None:
+            _PREDICT_CACHE.move_to_end(cache_key)
+    if fn is None:
+        _metrics.safe_counter("gbdt_predict_cache_misses_total").inc()
+        with _spans.span("gbdt_predict_build"):
+            fn = _ObservedProgram(build(), cache_key[1], dtype=dtype)
+        with _PREDICT_CACHE_LOCK:
+            fn = _PREDICT_CACHE.setdefault(cache_key, fn)
+            _PREDICT_CACHE.move_to_end(cache_key)
+            while len(_PREDICT_CACHE) > _PREDICT_CACHE_MAX:
+                _PREDICT_CACHE.popitem(last=False)
+    else:
+        _metrics.safe_counter("gbdt_predict_cache_hits_total").inc()
+    return fn
+
+
+def preload_predict_program(key, fn, dtype=None,
+                            device: DeviceLike = None) -> bool:
+    """Install a prepared program under plan key ``key`` on ``device``
+    (default ``cuda``) — the serving-bundle prewarm path: a worker fills
+    the cache, graphs captured, before its first request. Never clobbers a
+    live entry; returns whether the preload took. Counted apart from hits
+    and misses (``gbdt_predict_cache_preloads_total``)."""
+    cache_key = (str(resolve_device(device)), key)
+    with _PREDICT_CACHE_LOCK:
+        if cache_key in _PREDICT_CACHE:
+            return False
+    if not isinstance(fn, _ObservedProgram):
+        raise TypeError(f"preload_predict_program takes a prepared "
+                        f"program, got {type(fn).__name__}")
+    with _PREDICT_CACHE_LOCK:
+        if cache_key in _PREDICT_CACHE:      # lost a race
+            return False
+        _PREDICT_CACHE[cache_key] = fn
+        while len(_PREDICT_CACHE) > _PREDICT_CACHE_MAX:
+            _PREDICT_CACHE.popitem(last=False)
+    _metrics.safe_counter("gbdt_predict_cache_preloads_total").inc()
+    return True
+
+
+def predict_key_hash(key) -> str:
+    """Stable content hash of a predictor cache key (sha256 of its
+    ``repr``): the name a bundle stores a program's plan under. Equal to
+    the JAX package's for an equal key."""
+    return hashlib.sha256(repr(key).encode("utf-8")).hexdigest()
+
+
+class PredictPlan(NamedTuple):
+    """One fused predict program's identity and its factory, shared by the
+    online path (:meth:`Booster._predict_device`) and the bundle build, so
+    the two never disagree on a key. ``make_program(device)`` returns the
+    (not yet captured) program for that device."""
+
+    key: tuple
+    t_end: int
+    n_pad: int
+    T_pad: int
+    num_features: int
+    make_program: Callable
+    predict_dtype: str = "f32"
+
+
+def iter_predict_plans(booster: "Booster", batch_sizes,
+                       num_iterations=(-1,), transforms=(True,),
+                       dtypes=("f32",)):
+    """Yield ``(meta, plan)`` for every DISTINCT predict program a serving
+    deployment of ``booster`` dispatches to over the given batch sizes,
+    iteration counts, transforms and lanes — the one enumeration the key
+    manifest and the bundle build share. Batch sizes in one bucket, and a
+    lane the model degrades into f32, dedupe; the meta records the
+    effective lane."""
+    seen = set()
+    for dt in dtypes:
+        for transformed in transforms:
+            for it in num_iterations:
+                for b in batch_sizes:
+                    plan = booster.predict_plan(int(b), int(it),
+                                                transformed=transformed,
+                                                predict_dtype=dt)
+                    if plan.key in seen:
+                        continue
+                    seen.add(plan.key)
+                    yield ({"batch_size": int(b), "num_iteration": int(it),
+                            "transformed": bool(transformed),
+                            "predict_dtype": plan.predict_dtype}, plan)
+
+
+def predict_key_manifest(booster: "Booster", batch_sizes,
+                         num_iterations=(-1,),
+                         transformed: bool = True) -> List[Dict]:
+    """The (batch bucket x iteration) predictor keys a serving deployment
+    of ``booster`` dispatches to, with their hashes: what a bundle's
+    manifest pins."""
+    return [{**meta, "n_pad": plan.n_pad, "t_pad": plan.T_pad,
+             "key_hash": predict_key_hash(plan.key)}
+            for meta, plan in iter_predict_plans(
+                booster, batch_sizes, num_iterations,
+                transforms=(transformed,))]
+
+
+def _freeze_kwargs(kwargs: dict):
+    """Hashable rendering of objective kwargs for the cache key (a JSON
+    round trip turns tuples into lists); never passed back to the
+    objective."""
+    def freeze(v):
+        if isinstance(v, (list, tuple)):
+            return tuple(freeze(x) for x in v)
+        if isinstance(v, dict):
+            return tuple(sorted((k, freeze(x)) for k, x in v.items()))
+        if isinstance(v, np.ndarray):
+            return ("ndarray", v.dtype.str, v.shape, v.tobytes())
+        return v
+    return tuple(sorted((k, freeze(v)) for k, v in kwargs.items()))
+
+
 class Booster:
     """A trained GBDT ensemble: fixed-shape trees stacked on a leading
     ``[T]`` axis, held as numpy on the host and uploaded to a device on
@@ -311,50 +781,236 @@ class Booster:
             return ent
         base = self._dev_forest.get((str(dev), "f32"))
         if base is None:
-            t = self.trees
-            base = {k: torch.tensor(a, device=dev) for k, a in (
-                ("feat", t["feat"]), ("thr", self.thr_raw),
-                ("left", t["left"]), ("right", t["right"]),
-                ("is_leaf", t["is_leaf"]), ("leaf", t["leaf_value"]),
-                ("node_value", t["node_value"]), ("base", self.base_score))}
-            is_cat = self._is_cat()
-            base["is_cat"] = (None if is_cat is None
-                              else torch.tensor(is_cat, device=dev))
-            base["bits"] = (None if is_cat is None else torch.tensor(
-                t["cat_bitset"].astype(np.int64), device=dev))
-            base["mdec"] = (None if self.missing_dec is None
-                            else torch.tensor(
-                                self.missing_dec.astype(np.int64),
-                                device=dev))
+            base = self._upload_forest(dev, "f32", self.num_trees,
+                                       node_value=True)
             self._dev_forest[(str(dev), "f32")] = base
         if lane == "f32":
             return base
         ent = dict(base)
-        if lane == "int8":
-            ent["thr"] = torch.from_numpy(_quantize.quantize_thresholds(
-                self.thr_raw, self.trees["feat"],
-                _quantize.feature_bounds(self.binner_state))).to(dev)
-            q, scale = _quantize.quantize_leaves(self.trees["leaf_value"])
-            ent["qleaf"] = torch.from_numpy(q).to(dev)
-            ent["scale"] = torch.from_numpy(scale).to(dev)
-            ent["leaf"] = None
-        else:
-            ent["thr"] = _quantize.cast_thresholds_bf16(self.thr_raw).to(dev)
+        ent.update(self._lane_arrays(dev, lane, self.num_trees))
         self._dev_forest[key] = ent
         return ent
 
-    def _routing(self, ent: dict, t_end: int, missing: bool = True) -> dict:
-        """The keyword options of :func:`forest_leaf_nodes` for the first
-        ``t_end`` trees (``missing=False``: without ``missing_dec``, NaN
-        left)."""
-        kw = {}
-        if ent["is_cat"] is not None:
-            kw.update(is_cat=ent["is_cat"], cat_bitset=ent["bits"][:t_end],
-                      cat_max_bin=(0 if self._cat_strict()
-                                   else self._cat_max_idx() + 1))
-        if missing and ent["mdec"] is not None:
-            kw["missing_dec"] = ent["mdec"][:t_end]
-        return kw
+    def _lane_arrays(self, dev: torch.device, lane: str, T: int) -> dict:
+        """The thresholds and leaves of the first ``T`` trees in a narrow
+        lane: uint8 bin-id thresholds with int8 leaves and per-tree scales
+        (int8), or bf16 thresholds (bf16)."""
+        if lane == "int8":
+            q, scale = _quantize.quantize_leaves(
+                self.trees["leaf_value"][:T])
+            return {"thr": torch.from_numpy(_quantize.quantize_thresholds(
+                        self.thr_raw[:T], self.trees["feat"][:T],
+                        _quantize.feature_bounds(self.binner_state))).to(dev),
+                    "qleaf": torch.from_numpy(q).to(dev),
+                    "scale": torch.from_numpy(scale).to(dev), "leaf": None}
+        return {"thr": _quantize.cast_thresholds_bf16(
+            self.thr_raw[:T]).to(dev)}
+
+    def _upload_forest(self, dev: torch.device, lane: str, T: int,
+                       node_value: bool = False) -> dict:
+        """The first ``T`` trees' routing arrays, leaves (or the lane's),
+        base score, categorical mask and bitsets (int64 words) and
+        missing-value bytes, uploaded to ``dev``."""
+        t = self.trees
+        fields = [("feat", t["feat"]), ("thr", self.thr_raw),
+                  ("left", t["left"]), ("right", t["right"]),
+                  ("is_leaf", t["is_leaf"]), ("leaf", t["leaf_value"])]
+        if node_value:
+            fields.append(("node_value", t["node_value"]))
+        ent = {k: torch.tensor(a[:T], device=dev) for k, a in fields}
+        ent["base"] = torch.tensor(self.base_score, device=dev)
+        is_cat = self._is_cat()
+        ent["is_cat"] = (None if is_cat is None
+                         else torch.tensor(is_cat, device=dev))
+        ent["bits"] = (None if is_cat is None else torch.tensor(
+            t["cat_bitset"][:T].astype(np.int64), device=dev))
+        ent["mdec"] = (None if self.missing_dec is None
+                       else torch.tensor(
+                           self.missing_dec[:T].astype(np.int64),
+                           device=dev))
+        if lane != "f32":
+            ent.update(self._lane_arrays(dev, lane, T))
+        return ent
+
+    def _device_forest_args(self, T_pad: int, predict_dtype: str,
+                            dev: torch.device) -> dict:
+        """The plan's forest arguments for the first ``T_pad`` trees in
+        lane ``predict_dtype`` on ``dev``: uploaded once per ``(device,
+        T_pad, lane)``, held in a bounded LRU of 4 (a learning-curve
+        sweep over every t_end must not pin O(T^2) of device memory) and
+        claimed on the HBM ledger as ``packed_trees``. Each carries a
+        ``serial``: a captured graph copies a forest in when its serial
+        differs from the last one it read."""
+        ck = (str(dev), T_pad, predict_dtype)
+        with _DEVICE_ARGS_LOCK:     # serving threads share one Booster
+            cache = self.__dict__.setdefault("_plan_forest", OrderedDict())
+            ent = cache.get(ck)
+            if ent is None:
+                ent = self._upload_forest(dev, predict_dtype, T_pad)
+                ent["serial"] = next(_FOREST_SERIAL)
+                _hbm.claim("packed_trees", _forest_nbytes(ent))
+                cache[ck] = ent
+                while len(cache) > 4:
+                    _k, old = cache.popitem(last=False)
+                    _hbm.release("packed_trees", _forest_nbytes(old))
+            else:
+                cache.move_to_end(ck)
+            return ent
+
+    def _device_active(self, T_pad: int, t_end: int,
+                       dev: torch.device) -> torch.Tensor:
+        """``[T_pad]`` f32 mask on ``dev`` selecting the trees below
+        ``t_end``."""
+        key = (str(dev), T_pad, t_end)
+        with _DEVICE_ARGS_LOCK:
+            cache = self.__dict__.setdefault("_dev_active", OrderedDict())
+            a = cache.get(key)
+            if a is None:
+                a = torch.from_numpy((np.arange(T_pad) < t_end)
+                                     .astype(np.float32)).to(dev)
+                cache[key] = a
+                while len(cache) > 8:
+                    cache.popitem(last=False)
+            else:
+                cache.move_to_end(key)
+            return a
+
+    def _tree_bucket(self, t_end: int) -> int:
+        """Tree-count bucket of the predictor cache: the full model keeps
+        its exact count; a partial ``t_end`` (num_iteration sweeps,
+        best_iteration scoring) rounds its iterations up to a power of two,
+        so a sweep meets log2 programs; the trees past ``t_end`` are masked
+        by ``active``."""
+        T_full = self.num_trees
+        if t_end >= T_full:
+            return T_full
+        bucket = self.num_class * _pow2_ceil(t_end // self.num_class)
+        return T_full if bucket >= T_full else bucket
+
+    def predict_plan(self, n: int, num_iteration: int = -1,
+                     transformed: bool = True,
+                     num_features: Optional[int] = None,
+                     predict_dtype: Optional[str] = None) -> PredictPlan:
+        """The predict program a batch of ``n`` rows dispatches to: its
+        cache key (element for element the JAX package's, so
+        :func:`predict_key_hash` agrees across the packages) and what
+        builds it. Host only: no device work and no capture happen here.
+
+        Batches up to 8192 rows pad to a bucket — the tuner's measured
+        ladder when one is decided, else the next power of two — so a
+        server's varying batch sizes meet a bounded set of programs;
+        larger batches keep their exact size. Both the ladder and the lane
+        are resolved before the key exists."""
+        if num_iteration is None or num_iteration < 0:
+            num_iteration = self.num_iterations
+        t_end = min(num_iteration * self.num_class, self.num_trees)
+        ladder = _tuning.resolve_bucket_ladder()
+        if 0 < n <= _GRAPH_MAX_ROWS:
+            n_pad = (ladder_pad(n, ladder) if ladder
+                     else 1 << (n - 1).bit_length())
+        else:
+            n_pad = max(n, 1)
+        T_pad = self._tree_bucket(t_end)
+        M = int(self.trees["feat"].shape[1])
+        BW = int(self.trees["cat_bitset"].shape[-1])
+        bs = self.binner_state or {}
+        cat_max_bin = int(bs.get("max_bin") or 0)
+        F_bin = (int(bs["upper_bounds"].shape[0]) if "upper_bounds" in bs
+                 else int(num_features or 0))
+        if num_features is None:
+            num_features = F_bin
+        predict_dtype = _quantize.resolve_predict_dtype(
+            predict_dtype, has_mdec=self.missing_dec is not None,
+            max_bin=cat_max_bin)
+        spec_key = transform = None
+        if transformed:
+            spec_key = (self.objective, self.num_class,
+                        _freeze_kwargs(self.objective_kwargs))
+            transform = score_transform(self.objective, self.num_class,
+                                        **self.objective_kwargs)
+        # the key records only whether the optional arguments exist
+        has_cat = any(0 <= int(i) < F_bin for i in
+                      (bs.get("categorical_features") or ()))
+        has_mdec = self.missing_dec is not None
+        key = (T_pad, M, BW, n_pad, int(num_features), self.num_class,
+               self.depth_cap, cat_max_bin, has_cat, has_mdec,
+               predict_dtype, spec_key)
+        depth_cap, K, F = self.depth_cap, self.num_class, int(num_features)
+        return PredictPlan(
+            key=key, t_end=t_end, n_pad=n_pad, T_pad=T_pad, num_features=F,
+            make_program=lambda dev: _build_predict_program(
+                key, dev, T_pad, n_pad, F, K, depth_cap, cat_max_bin,
+                transform, predict_dtype),
+            predict_dtype=predict_dtype)
+
+    def predict_plan_args(self, plan: PredictPlan,
+                          device: DeviceLike = None) -> tuple:
+        """``(forest, active)``: the device arguments ``plan``'s program is
+        called with on ``device`` (what the bundle prewarm captures
+        against)."""
+        dev = resolve_device(device)
+        return (self._device_forest_args(plan.T_pad, plan.predict_dtype,
+                                         dev),
+                self._device_active(plan.T_pad, plan.t_end, dev))
+
+    def _rows_host(self, X, lane: str) -> torch.Tensor:
+        """Rows as a tensor ready for the call's one upload: a tensor as it
+        is (slot-table rows already in the lane's staged dtype, or rows
+        already on a device); uint8 arrays as the int8 lane's bin ids;
+        bf16 for the bf16 lane; else f32 (the int8 lane bins f32 rows on
+        the device)."""
+        if isinstance(X, torch.Tensor):
+            return X
+        X = _densify(X)
+        if (lane == "int8" and isinstance(X, np.ndarray)
+                and X.dtype == np.uint8):
+            return torch.from_numpy(np.ascontiguousarray(X))
+        if lane == "bf16":
+            return _quantize.cast_features_bf16(X)
+        return torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
+
+    def _predict_device(self, X, num_iteration: int, transformed: bool,
+                        predict_dtype: Optional[str] = None,
+                        device: DeviceLike = None) -> np.ndarray:
+        """The one scoring path of :meth:`predict` and :meth:`predict_raw`: the
+        plan, the forest arguments (resident after the first call), the
+        cached program, ONE upload (:func:`_to_device`; into the graph's
+        static input on the graph route) and ONE read-back
+        (:func:`_from_device`) of ``[n, K]`` (``[n]`` transformed, K=1)."""
+        dev = resolve_device(device)
+        lane = self.resolved_predict_dtype(predict_dtype)
+        rows = self._rows_host(X, lane)
+        width = (self.num_features if self.binner_state is not None
+                 else rows.shape[-1])
+        if rows.dim() != 2 or rows.shape[1] != width:
+            raise ValueError(f"rows must be [n, {width}], got "
+                             f"{list(rows.shape)}")
+        n = int(rows.shape[0])
+        plan = self.predict_plan(n, num_iteration, transformed,
+                                 num_features=int(rows.shape[1]),
+                                 predict_dtype=lane)
+        forest = self._device_forest_args(plan.T_pad, plan.predict_dtype,
+                                          dev)
+        active = self._device_active(plan.T_pad, plan.t_end, dev)
+        fn = _predict_program((str(dev), plan.key),
+                              lambda: plan.make_program(dev),
+                              dtype=plan.predict_dtype)
+        want = _quantize.staging_dtype(plan.predict_dtype)
+
+        def stage_rows(out: Optional[torch.Tensor]) -> torch.Tensor:
+            dst = None if out is None else out[:n]
+            if rows.dtype == want:
+                return _to_device(rows, dev, dst)
+            staged = self._staged(_to_device(rows, dev), plan.predict_dtype)
+            return staged if dst is None else dst.copy_(staged)
+
+        return fn(forest, active, plan.t_end, stage_rows)
+
+    def _cat_max_bin(self) -> int:
+        """The routing's categorical bin bound: the binner's ``max_bin``
+        (ids clip into the last bin), or 0 for models without a binner,
+        which route categories strictly."""
+        return 0 if self._cat_strict() else self._cat_max_idx() + 1
 
     def resolved_predict_dtype(self, requested: Optional[str] = None) -> str:
         """The predict lane this model scores in for ``requested`` (None:
@@ -374,7 +1030,13 @@ class Booster:
         if X.dtype == want:
             return X
         if lane == "int8":
-            ub = torch.from_numpy(_quantize.feature_bounds(self.binner_state))
+            # the bounds stay resident per device: an upload per call would
+            # block the host
+            bounds = self.__dict__.setdefault("_dev_bounds", {})
+            ub = bounds.get(str(X.device))
+            if ub is None:
+                ub = bounds[str(X.device)] = torch.from_numpy(
+                    _quantize.feature_bounds(self.binner_state)).to(X.device)
             return bin_cols(X.to(torch.float32), ub, torch.uint8).t()
         return X.to(want)
 
@@ -388,52 +1050,33 @@ class Booster:
         ``X`` may come in the lane's staged dtype (uint8 bin ids, bf16) or
         as f32 rows.
 
-        Trees are added one at a time, in order, so every device rounds the
-        same sums the same way: the margins are bit-identical on the CPU and
-        the GPU."""
+        This is the eager body: the predict program runs the same
+        :func:`_forest_margins` over its bucket. Trees are added one at a
+        time, in order, so every device rounds the same sums the same way:
+        the margins are bit-identical on the CPU and the GPU, and with the
+        program's."""
         if num_iteration is None or num_iteration < 0:
             num_iteration = self.num_iterations
         t_end = min(num_iteration * self.num_class, self.num_trees)
         lane = self.resolved_predict_dtype(predict_dtype)
         X = self._staged(X, lane)
         ent = self._forest_on(X.device, lane)
-        routing = self._routing(ent, t_end)
-        leaf = (ent["leaf"][:t_end] if lane != "int8" else
-                _quantize.dequantize_leaves(ent["qleaf"][:t_end],
-                                            ent["scale"][:t_end]))
-        n, K = X.shape[0], self.num_class
-        per_class = torch.zeros((K, n), dtype=torch.float32, device=X.device)
-        rows = max(1, _PREDICT_BUDGET // max(t_end, 1))
-        for s in range(0, n, rows):
-            vals = predict_forest_raw(
-                ent["feat"][:t_end], ent["thr"][:t_end], ent["left"][:t_end],
-                ent["right"][:t_end], ent["is_leaf"][:t_end], leaf,
-                X[s:s + rows], self.depth_cap, **routing)     # [t_end, r]
-            for t in range(t_end):
-                per_class[t % K, s:s + rows] += vals[t]
-        return per_class.t() + ent["base"][None, :]
+        forest = {k: (v[:t_end] if isinstance(v, torch.Tensor)
+                      and k not in ("base", "is_cat") else v)
+                  for k, v in ent.items()}
+        return _forest_margins(forest, X, self.num_class, self.depth_cap,
+                               _forest_routing(forest, self._cat_max_bin()),
+                               lane)
 
     def _rows_on(self, X, device: DeviceLike,
                  lane: str = "f32") -> torch.Tensor:
-        """Host rows uploaded to ``device`` for ``lane``: bf16 for the
-        bf16 lane, else f32, which :meth:`_staged` quantizes to bin ids on
-        the device for the int8 lane. A uint8 array is taken as bin ids
-        already quantized for the int8 lane and goes up as it is, and so
-        does a host tensor already in the lane's staged dtype (the serving
-        slot table's rows): from pinned memory without blocking the host,
-        since the caller's read of the results waits for the upload."""
+        """Host rows uploaded to ``device`` for ``lane`` (:meth:`_rows_host`;
+        from pinned memory without blocking the host, since the caller's
+        read of the results waits for the upload)."""
         dev = resolve_device(device)
-        if (isinstance(X, torch.Tensor)
-                and X.dtype == _quantize.staging_dtype(lane)):
-            return X.to(dev, non_blocking=dev.type == "cuda"
-                        and X.is_pinned())
-        X = _densify(X)
-        if (lane == "int8" and isinstance(X, np.ndarray)
-                and X.dtype == np.uint8):
-            return torch.from_numpy(np.ascontiguousarray(X)).to(dev)
-        if lane == "bf16":
-            return _quantize.cast_features_bf16(X).to(dev)
-        return torch.tensor(np.asarray(X, dtype=np.float32), device=dev)
+        X = self._rows_host(X, lane)
+        return X.to(dev, non_blocking=dev.type == "cuda"
+                    and X.device.type == "cpu" and X.is_pinned())
 
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1,
                     device: DeviceLike = None,
@@ -441,24 +1084,22 @@ class Booster:
         """Raw margin scores: ``[n, num_class]`` (num_class=1 for binary and
         regression), computed on ``device`` (default ``cuda``) in predict
         lane ``predict_dtype`` (``f32``/``bf16``/``int8``; None reads
-        ``MMLSPARK_TPU_PREDICT_DTYPE``; see :mod:`.quantize`)."""
-        lane = self.resolved_predict_dtype(predict_dtype)
-        Xt = self._rows_on(X, device, lane)
-        return self.predict_raw_tensor(Xt, num_iteration,
-                                       predict_dtype=lane).cpu().numpy()
+        ``MMLSPARK_TPU_PREDICT_DTYPE``; see :mod:`.quantize`), through the
+        plan's cached program (:meth:`_predict_device`)."""
+        return self._predict_device(X, num_iteration, transformed=False,
+                                    predict_dtype=predict_dtype,
+                                    device=device)
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 device: DeviceLike = None,
                 predict_dtype: Optional[str] = None) -> np.ndarray:
         """Transformed prediction: ``[n]`` (probability for binary), or
         ``[n, num_class]`` softmax probabilities for multiclass; the lane
-        as :meth:`predict_raw`, the transform in f32."""
-        lane = self.resolved_predict_dtype(predict_dtype)
-        Xt = self._rows_on(X, device, lane)
-        transform = score_transform(self.objective, self.num_class,
-                                    **self.objective_kwargs)
-        return transform(self.predict_raw_tensor(
-            Xt, num_iteration, predict_dtype=lane)).cpu().numpy()
+        as :meth:`predict_raw`, the transform in f32 inside the same
+        program."""
+        return self._predict_device(X, num_iteration, transformed=True,
+                                    predict_dtype=predict_dtype,
+                                    device=device)
 
     def predict_streamed(self, source, *, chunk_rows: int = 262_144,
                          out_dir=None, num_iteration: int = -1,
@@ -565,7 +1206,7 @@ class Booster:
         ent = self._forest_on(X.device)
         T, K = self.num_trees, self.num_class
         n, F = X.shape
-        routing = self._routing(ent, T, missing=False)
+        routing = _forest_routing(ent, self._cat_max_bin(), missing=False)
         csum = torch.zeros((K, n, F), dtype=torch.float32, device=X.device)
         feat, left, right = (ent[k].long() for k in ("feat", "left", "right"))
         nv, is_leaf, thr = ent["node_value"], ent["is_leaf"], ent["thr"]
@@ -609,7 +1250,7 @@ class Booster:
         Xt = self._rows_on(X32, device)
         ent = self._forest_on(Xt.device)
         T = self.num_trees
-        routing = self._routing(ent, T, missing=False)
+        routing = _forest_routing(ent, self._cat_max_bin(), missing=False)
         out = torch.empty((Xt.shape[0], T), dtype=torch.int32,
                           device=Xt.device)
         rows = max(1, _PREDICT_BUDGET // max(T, 1))
@@ -1127,6 +1768,47 @@ class _Valid(NamedTuple):
     scores: torch.Tensor
 
 
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").lower() in ("1", "true", "yes")
+
+
+def _last_good_dump(ckpt_mgr, K: int, all_trees: list, finalize,
+                    es: "_EarlyStopping", iterations_done: int, **payload):
+    """The watchdog callback of ``MMLSPARK_TPU_CHECKPOINT_ON_UNHEALTHY=1``:
+    on the first training-health sentinel (named ``gbdt``) or stall of the
+    round loop (``gbdt_round_loop``) it checkpoints the newest healthy
+    state at once. A sentinel drops the flagged round's trees (they carry
+    the bad update); for a stall every complete round is good. The payload
+    is the normal checkpoint's (without the score matrices: a resume
+    re-scores) plus ``emergency`` and ``reason``, so the usual resume picks
+    it up. One-shot, latched only after a successful save: an event with
+    nothing healthy to save yet, or a failed write, leaves it armed."""
+    done = threading.Event()
+
+    def dump(category, name, fields):
+        if name not in ("gbdt", "gbdt_round_loop") or done.is_set():
+            return
+        snap = list(all_trees)          # append-only: a snapshot is safe
+        complete = (len(snap) // K) * K
+        if category in ("nan_loss", "loss_divergence") and complete >= K:
+            complete -= K
+        if complete <= 0:
+            return
+        step = iterations_done + complete // K - 1
+        try:
+            ckpt_mgr.save(step, dict(
+                payload, model=finalize(snap[:complete]).model_string(),
+                iteration=step, **es.state(), emergency=True,
+                reason=category))
+        except Exception:  # noqa: BLE001 — stay armed for a later event
+            return
+        done.set()
+        _flight.record("checkpoint_emergency_dump", model="gbdt",
+                       reason=category, iteration=step)
+
+    return dump
+
+
 def train_booster(
     X: Optional[np.ndarray] = None,
     y: Optional[np.ndarray] = None,
@@ -1224,6 +1906,8 @@ def train_booster(
     ``dataset`` is given) split by LightGBM's sorted-subset search. ``X``
     and the validation rows may be scipy sparse matrices.
     """
+    # each fit starts with clean training-health sentinel windows
+    _watchdog.reset_training_health("gbdt")
     cfg = resolve_growth_backend(cfg or GrowConfig())
     if dataset is not None and checkpoint_dir is not None:
         raise ValueError(
@@ -1249,6 +1933,7 @@ def train_booster(
     objective_kwargs = objective_kwargs or {}
 
     ckpt_mgr = ckpt_fp = None
+    dump_on_unhealthy = False
     iterations_done = 0
     user_init_booster = init_booster
     resume: Optional[dict] = None
@@ -1272,7 +1957,16 @@ def train_booster(
         # one namespace per run: sweeps sharing the directory never prune
         # each other's files
         ckpt_mgr = CheckpointManager(checkpoint_dir, namespace=ckpt_fp[:12])
+        dump_on_unhealthy = _env_flag("MMLSPARK_TPU_CHECKPOINT_ON_UNHEALTHY")
         latest = ckpt_mgr.latest_matching(ckpt_fp)
+        # MMLSPARK_TPU_STRICT_RESUME=1: resume or raise. Probed only when
+        # the namespaced lookup found nothing, and across namespaces (a
+        # changed config changes the namespace, which is what strict mode
+        # must catch): CheckpointMismatchError names what was found; a
+        # match there is a legacy un-namespaced checkpoint, resumed
+        if latest is None and _env_flag("MMLSPARK_TPU_STRICT_RESUME"):
+            latest = CheckpointManager(checkpoint_dir).latest_matching(
+                ckpt_fp, purge_stale=False, strict=True)
         if latest is not None:
             resume = latest[1]
             init_booster = Booster.from_string(resume["model"])
@@ -1400,59 +2094,86 @@ def train_booster(
                                es.best_iter, es.history, init_booster)
 
     all_trees: List[Tree] = []
-    for it in range(iterations_done, num_iterations):
-        grad, hess = obj.grad_hess(column(scores), y_d, w_d)
-        if K == 1:
-            grad, hess = grad[:, None], hess[:, None]
-        row_mask = sampling(it, grad)
-        fmask = _feature_mask(gen, F, feature_fraction, dev)
-        trees = []
-        for k, (tree, row_node) in enumerate(_grow_iteration(
-                grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat, seed,
-                it)):
-            if not is_rf:     # rf's trees all fit the base score's gradients
-                scores[:, k] += tree.leaf_value[row_node.long()]
-            trees.append(tree)
-        all_trees.extend(trees)
+    # watchdog: one beat and one round-duration report per boosting round
+    # (a wedged round stops beating; a round suddenly much slower than its
+    # window trips the throughput sentinel)
+    hb = _watchdog.register("gbdt_round_loop", stall_seconds=120.0)
+    prior_iterations = (0 if user_init_booster is None
+                        else user_init_booster.num_iterations)
+    unregister_dump = None
+    if ckpt_mgr is not None and dump_on_unhealthy:
+        unregister_dump = _watchdog.add_event_callback(_last_good_dump(
+            ckpt_mgr, K, all_trees, finalize, es, iterations_done,
+            fingerprint=ckpt_fp, prior_iterations=prior_iterations,
+            valid_fingerprint=valid_fp))
+    t_round = time.perf_counter()
+    try:
+        for it in range(iterations_done, num_iterations):
+            hb.beat()
+            grad, hess = obj.grad_hess(column(scores), y_d, w_d)
+            if K == 1:
+                grad, hess = grad[:, None], hess[:, None]
+            row_mask = sampling(it, grad)
+            fmask = _feature_mask(gen, F, feature_fraction, dev)
+            trees = []
+            for k, (tree, row_node) in enumerate(_grow_iteration(
+                    grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat, seed,
+                    it)):
+                # rf's trees all fit the base score's gradients
+                if not is_rf:
+                    scores[:, k] += tree.leaf_value[row_node.long()]
+                trees.append(tree)
+            all_trees.extend(trees)
 
-        evaluate = it % metric_eval_period == 0 or it == num_iterations - 1
-        if provide_training_metric and evaluate:
-            es.history.setdefault(f"training_{device_metric}", []).append(
-                float(eval_metric(obj, column(scores), y_d, w_d * vmask,
-                                  metric=eval_override,
-                                  **objective_kwargs)[1]))
-        stop = False
-        if valid is not None:
-            vscores = valid.scores
-            for k, tree in enumerate(trees):
-                vscores[:, k] += predict_tree_binned(tree, valid.Xb,
-                                                     depth_cap, is_cat)
-            if evaluate:
-                if auc_host:
-                    # rank-based: the rf average changes no order
-                    m = auc_weighted(vscores[:, 0].cpu().numpy(),
-                                     valid.y_host, valid.w_host)
-                else:
-                    veval = (base_d[None, :] + (vscores - base_d[None, :])
-                             / float(it + 1) if is_rf else vscores)
-                    m = float(eval_metric(obj, column(veval), valid.y,
-                                          valid.w, metric=eval_override,
-                                          **objective_kwargs)[1])
-                stop = es.update(it, m)
-        if stop:
-            break
-        if (ckpt_mgr is not None and checkpoint_period > 0
-                and (it + 1) % checkpoint_period == 0
-                and it + 1 < num_iterations):
-            ckpt_mgr.save(it, dict(
-                model=finalize(all_trees).model_string(), iteration=it,
-                fingerprint=ckpt_fp,
-                prior_iterations=(0 if user_init_booster is None
-                                  else user_init_booster.num_iterations),
-                scores=scores[:n].cpu().numpy(),
-                vscores=(None if valid is None
-                         else valid.scores.cpu().numpy()),
-                valid_fingerprint=valid_fp, **es.state()))
+            evaluate = (it % metric_eval_period == 0
+                        or it == num_iterations - 1)
+            if provide_training_metric and evaluate:
+                es.history.setdefault(f"training_{device_metric}",
+                                      []).append(float(eval_metric(
+                                          obj, column(scores), y_d,
+                                          w_d * vmask, metric=eval_override,
+                                          **objective_kwargs)[1]))
+            stop = False
+            if valid is not None:
+                vscores = valid.scores
+                for k, tree in enumerate(trees):
+                    vscores[:, k] += predict_tree_binned(tree, valid.Xb,
+                                                         depth_cap, is_cat)
+                if evaluate:
+                    if auc_host:
+                        # rank-based: the rf average changes no order
+                        m = auc_weighted(vscores[:, 0].cpu().numpy(),
+                                         valid.y_host, valid.w_host)
+                    else:
+                        veval = (base_d[None, :]
+                                 + (vscores - base_d[None, :]) / float(it + 1)
+                                 if is_rf else vscores)
+                        m = float(eval_metric(obj, column(veval), valid.y,
+                                              valid.w, metric=eval_override,
+                                              **objective_kwargs)[1])
+                    _watchdog.report_training_metric(
+                        "gbdt", it, loss=m, metric_name=metric_name)
+                    stop = es.update(it, m)
+            if stop:
+                break
+            now_round = time.perf_counter()
+            _watchdog.report_training_metric("gbdt", it,
+                                             seconds=now_round - t_round)
+            t_round = now_round
+            if (ckpt_mgr is not None and checkpoint_period > 0
+                    and (it + 1) % checkpoint_period == 0
+                    and it + 1 < num_iterations):
+                ckpt_mgr.save(it, dict(
+                    model=finalize(all_trees).model_string(), iteration=it,
+                    fingerprint=ckpt_fp, prior_iterations=prior_iterations,
+                    scores=scores[:n].cpu().numpy(),
+                    vscores=(None if valid is None
+                             else valid.scores.cpu().numpy()),
+                    valid_fingerprint=valid_fp, **es.state()))
+    finally:
+        hb.close()
+        if unregister_dump is not None:
+            unregister_dump()
 
     booster = finalize(all_trees)
     # a resume cuts as a fresh run does (its trees carry global iteration
@@ -1529,29 +2250,42 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
                                 dtype=torch.float32, device=dev)
     all_trees: List[Tree] = []
     n_done = 0
-    for it in range(T):
-        sc = weighted(contribs, eff_rows[it], it)
-        grad, hess = obj.grad_hess(sc if K > 1 else sc[:, 0], y_d, w_d)
-        if K == 1:
-            grad, hess = grad[:, None], hess[:, None]
-        row_mask = sampling(it, grad)
-        fmask = _feature_mask(gen, F, feature_fraction, dev)
-        grown = _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask, cfg,
-                                is_cat, seed, it)
-        for k, (tree, row_node) in enumerate(grown):
-            contribs[it, :, k] = tree.leaf_value[row_node.long()]
-            all_trees.append(tree)
-            if valid is not None:
-                vcontribs[it, :, k] = predict_tree_binned(
-                    tree, valid.Xb, depth_cap, is_cat)
-        n_done = it + 1
-        if valid is not None and (it % metric_eval_period == 0
-                                  or it == T - 1):
-            vsc = weighted(vcontribs, post_rows[it], it + 1)
-            m = float(eval_metric(obj, vsc if K > 1 else vsc[:, 0], valid.y,
-                                  valid.w, **objective_kwargs)[1])
-            if es.update(it, m):
-                break
+    hb = _watchdog.register("gbdt_dart_round_loop", stall_seconds=120.0)
+    t_round = time.perf_counter()
+    try:
+        for it in range(T):
+            hb.beat()
+            sc = weighted(contribs, eff_rows[it], it)
+            grad, hess = obj.grad_hess(sc if K > 1 else sc[:, 0], y_d, w_d)
+            if K == 1:
+                grad, hess = grad[:, None], hess[:, None]
+            row_mask = sampling(it, grad)
+            fmask = _feature_mask(gen, F, feature_fraction, dev)
+            grown = _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask,
+                                    cfg, is_cat, seed, it)
+            for k, (tree, row_node) in enumerate(grown):
+                contribs[it, :, k] = tree.leaf_value[row_node.long()]
+                all_trees.append(tree)
+                if valid is not None:
+                    vcontribs[it, :, k] = predict_tree_binned(
+                        tree, valid.Xb, depth_cap, is_cat)
+            n_done = it + 1
+            if valid is not None and (it % metric_eval_period == 0
+                                      or it == T - 1):
+                vsc = weighted(vcontribs, post_rows[it], it + 1)
+                m = float(eval_metric(obj, vsc if K > 1 else vsc[:, 0],
+                                      valid.y, valid.w,
+                                      **objective_kwargs)[1])
+                _watchdog.report_training_metric("gbdt", it, loss=m,
+                                                 metric_name=es.name)
+                if es.update(it, m):
+                    break
+            now_round = time.perf_counter()
+            _watchdog.report_training_metric("gbdt", it,
+                                             seconds=now_round - t_round)
+            t_round = now_round
+    finally:
+        hb.close()
     booster = _finalize_trees(all_trees, dataset.binner, dataset.max_bin, K,
                               base_d.cpu().numpy(), objective, depth_cap,
                               objective_kwargs, es.best_iter, es.history)

@@ -126,6 +126,9 @@ REGISTRY: Tuple[EnvVar, ...] = (
                "`/debug/flight?since=` pull into the fleet timeline "
                "(the `/metrics` scrape itself is unaffected)"),
     # -- watchdog ---------------------------------------------------------
+    EnvVar(name="MMLSPARK_TPU_FEDERATION_INTERVAL_SECONDS", default="5.0",
+           doc="gateway metrics-federation sweep period over registered "
+               "workers"),
     EnvVar(name="MMLSPARK_TPU_WATCHDOG_STALL_SECONDS", default="30",
            doc="global heartbeat stall threshold; per-site floors take "
                "the max (runtime: `watchdog.set_stall_seconds`)"),
@@ -321,6 +324,33 @@ REGISTRY: Tuple[EnvVar, ...] = (
            section="robustness",
            doc="SIGTERM drain: seconds to finish queued + in-flight "
                "work before the worker stops"),
+    EnvVar(name="MMLSPARK_TPU_GATEWAY_HEALTH_INTERVAL_SECONDS",
+           default="2.0", section="robustness",
+           doc="gateway health-sweep period — also the cadence of "
+               "half-open breaker probes"),
+    EnvVar(name="MMLSPARK_TPU_GATEWAY_MAX_FAILOVERS", default="3",
+           section="robustness",
+           doc="failover retries per routed request (each also spends "
+               "one retry-budget token)"),
+    # -- robustness: preemption-safe training -----------------------------
+    EnvVar(name="MMLSPARK_TPU_STRICT_RESUME", default="(off)",
+           section="robustness",
+           doc="`1` = resume-or-die: checkpoints that exist but mismatch "
+               "the run's fingerprint raise `CheckpointMismatchError` "
+               "instead of silently retraining from scratch"),
+    EnvVar(name="MMLSPARK_TPU_CHECKPOINT_ON_UNHEALTHY", default="(off)",
+           section="robustness",
+           doc="`1` = a watchdog stall or training-health sentinel "
+               "during a checkpointed fit dumps the newest HEALTHY "
+               "state immediately (one-shot per fit)"),
+    EnvVar(name="MMLSPARK_TPU_BUNDLE_DIR", default="(off)",
+           section="performance",
+           doc="serving-bundle directory whose predict graphs "
+               "`serving_main` workers capture before binding "
+               "(`--bundle` overrides; build with `python -m "
+               "mmlspark_tpu_torch.bundles build`); a mismatched or "
+               "corrupt bundle degrades to capture on first use with a "
+               "structured warning"),
     # -- native host runtime ----------------------------------------------
     EnvVar(name="MMLSPARK_TPU_NATIVE_THREADS", default="(hardware "
            "concurrency, budget-clamped)", section="performance",

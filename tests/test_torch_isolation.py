@@ -6,7 +6,8 @@
     (which also starts no CUDA context); no source of the package, nor ``chip_smoke.py`` or
     the port's tools (``tools/profile_torch_gbdt.py``,
     ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``,
-    ``tools/rehearse_chip_smoke.py``), imports either.
+    ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``), imports
+    either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -73,6 +74,12 @@ SERVING_MODULES = (
     "mmlspark_tpu_torch.io.aserve.server",
     "mmlspark_tpu_torch.io.serving_main",
     "mmlspark_tpu_torch.utils.profiling",
+    "mmlspark_tpu_torch.observability.federation",
+    "mmlspark_tpu_torch.io.distributed_serving",
+    "mmlspark_tpu_torch.io.http",
+    "mmlspark_tpu_torch.bundles",
+    "mmlspark_tpu_torch.bundles.bundle",
+    "mmlspark_tpu_torch.bundles.__main__",
 )
 
 
@@ -96,7 +103,9 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("mod", ["mmlspark_tpu_torch.io.aserve",
                                  "mmlspark_tpu_torch.io.serving_main",
-                                 "mmlspark_tpu_torch.observability"])
+                                 "mmlspark_tpu_torch.observability",
+                                 "mmlspark_tpu_torch.io.distributed_serving",
+                                 "mmlspark_tpu_torch.bundles"])
 def test_serving_imports_load_no_jax_and_start_no_cuda(mod):
     """Each serving entry module alone, in a fresh interpreter: no jax, no
     JAX package, and no CUDA context (the device probes wait for one)."""
@@ -128,18 +137,22 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "profile_torch_gbdt.py"),
              os.path.join(ROOT, "tools", "ab_node_hist.py"),
              os.path.join(ROOT, "tools", "node_hist_sweeps.py"),
-             os.path.join(ROOT, "tools", "rehearse_chip_smoke.py")]
+             os.path.join(ROOT, "tools", "rehearse_chip_smoke.py"),
+             os.path.join(ROOT, "tools", "ab_predict.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:5])
+    assert all(os.path.isfile(p) for p in paths[:6])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning",
                 os.path.join("io", "aserve")):
         assert os.path.join(PKG, sub, "__init__.py") in paths
     for f in (os.path.join("io", "serving.py"),
               os.path.join("io", "serving_main.py"),
-              os.path.join("utils", "profiling.py")):
+              os.path.join("utils", "profiling.py"),
+              os.path.join("io", "distributed_serving.py"),
+              os.path.join("observability", "federation.py"),
+              os.path.join("bundles", "bundle.py")):
         assert os.path.join(PKG, f) in paths
     bad = [(os.path.relpath(p, ROOT), line, name) for p in paths
            for line, name in _imports(p) if _forbidden(name)]
@@ -178,6 +191,29 @@ def test_entry_points_default_to_cuda_and_raise(no_gpu):
     assert isinstance(b, Booster)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         b.predict_raw(X)
+
+
+def test_serving_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
+    """The predict path, the bundle build and prewarm and the
+    worker role all default to cuda, and raise without a GPU."""
+    from mmlspark_tpu_torch.bundles import build_bundle, prewarm
+    from mmlspark_tpu_torch.io import serving_main
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 3)).astype(np.float32)
+    b = train_booster(X, (X[:, 0] > 0).astype(np.float32),
+                      objective="binary", num_iterations=1, device="cpu")
+    path = str(tmp_path / "m.npz")
+    b.save(path)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        b.predict(X)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_bundle(path, str(tmp_path / "b"), max_batch=2)
+    build_bundle(path, str(tmp_path / "b"), max_batch=2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        prewarm(path, str(tmp_path / "b"), boosters=[b])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        serving_main.main(["worker", "--model", path, "--registry",
+                           str(tmp_path / "reg"), "--host", "localhost"])
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

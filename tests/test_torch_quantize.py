@@ -279,11 +279,23 @@ def test_npz_round_trip_keeps_the_int8_lane(models, tmp_path):
 def test_lane_forest_is_cached_per_device_and_lane(models):
     jb, X = models["binary"]
     tb = _port(jb)
+    # the eager body's forest: once per device and lane
     for lane in LANES:
-        tb.predict_raw(X[:10], device="cpu", predict_dtype=lane)
+        tb.predict_raw_tensor(torch.from_numpy(X[:10]), predict_dtype=lane)
     assert sorted(tb._dev_forest) == [("cpu", "bf16"), ("cpu", "f32"),
                                       ("cpu", "int8")]
     ent = tb._dev_forest[("cpu", "int8")]
     assert ent["thr"].dtype == torch.uint8
     assert ent["qleaf"].dtype == torch.int8
     assert tb._dev_forest[("cpu", "bf16")]["thr"].dtype == torch.bfloat16
+    # the predict plan's forest arguments: once per device, tree bucket
+    # and lane
+    T = tb.num_trees
+    for lane in LANES:
+        tb.predict_raw(X[:10], device="cpu", predict_dtype=lane)
+    assert sorted(tb._plan_forest) == [("cpu", T, "bf16"), ("cpu", T, "f32"),
+                                       ("cpu", T, "int8")]
+    ent = tb._plan_forest[("cpu", T, "int8")]
+    assert ent["thr"].dtype == torch.uint8
+    assert ent["qleaf"].dtype == torch.int8
+    assert tb._plan_forest[("cpu", T, "bf16")]["thr"].dtype == torch.bfloat16

@@ -430,6 +430,9 @@ def _shed_run(pkg, engine, stopper):
     assert len(shed) == 1, out
     status, body, hdrs = shed[0]
     served = sorted(o[0] for o in out if o is not None and o[0] != 429)
+    # a handler counts its response after the client has it: wait for
+    # the count of every reply the clients read
+    _until(lambda: sum(_responses(pkg).values()) >= len(served) + 1)
     return admitted, status, body, int(hdrs["Retry-After"]), served, \
         _responses(pkg)
 
@@ -641,7 +644,9 @@ def test_engine_resolution_matches(monkeypatch, requested, env):
 
 def test_worker_wiring_warms_and_defaults_to_cuda(model, monkeypatch):
     """The port's worker wiring takes ``device`` (None -> cuda, which
-    raises without a GPU) and predicts one row before it returns."""
+    raises without a GPU) and uploads the model's forest before it
+    returns, building no predict program (a bundle's prewarm, or the first
+    request of each bucket, captures those)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = pmain.worker_args(model.path["port"], host="localhost")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
@@ -654,9 +659,13 @@ def test_worker_wiring_warms_and_defaults_to_cuda(model, monkeypatch):
         return real(self, X, *a, **kw)
 
     monkeypatch.setattr(model.pb.__class__, "predict", spy)
+    from mmlspark_tpu_torch.models.gbdt import booster as pbooster
+    pbooster._PREDICT_CACHE.clear()
     q, b = pmain._build_async_query(args, device="cpu")
     q.server.slot_table.release_claim()
-    assert calls == [((1, 6), torch.device("cpu"))]
+    assert calls == []
+    assert list(b._plan_forest) == [("cpu", b.num_trees, "f32")]
+    assert len(pbooster._PREDICT_CACHE) == 0
     assert b.num_trees == model.pb.num_trees
     with pytest.raises(TypeError):
         pmain.worker_args("m.npz", nonsense=1)

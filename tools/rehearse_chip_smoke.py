@@ -4,6 +4,7 @@
     python tools/rehearse_chip_smoke.py p10 p10b [--higgs-rows 200000]
     python tools/rehearse_chip_smoke.py p11 [--rows 40000 --higgs-rows 200000]
     python tools/rehearse_chip_smoke.py p12 [--rows 40000 --higgs-rows 20000]
+    python tools/rehearse_chip_smoke.py p13 [--rows 40000 --higgs-rows 20000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -25,7 +26,12 @@ contributions through the device TreeSHAP engine, which
 ``MMLSPARK_TPU_SHAP_DEVICE=1`` selects on the CPU, and the out-of-core
 ingest with streamed scoring), ``p12`` (phases 4b and 6 for their models,
 then phase 12's serving on the CPU; ``/healthz`` is told it runs on a
-card, which it cannot see here).
+card, which it cannot see here), ``p13`` (phases 4, 4b and 6 for their
+models, then phase 13 on the CPU: the plan route against the eager body,
+the batch costs, a bundle, bundled ``serving_main`` workers behind a
+gateway in subprocesses on the CPU, the checkpoint modes; the holds that
+need a graph — one graph launch per call, a graph per bucketed key — wait
+for the card).
 """
 
 from __future__ import annotations
@@ -63,7 +69,9 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
     src = open(path).read().replace('"cuda"', '"cpu"').replace(
         ".cuda()", ".cpu()").replace(
         "activities=[ProfilerActivity.CUDA]",
-        "activities=[ProfilerActivity.CPU]")
+        "activities=[ProfilerActivity.CPU]").replace(
+        "ProfilerActivity.CPU, ProfilerActivity.CUDA]",
+        "ProfilerActivity.CPU]")
     torch.cuda.synchronize = lambda *a: None
     torch.cuda._sleep = lambda *a: None
     torch.cuda.Event = _Event
@@ -126,11 +134,24 @@ def phase_serving(mod) -> dict:
                              "CPU rehearsal, no card")
 
 
+def phase_plan(mod) -> dict:
+    """The fits phase 13 reads its models from, then phase 13."""
+    data = (*mod.higgs_shaped(mod.HIGGS_ROWS, seed=0),
+            *mod.higgs_shaped(mod.HIGGS_HOLDOUT, seed=1))
+    _, base = mod.phase_end_to_end("4", ["node_hist_bf16"], data)
+    _, quantized = mod.phase_end_to_end("4b", ["node_hist_int8"], data,
+                                        useQuantizedGrad=True,
+                                        quantWarmupIters=0)
+    _, multiclass = mod.phase_multiclass()
+    return mod.phase_plan_and_fleet(base, quantized, multiclass, data,
+                                    "CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
-                             "p11", "p12"])
+                             "p11", "p12", "p13"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     args = ap.parse_args()
@@ -141,7 +162,8 @@ def main() -> int:
            "p10": lambda: phase_sampling(mod),
            "p10b": mod.phase_small_sampling,
            "p11": lambda: phase_extensions(mod),
-           "p12": lambda: phase_serving(mod)}
+           "p12": lambda: phase_serving(mod),
+           "p13": lambda: phase_plan(mod)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
