@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no result line):
 2. Build: compiles every histogram kernel from ``mmlspark_tpu_torch/csrc``
    with ``nvcc -Xptxas -v`` (one process per source, all started
    together; the compiler's registers, shared memory and spills are
-   printed): ``node_hist``, ``node_hist_int8`` and ``hist_bf16``, and
+   printed): ``node_hist``, ``node_hist_int8``, ``hist_bf16`` and
+   ``node_hist_det``, and
    beside them the host C++ engine ``native/mmlspark_native.cpp`` (host
    TreeSHAP, the CSV reader) with the host compiler. Then the
    geometry of kernels 1 and 2 at the main path's two passes, and how many
@@ -244,9 +245,46 @@ Phases (any failure exits non-zero and prints no result line):
    =1`` a NaN validation loss injected at round 3 writes one emergency
    checkpoint (step 2, ``nan_loss``) that resumes to the same trees.
 
+14. Multi-device training's paths at full width, the main path's
+   telemetry and the pickled Booster (the models of phases 4, 4b and 6).
+   14a, the deterministic blocked reduction: kernel 1's deterministic mode
+   (``node_hist_det``: fixed-point int64 sums, one partial per row block)
+   against ``node_hist_blocked_plain`` at phase 4's rows in 8 blocks, W=1
+   and W=16 (counts bit-equal, grad/hess as phase 3), and bit for bit
+   against itself over 20 launches; its ms per launch beside kernel 1's
+   at the same shape, bound, plain and ``index_add_`` ms. Kernel 2's
+   blocked route (the blocks as ``8 W`` nodes, permuted back and
+   dequantized) on the same inputs quantized at the blocked ``q_max``,
+   bit for bit against ``node_hist_blocked_plain`` summed in int32 times
+   the scales, at W=1 and W=16. Then phase 4's
+   fit and its quantized one (``useQuantizedGrad=True,
+   quantWarmupIters=0``, stochastic rounding on) under
+   ``MMLSPARK_TPU_HIST_BLOCKS=8``: each through its kernel alone (the
+   deterministic mode; kernel 2 over the blocks as nodes), AUC floor;
+   fitted twice, byte-equal ``model_string``; and at
+   world size 2, two processes on the one card joined by gloo through a
+   file rendezvous under ``build/``: both ranks' models byte-equal to
+   these, and their deterministic mode bit-equal to this process's on the
+   same seeded inputs. A blocked bf16 and a blocked quantized fit of
+   20,000 rows on cuda vs cpu as phase 5. 14b: phase 6's fit with
+   ``parallelism="voting_parallel", topK=20`` (40 of the 54 features per
+   split search): its trees differ from phase 6's, phase 6's floors hold;
+   20,000 of its rows on cuda vs cpu as phase 5. 14c: phase 4's fit with
+   the metrics registry reset first publishes ``gbdt_fits_total``,
+   ``gbdt_trained_iterations``, the stage row counters and the spans
+   (``LightGBMClassifier``, ``LightGBMClassificationModel``,
+   ``LightGBMClassifier.train_booster``); under
+   ``MMLSPARK_TPU_BINNED_CACHE=0`` the binned-dataset cache stays empty.
+   14d: phases 4's and 4b's boosters (one plan key) scored on the card and
+   pickled; a fresh process unpickles and scores them in turn (the first
+   captures the key's graph there), each bit-equal to its own eager
+   result; a process with CUDA hidden unpickles 4b's and scores it on the
+   CPU bit-equal to this process's CPU result.
+
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
-``index_add_`` ms), the card's name and power limit, and
+``index_add_`` ms; the deterministic mode's at 14a's W=16 pass, launches
+from 14a's fit), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -296,7 +334,9 @@ from mmlspark_tpu_torch.observability import watchdog as obs_watchdog
 from mmlspark_tpu_torch.ops import _build
 from mmlspark_tpu_torch.ops import histogram as hist_ops
 from mmlspark_tpu_torch.ops.binning import bin_cols
-from mmlspark_tpu_torch.ops.histogram_scatter import (hist_plain,
+from mmlspark_tpu_torch.ops.histogram_scatter import (blocks_as_nodes,
+                                                      hist_plain,
+                                                      node_hist_blocked_plain,
                                                       node_hist_plain)
 from mmlspark_tpu_torch.robustness import failpoints
 from mmlspark_tpu_torch.utils.checkpoint import (CheckpointManager,
@@ -405,12 +445,14 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
 
 
 def hist_inputs(gen, n, F, W, B):
-    binned = torch.randint(0, B, (F, n), generator=gen, device="cuda",
+    """Bins, pos and f32 stats on the generator's device."""
+    dev = gen.device
+    binned = torch.randint(0, B, (F, n), generator=gen, device=dev,
                            dtype=torch.int32)
-    pos = torch.randint(-1, W, (n,), generator=gen, device="cuda",
+    pos = torch.randint(-1, W, (n,), generator=gen, device=dev,
                         dtype=torch.int32)
-    grad = torch.randn(n, generator=gen, device="cuda")
-    mask = (torch.rand(n, generator=gen, device="cuda") < 0.95).float()
+    grad = torch.randn(n, generator=gen, device=dev)
+    mask = (torch.rand(n, generator=gen, device=dev) < 0.95).float()
     base = torch.stack([grad * mask, grad.abs() * 0.25 * mask, mask])
     return binned, pos, base.contiguous()
 
@@ -598,6 +640,13 @@ def log_geometry():
         geo = hist_ops._geometry_on("node_hist", dev, n, F, W, 255, 4)
         log(f"node_hist F={F} n={n} W={W} B=255: {geo}; grid "
             f"{geo.row_blocks * geo.groups * geo.tiles} blocks")
+    for W in (1, 16):
+        geo = hist_ops._det_geometry(HIGGS_ROWS // HIST_BLOCKS, 28, W, 255,
+                                     HIST_BLOCKS)
+        log(f"node_hist_det n={HIGGS_ROWS} in {HIST_BLOCKS} blocks W={W} "
+            f"B=255: {geo}; grid "
+            f"{geo.row_blocks * geo.groups * geo.tiles * HIST_BLOCKS} blocks "
+            "(from the shape alone)")
 
 
 def node_row(call, plain, binned, pos, base, W, B, cold: bool) -> dict:
@@ -882,6 +931,7 @@ def reset_counts():
     count."""
     hist_ops.node_histogram.launches = 0
     hist_ops.node_histogram.int8_launches = 0
+    hist_ops.node_histogram.det_launches = 0
     hist_ops.histogram_cols.launches = 0
     node_hist_plain.calls = 0
     hist_plain.calls = 0
@@ -891,6 +941,7 @@ def read_counts() -> dict:
     return dict(node_hist_bf16=hist_ops.node_histogram.launches,
                 node_hist_int8=hist_ops.node_histogram.int8_launches,
                 hist_bf16=hist_ops.histogram_cols.launches,
+                node_hist_det=hist_ops.node_histogram.det_launches,
                 plain=node_hist_plain.calls + hist_plain.calls)
 
 
@@ -1141,15 +1192,16 @@ def multiclass_quality(probs, pred, y, yh, classes):
     return logloss, prior_ll, acc, majority, row_err
 
 
-def phase_multiclass():
-    """Phase 6: the 7-class Covertype-shaped fit at full width. Returns
-    its record and its model."""
-    log(f"== phase 6: LightGBMClassifier multiclass fit -> transform, "
-        f"{COVERTYPE_ROWS} x 54 x 255, 7 classes")
+def phase_multiclass(label="6", **params):
+    """Phase 6: the 7-class Covertype-shaped fit at full width (``params``
+    added to the estimator's: phase 14b). Returns its record and its
+    model."""
+    log(f"== phase {label}: LightGBMClassifier({shown(params)}) multiclass "
+        f"fit -> transform, {COVERTYPE_ROWS} x 54 x 255, 7 classes")
     X, y = covertype_shaped(COVERTYPE_ROWS, seed=0)
     Xh, yh = covertype_shaped(COVERTYPE_HOLDOUT, seed=1)
     est = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
-                             device="cuda")
+                             device="cuda", **params)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1166,8 +1218,8 @@ def phase_multiclass():
         f"({len(yh) / pred_s:.0f} rows/s); launches {counts} "
         f"({counts['node_hist_bf16'] / 10:.1f} of kernel 1 per round)")
     if counts["node_hist_bf16"] <= 0 or counts["plain"] != 0:
-        raise AssertionError(f"phase 6 did not go through kernel 1 alone: "
-                             f"{counts}")
+        raise AssertionError(f"phase {label} did not go through kernel 1 "
+                             f"alone: {counts}")
     probs = out.array("probability")
     if probs.shape != (len(yh), 7) or not np.isfinite(probs).all():
         raise AssertionError(f"bad probabilities: shape {probs.shape}")
@@ -2973,6 +3025,395 @@ def phase_plan_and_fleet(base, quantized, multiclass, data, card) -> dict:
     return out
 
 
+# phase 14: the data group's paths. HIST_BLOCKS is the canonical block
+# count of 14a's fits; P14_DIR holds its processes' files (ignored build
+# directory); P14_SEED seeds the deterministic mode's inputs, the same in
+# this process and in the two ranks
+HIST_BLOCKS = 8
+P14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_p14")
+P14_SEED = 1414
+P14_CHILD_TIMEOUT = 300
+
+# a rank of 14a's world-size-2 fit: joins gloo through a file rendezvous,
+# runs the deterministic mode on P14_SEED's inputs, and fits phase 4's
+# rows both ways under MMLSPARK_TPU_HIST_BLOCKS=8; writes the digests
+RANK_SRC = r"""
+import hashlib, json, os, sys, time
+root, rank, world, init, n, device, out = sys.argv[1:8]
+rank, world, n = int(rank), int(world), int(n)
+sys.path.insert(0, root)
+os.environ["MMLSPARK_TPU_HIST_BLOCKS"] = "8"
+import numpy as np
+import torch
+from chip_smoke import P14_SEED, higgs_shaped, hist_inputs
+from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.models.gbdt.api import LightGBMClassifier
+from mmlspark_tpu_torch.ops import histogram as hist_ops
+from mmlspark_tpu_torch.parallel import distributed
+distributed.initialize(init, world, rank, backend="gloo", device=device)
+res = {}
+gen = torch.Generator(device=device).manual_seed(P14_SEED)
+b, p, s = hist_inputs(gen, n, 28, 16, 255)
+h = hist_ops.node_histogram(b, p, s, 16, 255, blocks=8)
+res["det"] = hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest()
+del b, p, s, h
+X, y = higgs_shaped(n, seed=0)
+for name, params in (("bf16", {}), ("quantized", dict(
+        useQuantizedGrad=True, quantWarmupIters=0))):
+    t0 = time.perf_counter()
+    m = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
+                           device=device, **params).fit(
+        Dataset({"features": X, "label": y}))
+    res[name] = hashlib.sha256(m.booster.model_string().encode()).hexdigest()
+    res[name + "_s"] = time.perf_counter() - t0
+with open(out, "w") as f:
+    json.dump(res, f)
+torch.distributed.destroy_process_group()
+"""
+
+# 14d in a fresh process: unpickles two boosters of one plan key and
+# scores each (the first captures the key's graph on a card), holding
+# each to its eager result from the process that pickled them; with
+# CUDA hidden it unpickles the second and scores it on the CPU
+PICKLE_SRC = r"""
+import json, os, pickle, sys
+import numpy as np
+import torch
+root, d, device, mode = sys.argv[1:5]
+sys.path.insert(0, root)
+with open(os.path.join(d, "boosters.pkl"), "rb") as f:
+    blobs = pickle.load(f)
+want = np.load(os.path.join(d, "want.npz"))
+X = want["X"]
+out = {"cuda_available": torch.cuda.is_available()}
+if mode == "alone":
+    b = pickle.loads(blobs["quantized"])
+    got = b.predict(X, device=device)
+    out["quantized"] = bool(got.tobytes() == want["quantized_cpu"].tobytes())
+else:
+    for name in ("base", "quantized", "base"):
+        b = pickle.loads(blobs[name])
+        got = b.predict(X, device=device)
+        out[name] = bool(got.tobytes() == want[name].tobytes())
+print(json.dumps(out), flush=True)
+"""
+
+
+def det_bound_ms(binned, pos, base, W, B, blocks) -> tuple:
+    """The deterministic mode's bound: kernel 1's bytes, with one output
+    per block, against 3 adds per (valid row, feature) at the f32 rate."""
+    F, n = binned.shape
+    nbytes = (binned.numel() * binned.element_size() + pos.numel() * 4
+              + base.numel() * 4 + blocks * F * 3 * W * B * 4)
+    return bound_ms(nbytes, 3.0 * F * int((pos >= 0).sum()),
+                    PEAK_F32_OPS_PER_S)
+
+
+def det_library(binned, pos, base, W, B, blocks):
+    """The yardstick of the blocked function: one ``index_add_`` with the
+    blocks as ``blocks * W`` nodes."""
+    return library_index_add(binned, blocks_as_nodes(pos, W, blocks), base,
+                             blocks * W, B)
+
+
+def phase_det_kernel() -> tuple:
+    """14a's kernel checks: the deterministic mode against its plain
+    version at the blocked fit's two passes (the root, W=1; leafwise's
+    children, W=16), n = phase 4's rows, F=28, B=255, 8 blocks, and bit
+    for bit against itself over 20 launches; kernel 2's blocked route on
+    the same inputs (:func:`check_blocked_int8`). Returns (rows by W, max
+    error, the W=16 result's digest)."""
+    import hashlib
+    log("== phase 14a: node_hist_det (kernel 1's deterministic mode) vs "
+        f"plain, and vs itself over 20 launches; n={HIGGS_ROWS}, F=28, "
+        f"B=255, {HIST_BLOCKS} blocks")
+    rows, max_err, digest = {}, 0.0, None
+    for W in (1, 16):
+        gen = torch.Generator(device="cuda").manual_seed(P14_SEED)
+        binned, pos, base = hist_inputs(gen, HIGGS_ROWS, 28, W, 255)
+
+        def call():
+            return hist_ops.node_histogram(binned, pos, base, W, 255,
+                                           blocks=HIST_BLOCKS)
+        want = node_hist_blocked_plain(binned, pos, base, W, 255,
+                                       HIST_BLOCKS)
+        first = call()
+        torch.cuda.synchronize()
+        err = max(check_hist(first[j], want[j]) for j in range(HIST_BLOCKS))
+        max_err = max(max_err, err)
+        for i in range(20):
+            if not torch.equal(call(), first):
+                raise AssertionError(f"node_hist_det W={W}: launch {i + 1} "
+                                     "differs from the first")
+        if W == 16:
+            digest = hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()
+        check_blocked_int8(binned, pos, base, W)
+        ms = time_ms(call, reps=20)
+        k1 = time_ms(lambda: hist_ops.node_histogram(binned, pos, base, W,
+                                                     255), reps=20)
+        plain_ms = time_ms(lambda: node_hist_blocked_plain(
+            binned, pos, base, W, 255, HIST_BLOCKS), reps=3, warm=1)
+        lib = time_ms(det_library(binned, pos, base, W, 255, HIST_BLOCKS),
+                      reps=5, warm=1)
+        bound, by = det_bound_ms(binned, pos, base, W, 255, HIST_BLOCKS)
+        geo = hist_ops._det_geometry(HIGGS_ROWS // HIST_BLOCKS, 28, W, 255,
+                                     HIST_BLOCKS)
+        rows[W] = dict(ms=ms, ms_cold=None, plain_ms=plain_ms,
+                       library_ms=lib, bound_ms=bound, bound_by=by,
+                       kernel1_ms=k1, max_abs_err=err)
+        log(f"node_hist_det W={W}: {geo}; {ms:.4f} ms per launch against "
+            f"kernel 1's {k1:.4f} ms at this shape; bound "
+            f"{bound * 1e3:.1f} us ({by}, {100 * bound / ms:.1f}%); plain "
+            f"{plain_ms:.3f} ms; index_add_ {lib:.3f} ms; max_abs_err "
+            f"{err:.3g}; bit-equal over 20 launches")
+        del binned, pos, base, want, first
+    return rows, max_err, digest
+
+
+def check_blocked_int8(binned, pos, base, W) -> None:
+    """Kernel 2's blocked route (``node_histogram(..., scales=,
+    blocks=8)``: one launch over the blocks as ``8 W`` nodes, permuted back
+    and dequantized) bit for bit against its plain version, the per-block
+    int32 sums times the scales, on ``base`` quantized at the blocked
+    ``q_max`` (from the rows per block, as a blocked fit quantizes)."""
+    B, blocks = 255, HIST_BLOCKS
+    q, scales = hist_ops.quantize_stats(base, q_max=hist_ops.quant_q_max(
+        binned.shape[1] // blocks))
+    before = hist_ops.node_histogram.int8_launches
+    got = hist_ops.node_histogram(binned, pos, q, W, B, scales=scales,
+                                  blocks=blocks)
+    if hist_ops.node_histogram.int8_launches != before + 1:
+        raise AssertionError("the blocked quantized route did not launch "
+                             "kernel 2 once")
+    chan = scales[torch.arange(3 * W, device=scales.device) % 3]
+    want = node_hist_blocked_plain(
+        binned, pos, q, W, B, blocks, acc_dtype=torch.int32
+    ).to(torch.float32) * chan[None, None, :, None]
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = (got != want).sum().item() if got.shape == want.shape else -1
+        raise AssertionError(f"kernel 2 blocked W={W}: {bad} cells differ "
+                             "from the per-block int32 plain version")
+    log(f"node_hist_int8 blocked W={W} ({blocks * W} nodes in one launch): "
+        f"bit-equal to the per-block int32 plain version")
+
+
+def run_ranks(world: int, n: int, device: str) -> list:
+    """14a's world-size-``world`` fit: ``world`` processes of ``RANK_SRC``
+    joined through a file rendezvous under ``P14_DIR``. Returns each
+    rank's record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(P14_DIR, ignore_errors=True)
+    os.makedirs(P14_DIR)
+    init = f"file://{P14_DIR}/rendezvous"
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("MMLSPARK_TPU_BINNED_CACHE", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SRC, root, str(r), str(world), init,
+         str(n), device, os.path.join(P14_DIR, f"rank{r}.json")],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    failed = []
+    for r, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=P14_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"rank {r} of {world} timed out")
+        if p.returncode != 0:
+            failed.append(f"rank {r}: rc {p.returncode}\n{out[-3000:]}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    recs = []
+    for r in range(world):
+        with open(os.path.join(P14_DIR, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def phase_blocked_fits(data) -> dict:
+    """14a: phase 4's fit and its quantized one (stochastic rounding on,
+    warmup 0) under ``MMLSPARK_TPU_HIST_BLOCKS=8`` (the estimator's
+    ``hist_blocks`` resolves it): each through its kernel (the
+    deterministic mode; kernel 2) alone, AUC floor; twice in this process,
+    byte-equal; and at world size 2 (two processes on this card, gloo),
+    byte-equal to these."""
+    import hashlib
+    out = {}
+    rows, det_err, det_digest = phase_det_kernel()
+    out["det_rows"], out["det_err"] = rows, det_err
+    os.environ["MMLSPARK_TPU_HIST_BLOCKS"] = str(HIST_BLOCKS)
+    try:
+        digests = {}
+        for name, needs, params in (
+                ("bf16", "node_hist_det", {}),
+                ("quantized", "node_hist_int8",
+                 dict(useQuantizedGrad=True, quantWarmupIters=0))):
+            rec, b1 = phase_end_to_end(f"14a {name}", [needs], data,
+                                       **params)
+            others = [k for k in ("node_hist_bf16", "node_hist_int8",
+                                  "node_hist_det") if k != needs]
+            if any(rec["counts"][k] for k in others):
+                raise AssertionError(f"14a {name}: other kernels ran: "
+                                     f"{rec['counts']}")
+            again = phase_end_to_end(f"14a {name} again", [needs], data,
+                                     **params)[1]
+            if again.model_string() != b1.model_string():
+                raise AssertionError(f"14a {name}: two fits in one process "
+                                     "differ")
+            digests[name] = hashlib.sha256(
+                b1.model_string().encode()).hexdigest()
+            out[name] = rec
+            log(f"14a {name}: fit {rec['fit_s']:.3f} s, "
+                f"{rec['counts'][needs]} launches of {needs} per fit; two "
+                "fits byte-equal")
+        phase_small_agreement("14a", needs=("node_hist_det",))
+        phase_small_agreement("14a", needs=("node_hist_int8",),
+                              useQuantizedGrad=True, quantWarmupIters=0)
+    finally:
+        del os.environ["MMLSPARK_TPU_HIST_BLOCKS"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, len(data[1]), "cuda")
+    for r, rec in enumerate(ranks):
+        if rec["det"] != det_digest:
+            raise AssertionError(f"rank {r}: node_hist_det differs from this "
+                                 "process's on the same inputs")
+        for name, want in digests.items():
+            if rec[name] != want:
+                raise AssertionError(f"rank {r}: the world-size-2 {name} fit "
+                                     "differs from the world-size-1 fit")
+    out["world2_s"] = time.perf_counter() - t0
+    out["world2_fit_s"] = {k: [r[k + "_s"] for r in ranks]
+                           for k in digests}
+    log(f"14a: world size 2 (two processes on the card, gloo): both fits "
+        f"byte-equal to world size 1 on both ranks, node_hist_det bit-equal "
+        f"across processes; fit s {out['world2_fit_s']}; "
+        f"{out['world2_s']:.1f} s")
+    return out
+
+
+def phase_voting(multiclass) -> dict:
+    """14b: phase 6's fit with ``parallelism="voting_parallel"``,
+    ``topK=20``: 40 of the 54 features reach each split search, so the
+    trees differ from phase 6's; phase 6's floors hold. Then 20,000 of its
+    rows on cuda against cpu."""
+    rec, model = phase_multiclass("14b", parallelism="voting_parallel",
+                                  topK=20)
+    t_v, t_6 = model.booster.trees, multiclass.booster.trees
+    changed = int((t_v["feat"] != t_6["feat"]).any(axis=1).sum())
+    log(f"14b: {changed} of {len(t_v['feat'])} trees differ from phase 6's")
+    if changed == 0:
+        raise AssertionError("voting grew phase 6's trees")
+    X, y = covertype_shaped(20_000, seed=4)
+    phase_small_agreement("14b", LightGBMClassifier,
+                          cols={"features": X, "label": y},
+                          needs=("node_hist_bf16",),
+                          parallelism="voting_parallel", topK=20)
+    return dict(rec, trees_changed=changed)
+
+
+def phase_telemetry(data) -> dict:
+    """14c: phase 4's fit with metrics on publishes the fit's families and
+    the stage spans; under ``MMLSPARK_TPU_BINNED_CACHE=0`` the cache stays
+    empty."""
+    obs_metrics.reset()
+    os.environ["MMLSPARK_TPU_BINNED_CACHE"] = "0"
+    try:
+        rec, _ = phase_end_to_end("14c", ["node_hist_bf16"], data)
+    finally:
+        del os.environ["MMLSPARK_TPU_BINNED_CACHE"]
+    snap = obs_metrics.get_registry().snapshot()
+
+    def series(name):
+        return {json.dumps(s["labels"], sort_keys=True): s
+                for s in snap.get(name, {}).get("series", [])}
+    model = json.dumps({"model": "LightGBMClassifier"})
+    fits = series("gbdt_fits_total").get(model, {}).get("value")
+    iters = series("gbdt_trained_iterations").get(model, {}).get("value")
+    names = {json.loads(k)["name"] for k in series("span_duration_seconds")}
+    rows_in = series("stage_rows_in_total").get(json.dumps(
+        {"op": "fit", "stage": "LightGBMClassifier"}), {}).get("value")
+    log(f"14c: gbdt_fits_total {fits}, gbdt_trained_iterations {iters}, "
+        f"stage rows in {rows_in}, spans {sorted(names)}; binned cache "
+        f"entries {len(gbdt_api._BINNED_CACHE)}")
+    want = {"LightGBMClassifier", "LightGBMClassificationModel",
+            "LightGBMClassifier.train_booster"}
+    if fits != 1 or iters != 10 or rows_in != len(data[1]) or \
+            not want <= names:
+        raise AssertionError("14c: the fit's telemetry is missing")
+    if gbdt_api._BINNED_CACHE:
+        raise AssertionError("MMLSPARK_TPU_BINNED_CACHE=0 left a cached "
+                             "dataset")
+    return rec
+
+
+def phase_pickle(base, quantized, Xh) -> dict:
+    """14d: phases 4's and 4b's boosters (one plan key), scored on the card
+    and pickled; a fresh process unpickles and scores them in turn (the
+    first captures the key's graph there), each bit-equal to its own eager
+    result; a process without CUDA unpickles 4b's and scores it on the CPU
+    bit-equal to this process's CPU result."""
+    import pickle
+    root = os.path.dirname(os.path.abspath(__file__))
+    X = np.ascontiguousarray(Xh[:32])
+    dev = torch.device("cuda")
+    if base.predict_plan(32).key != quantized.predict_plan(32).key:
+        raise AssertionError("phases 4 and 4b have other plan keys")
+    want = {"X": X}
+    for name, b in (("base", base), ("quantized", quantized)):
+        b.predict(X, device="cuda")
+        want[name] = eager_scores(b, X, -1, "f32", True, dev)
+    want["quantized_cpu"] = quantized.predict(X, device="cpu")
+    shutil.rmtree(P14_DIR, ignore_errors=True)
+    os.makedirs(P14_DIR)
+    with open(os.path.join(P14_DIR, "boosters.pkl"), "wb") as f:
+        pickle.dump({"base": pickle.dumps(base),
+                     "quantized": pickle.dumps(quantized)}, f)
+    np.savez(os.path.join(P14_DIR, "want.npz"), **want)
+    out = {}
+    for label, device, mode in (("fresh", "cuda", "turns"),
+                                ("no_cuda", "cpu", "alone")):
+        env = dict(os.environ, PYTHONPATH=root)
+        hide = mode == "alone"
+        if hide:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        r = subprocess.run([sys.executable, "-c", PICKLE_SRC, root, P14_DIR,
+                            device, mode], env=env, cwd=root,
+                           capture_output=True, text=True,
+                           timeout=P14_CHILD_TIMEOUT)
+        if r.returncode != 0:
+            raise AssertionError(f"14d {label}: rc {r.returncode}\n"
+                                 f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        if hide and res.pop("cuda_available"):
+            raise AssertionError("14d: CUDA was visible in the CPU process")
+        res.pop("cuda_available", None)
+        if not all(res.values()):
+            raise AssertionError(f"14d {label}: not bit-equal: {res}")
+        out[label] = res
+    shutil.rmtree(P14_DIR, ignore_errors=True)
+    log(f"14d: unpickled in a fresh process, phases 4's and 4b's boosters "
+        f"score bit-equal to their eager results in turn {out['fresh']}; "
+        f"4b's unpickles and scores in a process without CUDA "
+        f"{out['no_cuda']}")
+    return out
+
+
+def phase_data_group(base, quantized, multiclass, data) -> dict:
+    """Phase 14: multi-device training's paths at full width, telemetry,
+    the pickled Booster."""
+    t0 = time.perf_counter()
+    out = {"14a": phase_blocked_fits(data)}
+    out["14b"] = phase_voting(multiclass)
+    out["14c"] = phase_telemetry(data)
+    out["14d"] = phase_pickle(base, quantized, data[2])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -3030,10 +3471,17 @@ def main() -> int:
     fits.update(p11.pop("fits"))
     p12 = phase_serving(quantized, multiclass, Xh, card)
     p13 = phase_plan_and_fleet(base, quantized, multiclass, data, card)
+    p14 = phase_data_group(base, quantized, multiclass, data)
+    for k in ("bf16", "quantized"):
+        fits[f"14a_{k}"] = p14["14a"].pop(k)
+    fits["14b"] = p14.pop("14b")
+    fits["14c"] = p14.pop("14c")
+    det_rows = p14["14a"].pop("det_rows")
     del X, y, Xh, yh, data
     log("fits: " + json.dumps(fits) + "; " + json.dumps(golden)
         + "; phase 11: " + json.dumps(p11) + "; phase 12: "
-        + json.dumps(p12) + "; phase 13: " + json.dumps(p13))
+        + json.dumps(p12) + "; phase 13: " + json.dumps(p13)
+        + "; phase 14: " + json.dumps(p14))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()
@@ -3062,6 +3510,12 @@ def main() -> int:
         entry("hist_bf16", "mmlspark_tpu_torch/csrc/hist_bf16.cu",
               "mmlspark_tpu/ops/histogram.py:647", launches3, max_err3,
               rows3[COLS_MAIN]),
+        # kernel 1's deterministic mode at 14a's most frequent pass: all
+        # phase 4's rows in 8 blocks, leafwise's 16 children (no half pass
+        # on the blocked reduction)
+        entry("node_hist_det", "mmlspark_tpu_torch/csrc/node_hist_det.cu",
+              "mmlspark_tpu/ops/histogram.py:679", launches("node_hist_det"),
+              p14["14a"]["det_err"], det_rows[16]),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -1,16 +1,17 @@
 """Estimator / Transformer / Model / Pipeline — the stage contract.
 
-The PyTorch port's own copy of ``mmlspark_tpu/core/pipeline.py``, without its
-telemetry spans (the port has no observability layer yet). Equivalent of the
-Spark ML pipeline layer the reference builds on (reference: every stage
-extends Spark's Estimator/Transformer; pipeline persistence via
+The PyTorch port's own copy of ``mmlspark_tpu/core/pipeline.py``. Equivalent
+of the Spark ML pipeline layer the reference builds on (reference: every
+stage extends Spark's Estimator/Transformer; pipeline persistence via
 org/apache/spark/ml/Serializer.scala:21-130). Persistence is a directory of
 ``metadata.json`` + per-param payloads, and any class importable by qualified
-name can be restored.
+name can be restored. Every stage's ``fit`` and ``transform`` runs in a
+telemetry span (:func:`_instrumented`).
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 import json
 import os
@@ -20,6 +21,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
+from ..observability import spans as _spans
 from .dataset import Dataset
 from .params import Params
 
@@ -27,14 +31,64 @@ from .params import Params
 def _row_count(ds: Any) -> Optional[int]:
     try:
         return len(ds)
-    except TypeError:
+    except Exception:  # noqa: BLE001 — telemetry must never break a stage
         return None
 
 
+def _instrumented(method, op: str):
+    """Wrap a stage's ``fit``/``transform`` in a ``{ClassName}.{uid}`` span
+    recording input/output row counts (the reference's per-scope
+    StopWatch names). Disabled telemetry short-circuits to the raw method
+    — behavior and results are byte-identical either way."""
+
+    @functools.wraps(method)
+    def wrapped(self, dataset, *args, **kwargs):
+        if not _metrics.enabled():
+            return method(self, dataset, *args, **kwargs)
+        cls = type(self).__name__
+        with _spans.span(f"{cls}.{self.uid}", metric_label=cls,
+                         op=op) as sp:
+            rows_in = _row_count(dataset)
+            if rows_in is not None:
+                sp.set(rows_in=rows_in)
+                _metrics.safe_counter("stage_rows_in_total",
+                                      stage=cls, op=op).inc(rows_in)
+            try:
+                out = method(self, dataset, *args, **kwargs)
+            except Exception as e:
+                # the flight recorder's error record: which stage blew
+                # up, on how many rows
+                _flight.record("error", stage=cls, uid=self.uid, op=op,
+                               rows_in=rows_in,
+                               error=f"{type(e).__name__}: {e}")
+                raise
+            if op == "transform":
+                rows_out = _row_count(out)
+                if rows_out is not None:
+                    sp.set(rows_out=rows_out)
+                    _metrics.safe_counter("stage_rows_out_total",
+                                          stage=cls, op=op).inc(rows_out)
+        return out
+
+    wrapped._telemetry_wrapped = True
+    return wrapped
+
+
 class PipelineStage(Params):
-    """Common base: anything placeable in a Pipeline."""
+    """Common base: anything placeable in a Pipeline.
+
+    Every subclass's own ``fit`` / ``transform`` is wrapped in a telemetry
+    span when the class is created (``__init_subclass__``), so every stage
+    reports its timing and row counts without opting in."""
 
     uid_counter = 0
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for attr, op in (("fit", "fit"), ("transform", "transform")):
+            m = cls.__dict__.get(attr)
+            if callable(m) and not getattr(m, "_telemetry_wrapped", False):
+                setattr(cls, attr, _instrumented(m, op))
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)

@@ -23,14 +23,26 @@ of identical data (:func:`_cached_binned_dataset`). Feature columns may be
 scipy sparse matrices. The models export and import LightGBM's text format
 (``get_native_model``/``save_native_model``/``load_native_model``) and
 report feature importances. ``initScoreCol`` is accepted and not read, as
-in the JAX package. Params whose non-default values select parts of the
-JAX package that are not ported yet (``parallelism``: voting) raise
-``NotImplementedError`` at fit time rather than being ignored.
+in the JAX package. ``parallelism`` (``data_parallel`` or
+``voting_parallel`` with ``topK``) selects how histograms cross the data
+group (:mod:`...parallel`): rows are sharded over the
+``torch.distributed`` ranks of the default group, one process when none
+is initialised; every rank fits on the same global rows and returns the
+same model.
+
+Telemetry, as in the JAX package: a ``{uid}.train_booster`` span per fit,
+``gbdt_fits_total``, ``gbdt_trained_iterations``, ``gbdt_best_iteration``
+and ``gbdt_train_metric`` after it, the training-health audit of its eval
+history, and, with ``MMLSPARK_TPU_TELEMETRY_ROUNDS=1``, a ``boost_round``
+instant with ``gbdt_boost_rounds_total`` and ``gbdt_round_metric`` per
+round. ``MMLSPARK_TPU_BINNED_CACHE=0`` turns the binned-dataset cache off;
+its datasets are claimed on the HBM ledger as ``binned_cache``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -44,31 +56,48 @@ from ...core.params import (HasFeaturesCol, HasGroupCol, HasInitScoreCol,
                             HasWeightCol, Param, TypeConverters)
 from ...core.pipeline import Estimator, Model
 from ...device import DEFAULT_DEVICE
+from ...observability import hbm as _hbm
+from ...observability import metrics as _metrics
+from ...observability import spans as _spans
+from ...observability import watchdog as _watchdog
+from ...parallel import mesh as meshlib
 from ...utils.checkpoint import data_fingerprint
 from .booster import Booster, LightGBMDataset, _densify, train_booster
 from .growth import GrowConfig, resolve_growth_backend
 
 # Binned datasets of recent fits, keyed by a content fingerprint of the
-# training arrays, every binning param and the device: fits that change
-# only learner params on the same rows (a sweep) reuse one ingest. Two
-# entries bound the device memory they hold.
+# training arrays, every binning param, the data group and the device:
+# fits that change only learner params on the same rows (a sweep) reuse
+# one ingest. Two entries bound the device memory they hold.
 _BINNED_CACHE: "OrderedDict" = OrderedDict()
 _BINNED_CACHE_MAX = 2
+
+
+def _dataset_nbytes(ds) -> float:
+    """Device bytes one cached binned dataset pins (the ``binned_cache``
+    HBM-ledger claim): the bin matrix, labels, weights and mask."""
+    arrays = {id(a): a for a in (ds.Xbt, ds.y, ds.w, ds.vmask)}
+    return float(sum(a.numel() * a.element_size() for a in arrays.values()))
 
 
 def clear_binned_dataset_cache() -> None:
     """Release the cached binned datasets and the device memory they
     hold."""
     _BINNED_CACHE.clear()
+    _hbm.set_claim("binned_cache", 0)
+
+
+def _cache_enabled() -> bool:
+    return os.environ.get("MMLSPARK_TPU_BINNED_CACHE", "1") != "0"
 
 
 def _binned_cache_key(X, y, w, *, max_bin, bin_sample_count, seed,
                       categorical_features, bin_dtype, max_bin_by_feature,
                       device) -> tuple:
     """The cache key: a scipy sparse ``X`` is fingerprinted by its CSR
-    buffers (a hit never densifies); the device (``None`` read as the
-    default, ``cuda``) stands in the JAX package's mesh, so a cpu fit never
-    receives a cuda dataset."""
+    buffers (a hit never densifies); the data group's ranks and the device
+    (``None`` read as the default, ``cuda``) stand in the JAX package's
+    mesh, so a cpu fit never receives a cuda dataset."""
     if _is_sparse(X):
         X = X.tocsr()
         fp = data_fingerprint(X.data, X.indices, X.indptr,
@@ -79,6 +108,7 @@ def _binned_cache_key(X, y, w, *, max_bin, bin_sample_count, seed,
             tuple(int(i) for i in categorical_features), str(bin_dtype),
             None if max_bin_by_feature is None
             else tuple(int(b) for b in max_bin_by_feature),
+            meshlib.get_default_mesh().ranks,
             str(torch.device(DEFAULT_DEVICE if device is None else device)))
 
 
@@ -88,7 +118,14 @@ def _cached_binned_dataset(X, y, w, *, max_bin, bin_sample_count, seed,
                            device=None) -> LightGBMDataset:
     """The binned dataset of these rows and params on ``device``, built on
     a miss (the least recently used of :data:`_BINNED_CACHE_MAX` entries
-    goes)."""
+    goes). With ``MMLSPARK_TPU_BINNED_CACHE=0`` every call builds one and
+    nothing is kept (nor fingerprinted)."""
+    if not _cache_enabled():
+        return LightGBMDataset.construct(
+            X, y, w, max_bin=max_bin, bin_sample_count=bin_sample_count,
+            seed=seed, categorical_features=categorical_features,
+            bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
+            device=device)
     key = _binned_cache_key(
         X, y, w, max_bin=max_bin, bin_sample_count=bin_sample_count,
         seed=seed, categorical_features=categorical_features,
@@ -102,8 +139,10 @@ def _cached_binned_dataset(X, y, w, *, max_bin, bin_sample_count, seed,
             bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
             device=device)
         _BINNED_CACHE[key] = ds
+        _hbm.claim("binned_cache", _dataset_nbytes(ds))
         while len(_BINNED_CACHE) > _BINNED_CACHE_MAX:
-            _BINNED_CACHE.popitem(last=False)
+            _k, old = _BINNED_CACHE.popitem(last=False)
+            _hbm.release("binned_cache", _dataset_nbytes(old))
     else:
         _BINNED_CACHE.move_to_end(key)
     return ds
@@ -267,17 +306,6 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
                                         "Ignored", True,
                                         TypeConverters.to_bool)
 
-    # Params whose non-default values reach code that is not ported yet:
-    # fit raises instead of silently ignoring them
-    _NOT_PORTED = ("parallelism",)
-
-    def _check_ported(self) -> None:
-        for name in self._NOT_PORTED:
-            v = self.get_or_default(name)
-            if v != self.get_param(name).default:
-                raise NotImplementedError(
-                    f"{name}={v!r} is not ported to the PyTorch package yet")
-
     def _grow_config(self) -> GrowConfig:
         return resolve_growth_backend(GrowConfig(
             num_leaves=self.get_or_default("numLeaves"),
@@ -290,6 +318,8 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
             min_sum_hessian_in_leaf=self.get_or_default(
                 "minSumHessianInLeaf"),
             min_gain_to_split=self.get_or_default("minGainToSplit"),
+            voting=self.get_or_default("parallelism") == "voting_parallel",
+            top_k=self.get_or_default("topK"),
             leaf_batch=self.get_or_default("leafBatch"),
             hist_subtraction=self.get_or_default("histSubtraction"),
             max_delta_step=self.get_or_default("maxDeltaStep"),
@@ -350,14 +380,78 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
         mask = dataset.array(vcol).astype(bool)
         return dataset.filter(~mask), dataset.filter(mask)
 
+    def _round_callback(self):
+        """The per-round telemetry callback, or None unless
+        ``MMLSPARK_TPU_TELEMETRY_ROUNDS=1`` (and metrics are on): a
+        ``boost_round`` instant, ``gbdt_boost_rounds_total``, the round's
+        wall time and metrics to the training-health sentinels, and
+        ``gbdt_round_metric`` per metric."""
+        if not (_metrics.enabled()
+                and os.environ.get("MMLSPARK_TPU_TELEMETRY_ROUNDS") == "1"):
+            return None
+        cls = type(self).__name__
+        last = [time.perf_counter()]
+
+        def cb(it: int, round_metrics: dict) -> None:
+            vals = {k: float(v) for k, v in round_metrics.items()}
+            _spans.instant("boost_round", model=cls, iteration=it, **vals)
+            _metrics.safe_counter("gbdt_boost_rounds_total", model=cls).inc()
+            now = time.perf_counter()
+            _watchdog.report_training_metric(cls, it, seconds=now - last[0])
+            last[0] = now
+            for k, v in vals.items():
+                _metrics.safe_gauge("gbdt_round_metric",
+                                    model=cls, metric=k).set(v)
+                _watchdog.report_training_metric(cls, it, loss=v,
+                                                 metric_name=k)
+        return cb
+
+    def _publish_booster_telemetry(self, booster: Booster) -> None:
+        """The registry's view of a finished fit: its count, iterations,
+        best iteration and the last value of each metric series; the
+        training-health audit of its eval history; a fresh device-memory
+        sample (the binned-dataset cache keeps device memory across
+        fits)."""
+        if not _metrics.enabled():
+            return
+        cls = type(self).__name__
+        _metrics.safe_counter("gbdt_fits_total", model=cls).inc()
+        _metrics.safe_gauge("gbdt_trained_iterations",
+                            model=cls).set(booster.num_iterations)
+        if booster.best_iteration is not None and booster.best_iteration >= 0:
+            _metrics.safe_gauge("gbdt_best_iteration",
+                                model=cls).set(booster.best_iteration)
+        for mname, series in (booster.eval_history or {}).items():
+            if series:
+                _metrics.safe_gauge("gbdt_train_metric", model=cls,
+                                    metric=str(mname)).set(float(series[-1]))
+        _watchdog.scan_eval_history(cls, booster.eval_history)
+        from ...observability.device import device_memory_gauges
+        device_memory_gauges()
+
     def _fit_booster(self, dataset: Dataset, objective: str, num_class: int,
                      objective_kwargs: Optional[dict] = None) -> Booster:
+        """Fit in a ``{uid}.train_booster`` span with fresh training-health
+        windows for this estimator, then publish the fit's telemetry."""
+        cls = type(self).__name__
+        _watchdog.reset_training_health(cls)
+        with _spans.span(f"{self.uid}.train_booster",
+                         metric_label=f"{cls}.train_booster",
+                         objective=objective, num_class=num_class):
+            booster = self._fit_booster_impl(dataset, objective, num_class,
+                                             objective_kwargs)
+        self._publish_booster_telemetry(booster)
+        return booster
+
+    def _fit_booster_impl(self, dataset: Dataset, objective: str,
+                          num_class: int,
+                          objective_kwargs: Optional[dict] = None
+                          ) -> Booster:
         """Fit through ``train_booster`` as the JAX estimators do: a
         ``modelString`` warm start; ``numBatches`` sequential batches, each
         binned from its own rows and warm-started from the previous one
         (reference: LightGBMBase.scala:28-50); without ``checkpointDir``, a
         cached binned dataset."""
-        self._check_ported()
         train_ds, valid_ds = self._split_validation(dataset)
         X, y, w = self._extract_arrays(train_ds)
         valid_set = None
@@ -399,7 +493,8 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
                 "isProvideTrainingMetric"),
             max_bin_by_feature=self.get_or_default("maxBinByFeature"),
             eval_metric_name=self.get_or_default("metric"),
-            device=self.get_or_default("device"))
+            device=self.get_or_default("device"),
+            iteration_callback=self._round_callback())
         num_iterations = self.get_or_default("numIterations")
         num_batches = self.get_or_default("numBatches")
         if num_batches and num_batches > 1:
@@ -626,9 +721,9 @@ def _pad_groups(X: np.ndarray, y: np.ndarray, w: Optional[np.ndarray],
     """Sort rows by group and pad every query group to a static width S.
 
     Each group becomes a fixed [S] block (rows beyond S are truncated), and
-    the group count is padded to a multiple of ``n_shard_multiple`` (1 on
-    one device). Returns (Xp, yp, wp, valid, n_groups) with Xp of shape
-    [G_pad*S, F]."""
+    the group count is padded to a multiple of ``n_shard_multiple`` (the
+    data group's size: each rank then holds whole groups). Returns (Xp,
+    yp, wp, valid, n_groups) with Xp of shape [G_pad*S, F]."""
     group = np.asarray(group)
     order = np.argsort(group, kind="stable")
     X, y = X[order], y[order]
@@ -679,25 +774,25 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
                   TypeConverters.to_float)
 
     def fit(self, dataset: Dataset) -> "LightGBMRankerModel":
-        self._check_ported()
         train_ds, valid_ds = self._split_validation(dataset)
         gcol = self.get_or_default("groupCol")
         if not gcol:
             raise ValueError("LightGBMRanker requires groupCol")
+        nshards = meshlib.num_shards(meshlib.get_default_mesh())
         X, y, w = self._extract_arrays(train_ds)
         X = _densify(X)            # groups are padded before training
         group = np.asarray(train_ds[gcol])
         sizes = np.unique(group, return_counts=True)[1]
         S = int(min(self.get_or_default("maxGroupSize"),
                     1 << int(np.ceil(np.log2(max(sizes.max(), 2))))))
-        Xp, yp, wp, valid, _ = _pad_groups(X, y, w, group, S)
+        Xp, yp, wp, valid, _ = _pad_groups(X, y, w, group, S, nshards)
 
         valid_set = None
         if valid_ds is not None and len(valid_ds) > 0:
             Xv, yv, _ = self._extract_arrays(valid_ds)
             Xv = _densify(Xv)
             Xvp, yvp, _, validv, _ = _pad_groups(
-                Xv, yv, None, np.asarray(valid_ds[gcol]), S)
+                Xv, yv, None, np.asarray(valid_ds[gcol]), S, nshards)
             # per-row metric weight 1/group size: the weighted mean is the
             # mean NDCG over groups
             gsz = validv.reshape(-1, S).sum(axis=1)

@@ -59,14 +59,18 @@ from ...observability import metrics as _metrics
 from ...observability import roofline as _roofline
 from ...observability import spans as _spans
 from ...observability import watchdog as _watchdog
+from ...observability.logging import console as _console
 from ...ops.binning import QuantileBinner, bin_cols
 from ...ops.histogram import quant_key
 from ...core.dataset import _is_sparse
+from ...parallel import mesh as meshlib
+from ...parallel import placement
+from ...parallel.mesh import Mesh
 from ... import tuning as _tuning
 from ...tuning.decisions import ladder_pad
 from . import quantize as _quantize
-from .growth import (GrowConfig, Tree, forest_leaf_nodes, grow_tree,
-                     grow_tree_depthwise, predict_forest_raw,
+from .growth import (GrowConfig, Tree, _blocked, forest_leaf_nodes,
+                     grow_tree, grow_tree_depthwise, predict_forest_raw,
                      predict_tree_binned, resolve_growth_backend)
 from .objectives import (HIGHER_IS_BETTER, SUPPORTED_EVAL_METRICS,
                          auc_weighted, eval_metric, get_objective,
@@ -87,6 +91,28 @@ TREE_DTYPES = {"feat": np.int32, "thr_bin": np.int32, "left": np.int32,
                "node_value": np.float32, "cat_bitset": np.uint32}
 
 
+class _PhaseTimer:
+    """Opt-in wall-time phase breakdown of a ``train_booster`` call
+    (``MMLSPARK_TPU_TIMING=1``): the reference's per-phase TrainingStats
+    diagnostics (vw/VowpalWabbitBase.scala:27-46). A mark on a device
+    waits for its queued work first, so each phase's time is its own."""
+
+    def __init__(self):
+        self.on = bool(os.environ.get("MMLSPARK_TPU_TIMING"))
+        self._t = time.perf_counter() if self.on else 0.0
+
+    def mark(self, name: str, device: Optional[torch.device] = None) -> None:
+        if self.on:
+            if device is not None and device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            # console, not the JSON funnel: MMLSPARK_TPU_TIMING=1 is an
+            # explicit operator request that prints regardless of the
+            # telemetry kill switch
+            _console(f"[gbdt-timing] {name}: {now - self._t:.3f}s")
+            self._t = now
+
+
 def _bin_dtype(bin_dtype, max_bin: int) -> torch.dtype:
     """Bin-id storage dtype: int32 (default), int16 or uint8. Bin ids are
     < max_bin, so narrow storage is lossless within range."""
@@ -103,13 +129,16 @@ def _bin_dtype(bin_dtype, max_bin: int) -> torch.dtype:
 
 class LightGBMDataset:
     """Pre-binned, device-resident GBDT training dataset: bin once, train
-    many. ``Xbt`` is the ``[F, n_pad]`` bin matrix; ``y``, ``w`` and
-    ``vmask`` are ``[n_pad]`` f32."""
+    many. ``n`` rows padded to ``n_pad`` (a multiple of the data group's
+    size) are sharded over ``mesh``: this rank holds ``Xbt``, its
+    ``[F, n_local]`` slice of the bin matrix, and ``y``, ``w`` and
+    ``vmask``, ``[n_local]`` f32 (padding rows have mask and weight 0). On
+    one process ``n_local = n_pad = n``."""
 
     def __init__(self, binner: QuantileBinner, Xbt: torch.Tensor,
                  y: torch.Tensor, w: torch.Tensor, vmask: torch.Tensor,
                  n: int, n_pad: int, max_bin: int,
-                 categorical_features=()):
+                 categorical_features=(), mesh: Optional[Mesh] = None):
         self.binner = binner
         self.Xbt = Xbt
         self.y = y
@@ -120,10 +149,15 @@ class LightGBMDataset:
         self.max_bin = max_bin
         self.categorical_features = tuple(
             int(i) for i in categorical_features)
+        self.mesh = mesh or Mesh()
 
     @property
     def num_features(self) -> int:
         return int(self.Xbt.shape[0])
+
+    @property
+    def n_local(self) -> int:
+        return int(self.Xbt.shape[1])
 
     @property
     def device(self) -> torch.device:
@@ -136,9 +170,17 @@ class LightGBMDataset:
                   row_valid: Optional[np.ndarray] = None,
                   categorical_features=(), path=None, label_path=None,
                   weight_path=None, chunk_rows: Optional[int] = None,
-                  device: DeviceLike = None) -> "LightGBMDataset":
+                  device: DeviceLike = None, mesh: Optional[Mesh] = None,
+                  _timer: Optional["_PhaseTimer"] = None
+                  ) -> "LightGBMDataset":
         """Fit the quantile binner on the host (numpy), move the raw rows
-        to ``device`` and bin them there into ``[F, n]``. ``row_valid``
+        to ``device`` and bin them there into ``[F, n]``. Over a data group
+        (``mesh``, default :func:`...parallel.mesh.get_default_mesh`: one
+        process unless ``torch.distributed`` is initialised) every rank
+        passes the same global rows and fits the binner on the same sample;
+        rows are padded to a multiple of the group's size and each rank
+        bins and keeps its own slice (:func:`...parallel.placement.
+        shard_rows`), padding masked out. ``row_valid``
         ([n], 0 or 1) marks rows that must not count in histograms or
         totals (the ranker's in-group padding); the binner still sees every
         row, as the JAX package's does. ``categorical_features`` (feature
@@ -160,7 +202,14 @@ class LightGBMDataset:
             raise ValueError(
                 "label_path/weight_path/chunk_rows only apply with path= "
                 "(out-of-core); for in-memory arrays pass y/weight directly")
+        mesh = mesh or meshlib.get_default_mesh()
+        if not mesh.member:
+            raise ValueError(f"this process is not in the data group {mesh}")
         if path is not None:
+            if mesh.size > 1:
+                raise NotImplementedError(
+                    "out-of-core ingest (path=) over a data group of "
+                    f"{mesh.size} ranks is not ported; pass arrays")
             if X is not None or y is not None or weight is not None:
                 raise ValueError(
                     "pass either in-memory arrays or path=..., not both")
@@ -197,19 +246,29 @@ class LightGBMDataset:
                 f"categorical_features indexes {bad_cats} out of range for "
                 f"{F} features")
         bd = _bin_dtype(bin_dtype, max_bin)
+        tw = _timer or _PhaseTimer()
         binner = QuantileBinner(max_bin, bin_sample_count, seed,
                                 categorical_features,
                                 max_bin_by_feature).fit(X)
-        X_d = torch.from_numpy(X).to(dev)
+        tw.mark("binner_fit")
+        placement.plan_for("gbdt.ingest", mesh=mesh, rows=n, device=dev,
+                           dtype=str(bd).replace("torch.", ""))
+        X_d, _ = placement.shard_rows(X, mesh, device=dev)
+        tw.mark("xfer_X", dev)
         Xbt = bin_cols(X_d, torch.from_numpy(binner.upper_bounds), bd)
         del X_d             # only the bin matrix stays resident
-        vmask = (torch.ones(n, dtype=torch.float32, device=dev)
-                 if row_valid is None else
-                 torch.from_numpy(np.asarray(row_valid, np.float32)).to(dev))
-        w = (vmask if weight is None
-             else torch.from_numpy(np.asarray(weight, np.float32)).to(dev))
-        return cls(binner, Xbt, torch.from_numpy(y).to(dev), w, vmask, n, n,
-                   max_bin, categorical_features)
+        tw.mark("bin_device", dev)
+        n_pad = Xbt.shape[1] * mesh.size
+        vmask = meshlib.validity_mask(n, n_pad)
+        if row_valid is not None:
+            vmask[:n] *= np.asarray(row_valid, np.float32)
+        vmask_d, _ = placement.shard_rows(vmask, mesh, device=dev)
+        y_d, _ = placement.shard_rows(y, mesh, device=dev)
+        w_d = (vmask_d if weight is None else placement.shard_rows(
+            np.asarray(weight, np.float32), mesh, device=dev)[0])
+        tw.mark("aux_shards", dev)
+        return cls(binner, Xbt, y_d, w_d, vmask_d, n, n_pad, max_bin,
+                   categorical_features, mesh)
 
 
 def _densify(X):
@@ -342,8 +401,17 @@ _PREDICT_CACHE_LOCK = threading.Lock()
 # and the warm-up side stream are simplest to reason about serialized
 _CAPTURE_LOCK = threading.Lock()
 # forest-argument identities: a graph copies a forest in when the serial
-# of the forest it last copied differs
-_FOREST_SERIAL = itertools.count(1)
+# of the forest it last copied differs. A serial is this process's random
+# 64-bit prefix and a counter, so a forest made in another process (a
+# pickled Booster's, were its device state kept) never takes another's
+# serial here
+_SERIAL_PREFIX = int.from_bytes(os.urandom(8), "little")
+_FOREST_COUNTER = itertools.count(1)
+
+
+def _next_forest_serial() -> Tuple[int, int]:
+    return (_SERIAL_PREFIX, next(_FOREST_COUNTER))
+
 # guards each Booster's LRUs of device arguments (check, then insert or
 # evict)
 _DEVICE_ARGS_LOCK = threading.Lock()
@@ -727,6 +795,24 @@ class Booster:
         self._dev_forest: Dict[Tuple[str, str], dict] = {}
         get_objective(objective, self.num_class, **self.objective_kwargs)
 
+    # the device state a Booster builds on demand: uploaded forests (each
+    # plan forest with its serial), active masks, the int8 lane's bounds
+    _DEVICE_STATE = ("_dev_forest", "_plan_forest", "_dev_active",
+                     "_dev_bounds")
+
+    def __getstate__(self):
+        """The host state only, as the JAX package's ``__getstate__``:
+        device tensors would not unpickle on a host without the device, and
+        a forest's serial belongs to the process that uploaded it. The
+        predictor cache is process-wide, so an unpickled Booster reuses its
+        programs."""
+        return {k: v for k, v in self.__dict__.items()
+                if k not in self._DEVICE_STATE}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._dev_forest = {}
+
     @property
     def num_trees(self) -> int:
         return int(self.trees["feat"].shape[0])
@@ -847,7 +933,7 @@ class Booster:
             ent = cache.get(ck)
             if ent is None:
                 ent = self._upload_forest(dev, predict_dtype, T_pad)
-                ent["serial"] = next(_FOREST_SERIAL)
+                ent["serial"] = _next_forest_serial()
                 _hbm.claim("packed_trees", _forest_nbytes(ent))
                 cache[ck] = ent
                 while len(cache) > 4:
@@ -1623,7 +1709,8 @@ class _RowSampling:
 
       * GOSS: the top ``top_rate`` share of rows by ``|grad|`` summed over
         score columns (a quantile over the padded length, whose padding
-        rows sit at 0), the rest kept with probability
+        rows sit at 0; over a data group each rank's own, as the JAX
+        package's shards do), the rest kept with probability
         ``other_rate / (1 - top_rate)`` and weighted ``(1 - top_rate) /
         other_rate`` in the mask — so counts and ``minDataInLeaf`` see the
         amplified weights, as in the JAX package;
@@ -1636,8 +1723,11 @@ class _RowSampling:
 
     def __init__(self, *, boosting_type, vmask, y, seed, bagging_fraction,
                  bagging_freq, pos_bagging_fraction, neg_bagging_fraction,
-                 top_rate, other_rate):
+                 top_rate, other_rate, rows=(0, None)):
         self.vmask, self.seed = vmask, seed
+        # (this rank's first global row, the global row count): the draws
+        # of a rank are its slice of the global stream
+        self.start, self.n_global = rows[0], rows[1] or vmask.shape[0]
         self.goss = boosting_type == "goss"
         self.every_iteration = boosting_type in ("goss", "rf")
         stratified = (pos_bagging_fraction != 1.0
@@ -1670,7 +1760,8 @@ class _RowSampling:
 
     def _uniforms(self, it: int) -> torch.Tensor:
         step = self.bag_step(it)
-        return _row_uniforms(self.seed, step, self.vmask.shape[0]).to(
+        u = _row_uniforms(self.seed, step, self.n_global)
+        return u[self.start:self.start + self.vmask.shape[0]].to(
             self.vmask.device)
 
     def __call__(self, it: int, grad: torch.Tensor) -> torch.Tensor:
@@ -1703,22 +1794,82 @@ def _feature_mask(gen: torch.Generator, F: int, feature_fraction: float,
 
 
 def _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat,
-                    seed: int, it: int):
+                    seed: int, it: int, group=None):
     """The K trees of iteration ``it``, one per grad/hess column: full
     precision below ``cfg.quant_warmup_iters`` (or without
     ``quantized_grad``), else on int8 histograms rounded under
-    ``quant_key(seed, it, k)``. Returns [(tree, row_node)]."""
+    ``quant_key(seed, it, k)``; on the collective path of ``group``
+    (:func:`_grow_group`). Returns [(tree, row_node)]."""
     quantized = cfg.quantized_grad and it >= cfg.quant_warmup_iters
     fp_cfg = cfg._replace(quantized_grad=False)
+    # one device: the grow functions' single-device call
+    on_group = {} if group is None else {"group": group}
     out = []
     for k in range(grad.shape[1]):
         g_k, h_k = grad[:, k].contiguous(), hess[:, k].contiguous()
         if quantized:
             out.append(grow(Xbt, g_k, h_k, row_mask, fmask, cfg, is_cat,
-                            qkey=quant_key(seed, it, k)))
+                            qkey=quant_key(seed, it, k), **on_group))
         else:
-            out.append(grow(Xbt, g_k, h_k, row_mask, fmask, fp_cfg, is_cat))
+            out.append(grow(Xbt, g_k, h_k, row_mask, fmask, fp_cfg, is_cat,
+                            **on_group))
     return out
+
+
+def _grow_group(mesh: Mesh, cfg: GrowConfig) -> Optional[Mesh]:
+    """The group tree growth runs its collectives over (the JAX package's
+    ``_grow_axis_for``): None for one rank, so histogram subtraction can
+    engage. Voting keeps the group even at one rank (its top-2k ballot
+    restricts the split search, the same at every world size), and so does
+    a resolved ``hist_blocks`` (the blocked reduction runs the same
+    program at every world size)."""
+    return mesh if (mesh.size > 1 or cfg.voting or _blocked(cfg)) else None
+
+
+def _global_metric(mesh: Mesh, obj, scores, y, w, metric_name: str,
+                   **kwargs) -> float:
+    """The eval metric over every rank's rows: each rank's weighted mean
+    is weighted by its rows' weight and the parts summed over the group
+    (``rmse`` combines squares), as the JAX package's ``psum`` does —
+    topology-dependent in the last ulp (the JAX scope note,
+    ``growth.py:206-211``). One rank: the metric as it is."""
+    _, num = eval_metric(obj, scores, y, w, **kwargs)
+    if mesh.size == 1:
+        return float(num)
+    wsum = w.sum()
+    num = torch.where(wsum > 0, num.to(torch.float32),
+                      torch.zeros((), device=w.device))
+    part = num * num * wsum if metric_name == "rmse" else num * wsum
+    tot = mesh.all_reduce(torch.stack([part, wsum]))
+    m = tot[0] / tot[1]
+    return float(torch.sqrt(m) if metric_name == "rmse" else m)
+
+
+# rows the CPU's vectorized loops take at a time, at most (two 16-lane
+# vectors), rounded up
+_CPU_VEC_ROWS = 64
+
+
+def _grad_hess(obj, score, y, w, group):
+    """``obj.grad_hess`` of this rank's rows. On the CPU's collective path
+    the rows are padded to a multiple of ``_CPU_VEC_ROWS`` first: PyTorch's
+    vectorized CPU loops compute a transcendental function (``exp``,
+    ``sigmoid``) with other code in a loop's scalar tail, so a row's bits
+    would depend on where it falls in its rank's slice, and a fit on the
+    blocked reduction on the world size. LambdaRank's rows are whole
+    groups and stay as they are. A CUDA kernel computes every element
+    alike."""
+    n = y.shape[0]
+    if (group is None or y.device.type != "cpu" or obj.name == "lambdarank"
+            or n % _CPU_VEC_ROWS == 0):
+        return obj.grad_hess(score, y, w)
+    pad = _CPU_VEC_ROWS - n % _CPU_VEC_ROWS
+
+    def grow(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, pad) if t.dim() == 2
+                                       else (0, pad))
+    g, h = obj.grad_hess(grow(score), grow(y), grow(w))
+    return g[:n], h[:n]
 
 
 class _EarlyStopping:
@@ -1757,9 +1908,10 @@ class _EarlyStopping:
 
 
 class _Valid(NamedTuple):
-    """A validation set on the fit's device: binned rows ``[nv, F]``,
-    labels and weights (also on the host, for the host ``auc``) and the
-    running scores ``[nv, K]``."""
+    """A validation set on the fit's device, this rank's padded slice of
+    it: binned rows ``[nv_local, F]``, labels and weights (padding rows at
+    weight 0; every row's on the host, for the host ``auc``) and the
+    running scores ``[nv_local, K]``."""
     Xb: torch.Tensor
     y: torch.Tensor
     w: torch.Tensor
@@ -1851,8 +2003,12 @@ def train_booster(
     max_bin_by_feature=None,
     eval_metric_name: Optional[str] = None,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
+    iteration_callback: Optional[Callable[[int, Dict[str, float]],
+                                          None]] = None,
 ) -> Booster:
-    """Train a boosted ensemble on one device (default ``cuda``).
+    """Train a boosted ensemble on one device (default ``cuda``), or
+    row-sharded over a data group.
 
     Each iteration computes grad/hess from the objective on the current
     ``[n, K]`` margin (K = 1, or ``num_class`` for multiclass), grows one
@@ -1905,6 +2061,19 @@ def train_booster(
     ``categorical_features`` (feature indexes; the binner's, when
     ``dataset`` is given) split by LightGBM's sorted-subset search. ``X``
     and the validation rows may be scipy sparse matrices.
+
+    ``mesh`` (default: the dataset's, else
+    :func:`...parallel.mesh.get_default_mesh`) is the data group: every
+    rank calls with the same global rows and keeps its slice
+    (:meth:`LightGBMDataset.construct`), histograms and totals are summed
+    over the group (``cfg.voting``: voting_parallel; ``cfg.hist_blocks``:
+    the deterministic blocked reduction, resolved first by
+    :func:`...parallel.placement.resolve_hist_blocks`), per-row draws are
+    each rank's slice of the global stream, validation rows are sharded
+    too and their metrics summed over the group, and every rank returns
+    the same booster. ``checkpoint_dir`` needs one rank.
+    ``iteration_callback(it, {metric: value})`` is called after every
+    iteration (an empty dict where no metric was evaluated).
     """
     # each fit starts with clean training-health sentinel windows
     _watchdog.reset_training_health("gbdt")
@@ -1920,6 +2089,19 @@ def train_booster(
         raise ValueError("y/weight/row_valid are baked into the dataset at "
                          "construct() time; do not pass them alongside "
                          "dataset=")
+    mesh = mesh or (dataset.mesh if dataset is not None
+                    else meshlib.get_default_mesh())
+    if mesh.size > 1 and checkpoint_dir is not None:
+        raise NotImplementedError(
+            f"checkpointDir over a data group of {mesh.size} ranks is not "
+            "ported (a checkpoint holds the whole score matrix)")
+    # the canonical reduction geometry, before anything else reads cfg:
+    # the padded row count is the dataset's, or the rows' padded to the
+    # group
+    n_pad = (dataset.n_pad if dataset is not None
+             else -(-int(np.shape(y)[0]) // mesh.size) * mesh.size)
+    cfg = cfg._replace(hist_blocks=placement.resolve_hist_blocks(
+        cfg.hist_blocks, mesh, n_pad, voting=cfg.voting))
     requested, auc_host = _check_options(
         objective=objective, boosting_type=boosting_type,
         init_booster=init_booster, checkpoint_dir=checkpoint_dir,
@@ -1976,6 +2158,7 @@ def train_booster(
                     init_booster,
                     resume.get("prior_iterations", 0) + num_iterations)
 
+    tw = _PhaseTimer()
     if boosting_type == "rf":
         # no shrinkage: the forest is averaged when it is finished
         cfg = cfg._replace(learning_rate=1.0)
@@ -1986,12 +2169,19 @@ def train_booster(
             X, y, weight, max_bin=max_bin, bin_sample_count=bin_sample_count,
             seed=seed, bin_dtype=bin_dtype,
             max_bin_by_feature=max_bin_by_feature, row_valid=row_valid,
-            categorical_features=categorical_features, device=device)
+            categorical_features=categorical_features, device=device,
+            mesh=mesh, _timer=tw)
+    if dataset.mesh.ranks != mesh.ranks:
+        raise ValueError(f"the dataset is sharded over {dataset.mesh}, the "
+                         f"fit asks for {mesh}")
     dev = dataset.device
     max_bin = dataset.max_bin
     cfg = cfg._replace(num_bins=max_bin)
     F, n = dataset.num_features, dataset.n
     Xbt, y_d, w_d, vmask = dataset.Xbt, dataset.y, dataset.w, dataset.vmask
+    placement.plan_for("gbdt.fit", mesh=mesh, rows=dataset.n_pad, device=dev,
+                       boosting=boosting_type)
+    group = _grow_group(mesh, cfg)
     # categorical routing mask, None without categorical features
     is_cat_np = dataset.binner.is_cat_mask()
     is_cat = torch.from_numpy(is_cat_np).to(dev) if is_cat_np.any() else None
@@ -2011,14 +2201,19 @@ def train_booster(
             scores = torch.from_numpy(np.asarray(saved, np.float32)).to(dev)
         else:
             scores = init_booster.predict_raw_tensor(torch.from_numpy(
-                np.ascontiguousarray(_densify(X), np.float32)).to(dev))
+                placement.local_rows(np.asarray(_densify(X), np.float32), mesh)
+            ).to(dev))
     else:
-        base_d = (obj.init_score(y_d, w_d * vmask).reshape(1).expand(K)
+        # over the whole (padded) rows, gathered in rank order: the same
+        # reduction at every world size
+        y_all, wv_all = (mesh.all_gather(t) for t in (y_d, w_d * vmask))
+        base_d = (obj.init_score(y_all, wv_all).reshape(1).expand(K)
                   if boost_from_average else torch.zeros(K, device=dev))
         base_d = base_d.to(torch.float32).contiguous()
         base = base_d.cpu().numpy()
-        scores = base_d.repeat(dataset.n_pad, 1)             # [n_pad, K]
+        scores = base_d.repeat(dataset.n_local, 1)         # [n_local, K]
     scores = scores.contiguous()
+    tw.mark("base_scores", dev)
 
     depth_cap = (cfg.max_depth if cfg.max_depth > 0
                  else max(1, cfg.num_leaves - 1))
@@ -2040,9 +2235,9 @@ def train_booster(
             # saved scores are restored only against the same rows
             from ...utils.checkpoint import data_fingerprint
             valid_fp = data_fingerprint(Xv, yv, wv)
-        Xv_d = torch.from_numpy(Xv).to(dev)
+        Xv_d = torch.from_numpy(placement.local_rows(Xv, mesh)).to(dev)
         Xvb = bin_cols(Xv_d, torch.from_numpy(dataset.binner.upper_bounds),
-                       Xbt.dtype).t().contiguous()           # [nv, F]
+                       Xbt.dtype).t().contiguous()     # [nv_local, F]
         saved = None if resume is None else resume.get("vscores")
         if (saved is not None and valid_fp is not None
                 and resume.get("valid_fingerprint") == valid_fp
@@ -2051,18 +2246,21 @@ def train_booster(
         elif init_booster is not None:
             vscores = init_booster.predict_raw_tensor(Xv_d)
         else:
-            vscores = base_d.repeat(len(yv), 1)              # [nv, K]
+            vscores = base_d.repeat(Xv_d.shape[0], 1)  # [nv_local, K]
         del Xv_d
-        valid = _Valid(Xvb, torch.from_numpy(yv).to(dev),
-                       torch.from_numpy(wv).to(dev), yv, wv,
-                       vscores.contiguous())
+        # padding rows weigh 0
+        valid = _Valid(Xvb, placement.shard_rows(yv, mesh, device=dev)[0],
+                       placement.shard_rows(wv, mesh, device=dev)[0],
+                       yv, wv, vscores.contiguous())
+        tw.mark("valid_prep", dev)
 
     sampling = _RowSampling(
         boosting_type=boosting_type, vmask=vmask, y=y_d, seed=seed,
         bagging_fraction=bagging_fraction, bagging_freq=bagging_freq,
         pos_bagging_fraction=pos_bagging_fraction,
         neg_bagging_fraction=neg_bagging_fraction, top_rate=top_rate,
-        other_rate=other_rate)
+        other_rate=other_rate,
+        rows=(mesh.rank * dataset.n_local, dataset.n_pad))
     grow = (grow_tree_depthwise if cfg.growth_policy == "depthwise"
             else grow_tree)
     gen = torch.Generator().manual_seed(int(seed))
@@ -2077,7 +2275,8 @@ def train_booster(
             feature_fraction=feature_fraction, sampling=sampling, gen=gen,
             grow=grow, is_cat=is_cat, metric_eval_period=metric_eval_period,
             drop_rate=drop_rate, max_drop=max_drop, skip_drop=skip_drop,
-            drop_seed=drop_seed)
+            drop_seed=drop_seed, mesh=mesh, group=group,
+            iteration_callback=iteration_callback)
     if resume is not None:
         es.restore(resume)
         # the feature subsets of the iterations already done
@@ -2110,7 +2309,7 @@ def train_booster(
     try:
         for it in range(iterations_done, num_iterations):
             hb.beat()
-            grad, hess = obj.grad_hess(column(scores), y_d, w_d)
+            grad, hess = _grad_hess(obj, column(scores), y_d, w_d, group)
             if K == 1:
                 grad, hess = grad[:, None], hess[:, None]
             row_mask = sampling(it, grad)
@@ -2118,7 +2317,7 @@ def train_booster(
             trees = []
             for k, (tree, row_node) in enumerate(_grow_iteration(
                     grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat, seed,
-                    it)):
+                    it, group)):
                 # rf's trees all fit the base score's gradients
                 if not is_rf:
                     scores[:, k] += tree.leaf_value[row_node.long()]
@@ -2129,11 +2328,13 @@ def train_booster(
                         or it == num_iterations - 1)
             if provide_training_metric and evaluate:
                 es.history.setdefault(f"training_{device_metric}",
-                                      []).append(float(eval_metric(
-                                          obj, column(scores), y_d,
-                                          w_d * vmask, metric=eval_override,
-                                          **objective_kwargs)[1]))
+                                      []).append(_global_metric(
+                                          mesh, obj, column(scores), y_d,
+                                          w_d * vmask, device_metric,
+                                          metric=eval_override,
+                                          **objective_kwargs))
             stop = False
+            round_metrics: Dict[str, float] = {}
             if valid is not None:
                 vscores = valid.scores
                 for k, tree in enumerate(trees):
@@ -2142,18 +2343,24 @@ def train_booster(
                 if evaluate:
                     if auc_host:
                         # rank-based: the rf average changes no order
-                        m = auc_weighted(vscores[:, 0].cpu().numpy(),
+                        margin = mesh.all_gather(vscores[:, 0])
+                        m = auc_weighted(margin[:len(valid.y_host)]
+                                         .cpu().numpy(),
                                          valid.y_host, valid.w_host)
                     else:
                         veval = (base_d[None, :]
                                  + (vscores - base_d[None, :]) / float(it + 1)
                                  if is_rf else vscores)
-                        m = float(eval_metric(obj, column(veval), valid.y,
-                                              valid.w, metric=eval_override,
-                                              **objective_kwargs)[1])
+                        m = _global_metric(mesh, obj, column(veval), valid.y,
+                                           valid.w, device_metric,
+                                           metric=eval_override,
+                                           **objective_kwargs)
                     _watchdog.report_training_metric(
                         "gbdt", it, loss=m, metric_name=metric_name)
                     stop = es.update(it, m)
+                    round_metrics[metric_name] = m
+            if iteration_callback is not None:
+                iteration_callback(it, round_metrics)
             if stop:
                 break
             now_round = time.perf_counter()
@@ -2175,6 +2382,7 @@ def train_booster(
         if unregister_dump is not None:
             unregister_dump()
 
+    tw.mark("boosting", dev)
     booster = finalize(all_trees)
     # a resume cuts as a fresh run does (its trees carry global iteration
     # indices); only a caller's warm start keeps every tree
@@ -2192,7 +2400,7 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
                 base_d, valid, depth_cap, es, num_iterations, seed,
                 feature_fraction, sampling, gen, grow, is_cat,
                 metric_eval_period, drop_rate, max_drop, skip_drop,
-                drop_seed) -> Booster:
+                drop_seed, mesh, group, iteration_callback) -> Booster:
     """DART boosting (Dropouts meet Multiple Additive Regression Trees;
     LightGBM's ``boosting=dart``, reference: TrainParams.scala:9-10).
 
@@ -2256,13 +2464,14 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
         for it in range(T):
             hb.beat()
             sc = weighted(contribs, eff_rows[it], it)
-            grad, hess = obj.grad_hess(sc if K > 1 else sc[:, 0], y_d, w_d)
+            grad, hess = _grad_hess(obj, sc if K > 1 else sc[:, 0], y_d,
+                                    w_d, group)
             if K == 1:
                 grad, hess = grad[:, None], hess[:, None]
             row_mask = sampling(it, grad)
             fmask = _feature_mask(gen, F, feature_fraction, dev)
             grown = _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask,
-                                    cfg, is_cat, seed, it)
+                                    cfg, is_cat, seed, it, group)
             for k, (tree, row_node) in enumerate(grown):
                 contribs[it, :, k] = tree.leaf_value[row_node.long()]
                 all_trees.append(tree)
@@ -2270,16 +2479,22 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
                     vcontribs[it, :, k] = predict_tree_binned(
                         tree, valid.Xb, depth_cap, is_cat)
             n_done = it + 1
+            round_metrics: Dict[str, float] = {}
+            stop = False
             if valid is not None and (it % metric_eval_period == 0
                                       or it == T - 1):
                 vsc = weighted(vcontribs, post_rows[it], it + 1)
-                m = float(eval_metric(obj, vsc if K > 1 else vsc[:, 0],
-                                      valid.y, valid.w,
-                                      **objective_kwargs)[1])
+                m = _global_metric(mesh, obj, vsc if K > 1 else vsc[:, 0],
+                                   valid.y, valid.w, es.name,
+                                   **objective_kwargs)
                 _watchdog.report_training_metric("gbdt", it, loss=m,
                                                  metric_name=es.name)
-                if es.update(it, m):
-                    break
+                stop = es.update(it, m)
+                round_metrics[es.name] = m
+            if iteration_callback is not None:
+                iteration_callback(it, round_metrics)
+            if stop:
+                break
             now_round = time.perf_counter()
             _watchdog.report_training_metric("gbdt", it,
                                              seconds=now_round - t_round)

@@ -1,4 +1,5 @@
-"""Tree growth on one device, in eager PyTorch: leafwise and depthwise.
+"""Tree growth in eager PyTorch: leafwise and depthwise, on one device or
+row-sharded over a data group.
 
 Counterpart of ``mmlspark_tpu/models/gbdt/growth.py`` (LightGBM's tree
 learner; reference: lightgbm/TrainUtils.scala:246). Trees keep the JAX
@@ -29,6 +30,24 @@ host.
 Per-node state tensors carry one spare slot at index ``M``: writes for
 candidates that do not split go there (the JAX package's ``mode="drop"``)
 and the slot is cut off when the tree is returned.
+
+With ``group`` (a :class:`...parallel.mesh.Mesh`; the JAX package's
+``axis_name``) each rank holds a slice of the rows and the trees are grown
+on the collective path, as the JAX package's ``shard_map`` program does:
+
+  * data_parallel: histograms and stat totals are summed over the group
+    (``all_reduce``), so every rank takes the same split decisions;
+  * ``GrowConfig.hist_blocks`` (the deterministic blocked reduction):
+    every row reduction — histograms, totals, leaf renewal — is computed
+    per fixed row block, gathered in rank order and folded left to right,
+    and quantization derives from global amax and row indices, so every
+    world size dividing the block count grows bit-identical trees;
+  * ``GrowConfig.voting`` (voting_parallel): ranks vote their ``top_k``
+    features and only the top ``2 * top_k`` features' histograms are
+    summed; on one rank too, it restricts the split search.
+
+The collective path turns off histogram subtraction (a rank's share of the
+globally smaller children has no bound).
 """
 
 from __future__ import annotations
@@ -37,8 +56,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ...ops.histogram import (node_histogram, positional_uniform,
-                              quantize_stats)
+from ...ops.histogram import (NONFINITE_SHIFT, fixed_point_shifts,
+                              node_histogram, positional_uniform,
+                              quant_q_max, quantize_stats)
 
 NEG_INF = float("-inf")
 
@@ -85,9 +105,18 @@ class GrowConfig(NamedTuple):
     # with quantized_grad: boosting iterations below this grow at full
     # precision (train_booster applies it)
     quant_warmup_iters: int = 2
-    # the JAX package's deterministic blocked reduction; not ported: a value
-    # above 1 raises NotImplementedError
-    hist_blocks: int = 0
+    # voting_parallel (reference: lightgbm/LightGBMParams.scala:13-27):
+    # ranks vote their locally best top_k features; only the top 2*top_k
+    # features' histograms are summed and searched
+    voting: bool = False
+    top_k: int = 20
+    # the deterministic blocked reduction (topology-independent training):
+    # 0 = plain all-reduce; k >= 2 computes every row reduction per fixed
+    # row block, folded in block order, so world sizes dividing k grow
+    # bit-identical trees; "auto" resolves through
+    # parallel.placement.resolve_hist_blocks (MMLSPARK_TPU_HIST_BLOCKS)
+    # before training, and reaching growth unresolved it is 0
+    hist_blocks: "int | str" = "auto"
     # categorical splits (LightGBM cat_smooth / max_cat_threshold): category
     # bins are ordered by the smoothed ratio g / (h + cat_smooth) and their
     # prefixes, up to max_cat_threshold bins long, scanned as left subsets
@@ -101,8 +130,7 @@ def resolve_growth_backend(cfg: GrowConfig) -> GrowConfig:
 
     A GPU takes the JAX package's non-TPU rule: ``hist_subtraction``
     ``"auto"`` -> True, ``compact_selector`` ``"auto"`` -> "searchsorted".
-    Idempotent; validates the fields and refuses ``hist_blocks``, which is
-    not ported."""
+    Idempotent; validates the fields."""
     hs, cs = cfg.hist_subtraction, cfg.compact_selector
     if cs not in ("auto", "argsort", "searchsorted"):
         raise ValueError(
@@ -114,19 +142,93 @@ def resolve_growth_backend(cfg: GrowConfig) -> GrowConfig:
     if cfg.growth_policy not in ("leafwise", "depthwise"):
         raise ValueError(f"growth_policy must be 'leafwise' or 'depthwise', "
                          f"got {cfg.growth_policy!r}")
-    _check_plain_geometry(cfg)
     return cfg._replace(hist_subtraction=True if hs == "auto" else hs,
                         compact_selector=("searchsorted" if cs == "auto"
                                           else cs))
 
 
-def _check_plain_geometry(cfg: GrowConfig) -> None:
-    """Only the plain reduction is ported (the JAX package's
-    ``hist_blocks`` of 0)."""
-    if cfg.hist_blocks not in (0, 1):
-        raise NotImplementedError(
-            f"hist_blocks={cfg.hist_blocks!r} (the deterministic blocked "
-            "reduction) is not ported to the PyTorch package")
+def _blocked(cfg: GrowConfig) -> bool:
+    hb = cfg.hist_blocks
+    return isinstance(hb, int) and not isinstance(hb, bool) and hb > 1
+
+
+def _hist_block_geometry(cfg: GrowConfig, group, n: int):
+    """(blocks_local, rows_per_block) for the blocked reduction; (0, n) on
+    the plain path. Raises when a pinned block count cannot tile this
+    rank's rows (train_booster resolves these cases up front via
+    placement.resolve_hist_blocks; direct growth callers fail loudly)."""
+    if not _blocked(cfg):
+        return 0, n
+    hb = cfg.hist_blocks
+    if cfg.voting:
+        raise ValueError(
+            "hist_blocks does not compose with voting_parallel (the "
+            "shard-local ballot is inherently topology-dependent)")
+    size = 1 if group is None else group.size
+    if hb % size:
+        raise ValueError(
+            f"hist_blocks={hb} is not a multiple of the {size}-shard data "
+            "axis")
+    bl = hb // size
+    if n % bl:
+        raise ValueError(
+            f"shard row count {n} does not tile into {bl} blocks "
+            f"(hist_blocks={hb} over {size} shards)")
+    return bl, n // bl
+
+
+def _blocked_fold(parts: torch.Tensor, group) -> torch.Tensor:
+    """Gather the ranks' block partials (``[blocks_local, ...]``) into
+    canonical block order and fold them left to right: ``acc = p[0]``,
+    then ``acc = acc + p[j]``, an explicit order no reduction kernel
+    chooses."""
+    if group is not None:
+        parts = group.all_gather(parts)
+    acc = parts[0]
+    for j in range(1, parts.shape[0]):
+        acc = acc + parts[j]
+    return acc
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """``2^k`` in f64, exactly, for int ``k`` in [-1022, 1023]: built from
+    the exponent bits (a library ``pow`` or ``exp2`` need not be exact)."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _exact_block_sums(x: torch.Tensor, blocks: int,
+                      seg: Optional[torch.Tensor] = None,
+                      segments: int = 1) -> torch.Tensor:
+    """``[blocks, C, segments]`` f32: the sums of ``x`` ([C, n] f32) over
+    each of ``blocks`` consecutive row blocks (and, with ``seg`` [n] in
+    [0, segments), over each segment id in it), each the exact sum rounded
+    once to f32 — bits that no summation order, device or layout moves.
+
+    The blocked reduction needs that: a float ``sum`` or ``index_add_``
+    on a GPU adds in an order that depends on the launch (and on the
+    slice's alignment), which would make a fit's leaves differ between
+    runs and world sizes. Each (channel, block) is summed as int64 fixed
+    point at the deterministic mode's shifts (:func:`fixed_point_shifts`),
+    exactly. A block whose values are not all finite sums to NaN."""
+    C, n = x.shape
+    rpb = n // blocks
+    xb = x.reshape(C, blocks, rpb).to(torch.float64)
+    shift = fixed_point_shifts(xb.abs().amax(dim=2), rpb)      # [C, blocks]
+    finite = shift != NONFINITE_SHIFT
+    shift = torch.where(finite, shift, 0)
+    q = torch.round(xb * _pow2(shift)[:, :, None]).to(torch.int64)
+    if seg is None:
+        acc = q.sum(dim=2, keepdim=True)
+    else:
+        ids = (seg.reshape(blocks, rpb)
+               + torch.arange(blocks, device=seg.device)[:, None] * segments)
+        acc = torch.zeros((C, blocks * segments), dtype=torch.int64,
+                          device=x.device)
+        acc.index_add_(1, ids.reshape(-1), q.reshape(C, n))
+        acc = acc.reshape(C, blocks, segments)
+    inv = torch.where(finite, _pow2(-shift), float("nan"))
+    out = acc.to(torch.float64) * inv[..., None]
+    return out.to(torch.float32).permute(1, 0, 2).contiguous()
 
 
 class Tree(NamedTuple):
@@ -157,6 +259,59 @@ def _soft_threshold(g, l1):
 def _leaf_objective(g, h, cfg):
     sg = _soft_threshold(g, cfg.lambda_l1)
     return sg * sg / (h + cfg.lambda_l2 + 1e-38)
+
+
+def _feature_best_gains(hist: torch.Tensor, fm: torch.Tensor,
+                        cfg: GrowConfig) -> torch.Tensor:
+    """[K, F] best local split gain per node and feature from local
+    ``[K, F, 3, B]`` histograms, node totals taken from the histograms
+    themselves — a rank's vote under voting_parallel."""
+    B = hist.shape[-1]
+    gl = torch.cumsum(hist[:, :, 0, :], dim=-1)
+    hl = torch.cumsum(hist[:, :, 1, :], dim=-1)
+    cl = torch.cumsum(hist[:, :, 2, :], dim=-1)
+    tg, th, tc = gl[..., -1:], hl[..., -1:], cl[..., -1:]
+    gr, hr, cr = tg - gl, th - hl, tc - cl
+    gain = (_leaf_objective(gl, hl, cfg) + _leaf_objective(gr, hr, cfg)
+            - _leaf_objective(tg, th, cfg))
+    ok = ((cl >= cfg.min_data_in_leaf) & (cr >= cfg.min_data_in_leaf)
+          & (hl >= cfg.min_sum_hessian_in_leaf)
+          & (hr >= cfg.min_sum_hessian_in_leaf) & fm[None, :, None])
+    ok[..., B - 1] = False
+    return torch.where(ok, gain, torch.full_like(gain, NEG_INF)).amax(dim=-1)
+
+
+def _voting_select(h: torch.Tensor, feat_mask: torch.Tensor,
+                   cfg: GrowConfig, group, W: int):
+    """voting_parallel feature selection (LightGBMParams.scala:13-27): each
+    rank votes its ``top_k`` features by best local gain (max over the
+    ``W`` frontier nodes), the votes are summed, and only the global top
+    ``2 * top_k`` features' histograms are summed — scattered back into a
+    zeroed ``[F, 3W, B]`` array. Ties go to the lower feature index, as
+    ``lax.top_k``'s do. Returns (h_global, selected [F] bool)."""
+    F, _, B = h.shape
+    hw = h.reshape(F, W, 3, B).permute(1, 0, 2, 3)
+    g = _feature_best_gains(hw, feat_mask, cfg).amax(dim=0)         # [F]
+    k = min(int(cfg.top_k), F)
+    top_g, local_top = torch.sort(g, descending=True, stable=True)
+    top_g, local_top = top_g[:k], local_top[:k]
+    # a rank with no feasible split (all -inf: small nodes at deep
+    # levels) casts no votes for the arbitrary indices the sort returns
+    ballots = (top_g > NEG_INF).to(torch.float32)
+    votes = torch.zeros(F, dtype=torch.float32, device=h.device)
+    votes.index_add_(0, local_top, ballots)
+    if group is not None:
+        votes = group.all_reduce(votes)
+    sel = torch.sort(torch.sort(votes, descending=True, stable=True)
+                     .indices[:min(2 * k, F)]).values
+    hsel = h[sel]
+    if group is not None:
+        hsel = group.all_reduce(hsel)
+    hfull = torch.zeros_like(h)
+    hfull[sel] = hsel
+    mask = torch.zeros(F, dtype=torch.bool, device=h.device)
+    mask[sel] = True
+    return hfull, mask
 
 
 def bitset_words(num_bins: int) -> int:
@@ -271,49 +426,91 @@ def _route_rows_to_children(binned_t, row_node, slots, do, feats, bins_,
     return new_row_node, move, goleft_k
 
 
-def _use_subtraction(cfg: GrowConfig, n: int) -> bool:
+def _use_subtraction(cfg: GrowConfig, n: int, group=None) -> bool:
     """Histogram subtraction engages on a resolved ``True`` at real row
     counts only (the JAX package's threshold, ``n >= 8192``), for both
-    growth policies."""
+    growth policies, and never on the collective path (a group, voting or
+    the blocked reduction: the compacted smaller-child pass has neither a
+    bound per rank nor a canonical block tiling)."""
     if cfg.hist_subtraction == "auto":
         raise ValueError(
             "hist_subtraction='auto' reached tree growth unresolved — "
             "callers must apply resolve_growth_backend(cfg) first")
-    return bool(cfg.hist_subtraction) and n >= 8192
+    return (bool(cfg.hist_subtraction) and group is None
+            and not _blocked(cfg) and not cfg.voting and n >= 8192)
 
 
-def _quantize_for(base_t: torch.Tensor, qkey: Optional[Tuple[int, int]]):
+def _quantize_for(base_t: torch.Tensor, qkey: Optional[Tuple[int, int]],
+                  group=None, blocks_local: int = 0,
+                  rows_per_block: int = 0):
     """int8 quantization of one tree's ``[3, n]`` stats (the JAX package's
-    ``_quantize_for`` on its plain path): stochastic rounding from
-    :func:`positional_uniform` under ``qkey``, round-to-nearest when it is
+    ``_quantize_for``): stochastic rounding from :func:`positional_uniform`
+    under ``qkey`` over global row indices, round-to-nearest when it is
     None. The JAX package's plain path draws ``jax.random.uniform(qkey)``
     instead (only its blocked path uses the positional hash); the port uses
     the positional hash everywhere, so a fit rounds the same rows the same
-    way on every device. Returns (int8 stats, f32 scales [3])."""
+    way on every device. The blocked mode takes the scales from the global
+    amax (``all_reduce(MAX)`` is exact) and bounds the int32 accumulator by
+    the rows per block. Returns (int8 stats, f32 scales [3])."""
+    S, n = base_t.shape
+    # ranks hold equal consecutive slices: this rank's first global row
+    start = 0 if group is None else group.rank * n
     u = None if qkey is None else positional_uniform(
-        qkey, base_t.shape[0], base_t.shape[1], base_t.device)
-    return quantize_stats(base_t, u=u)
+        qkey, S, n, base_t.device, start=start)
+    if not blocks_local:
+        return quantize_stats(base_t, u=u)
+    amax = base_t.abs().amax(dim=1)
+    if group is not None:
+        amax = group.all_reduce(amax, op="max")
+    return quantize_stats(base_t, amax=amax,
+                          q_max=quant_q_max(rows_per_block), u=u)
 
 
-def _stat_totals(base_t: torch.Tensor, qscales: Optional[torch.Tensor]):
-    """[3] grad/hess/count totals of a node's rows. Quantized stats are
-    summed exactly in int32 (quant_q_max bounds the sum below 2^31) and
-    then scaled, so the totals agree with the dequantized histograms."""
+def _stat_totals(base_t: torch.Tensor, qscales: Optional[torch.Tensor],
+                 group=None, blocks_local: int = 0,
+                 rows_per_block: int = 0):
+    """[3] grad/hess/count totals of a node's rows, over the group.
+    Quantized stats are summed exactly in int32 (quant_q_max bounds the sum
+    below 2^31) and then scaled, so the totals agree with the dequantized
+    histograms. The blocked mode folds per-block sums in block order; a
+    quantized block sum widens to f32 before the fold (folding raw int32
+    over every block would wrap once q_max * rows crosses 2^31)."""
+    if blocks_local:
+        if qscales is not None:
+            parts = base_t.reshape(3, blocks_local, rows_per_block).sum(
+                dim=2, dtype=torch.int32).to(torch.float32).t()
+        else:
+            parts = _exact_block_sums(base_t, blocks_local)[:, :, 0]
+        tot = _blocked_fold(parts.contiguous(), group)
+        return tot * qscales if qscales is not None else tot
     if qscales is not None:
-        return base_t.sum(dim=1, dtype=torch.int32) * qscales
-    return base_t.sum(dim=1)
+        tot = base_t.sum(dim=1, dtype=torch.int32) * qscales
+    else:
+        tot = base_t.sum(dim=1)
+    return tot if group is None else group.all_reduce(tot)
 
 
-def _renew_leaf_stats(ng, nh, nc, is_leaf, row_node, grad, hess, vm):
+def _renew_leaf_stats(ng, nh, nc, is_leaf, row_node, grad, hess, vm,
+                      group=None, blocks_local: int = 0,
+                      rows_per_block: int = 0):
     """Full-precision leaf stats for quantized training (LightGBM
     quant_train_renew_leaf): each leaf's grad/hess/count recomputed from
     the f32 stats by one segment-sum over the final row->leaf map, so leaf
     values carry no int8 error. Internal nodes keep their recorded stats.
-    The arrays are ``[M + 1]`` with the spare slot."""
+    The arrays are ``[M + 1]`` with the spare slot. Over a group the sums
+    are all-reduced, or (blocked mode) taken per block and folded in block
+    order."""
     stats = torch.stack([grad * vm, hess * vm, vm])              # [3, n]
-    renew = torch.zeros((3, ng.shape[0]), dtype=torch.float32,
-                        device=ng.device)
-    renew.index_add_(1, row_node.long(), stats)
+    seg = row_node.long()
+    if blocks_local:
+        renew = _blocked_fold(_exact_block_sums(
+            stats, blocks_local, seg, ng.shape[0]), group)
+    else:
+        renew = torch.zeros((3, ng.shape[0]), dtype=torch.float32,
+                            device=ng.device)
+        renew.index_add_(1, seg, stats)
+        if group is not None:
+            renew = group.all_reduce(renew)
     return tuple(torch.where(is_leaf, renew[i], v)
                  for i, v in enumerate((ng, nh, nc)))
 
@@ -374,25 +571,65 @@ def _subtracted_pair_hists(binned_t, base_t, qscales, row_small,
     return torch.stack([left_h, right_h], dim=1).reshape(2 * K, F, 3, B)
 
 
-def _prepare_stats(grad, hess, valid, cfg: GrowConfig, qkey):
+class _Stats(NamedTuple):
+    """The masked ``[3, n]`` stats a tree is grown from, and how its row
+    reductions run: ``group`` (None on one device), the blocked geometry
+    (``blocks``, ``rpb``; 0 and n on the plain path)."""
+    vm: torch.Tensor
+    base_t: torch.Tensor
+    qscales: Optional[torch.Tensor]
+    group: object
+    blocks: int
+    rpb: int
+
+    def hist(self, binned_t, row_pos, W: int, B: int, feat_mask, cfg):
+        """The frontier's global ``[F, 3W, B]`` histograms and the [F]
+        mask of features the split search may use: one pass summed over
+        the group (data_parallel), the blocked fold, or the voting
+        selection."""
+        ones = torch.ones_like(feat_mask)
+        if self.blocks:
+            parts = node_histogram(binned_t, row_pos, self.base_t, W, B,
+                                   scales=self.qscales, blocks=self.blocks)
+            return _blocked_fold(parts, self.group), ones
+        h = node_histogram(binned_t, row_pos, self.base_t, W, B,
+                           scales=self.qscales)
+        if self.group is None:
+            return h, ones
+        if not cfg.voting:
+            return self.group.all_reduce(h), ones
+        return _voting_select(h, feat_mask, cfg, self.group, W)
+
+    def totals(self):
+        return _stat_totals(self.base_t, self.qscales, self.group,
+                            self.blocks, self.rpb)
+
+
+def _prepare_stats(grad, hess, valid, cfg: GrowConfig, qkey,
+                   group=None) -> _Stats:
     """The masked ``[3, n]`` stats a tree is grown from, quantized when
-    ``cfg.quantized_grad``. Returns (vm, base_t, qscales or None)."""
-    _check_plain_geometry(cfg)
+    ``cfg.quantized_grad``, with the blocked geometry of this rank's
+    rows."""
+    n = grad.shape[0]
+    bl, rpb = _hist_block_geometry(cfg, group, n)
     vm = valid.to(torch.float32)
     base_t = torch.stack([grad * vm, hess * vm, vm], dim=0).contiguous()
-    if not cfg.quantized_grad:
-        return vm, base_t, None
-    base_t, qscales = _quantize_for(base_t, qkey)
-    return vm, base_t.contiguous(), qscales
+    qscales = None
+    if cfg.quantized_grad:
+        base_t, qscales = _quantize_for(base_t, qkey, group, bl, rpb)
+        base_t = base_t.contiguous()
+    return _Stats(vm, base_t, qscales, group, bl, rpb)
 
 
 def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
-                 ng, nh, nc, gain, bits, num_nodes, row_node, grad, hess, vm):
+                 ng, nh, nc, gain, bits, num_nodes, row_node, grad, hess,
+                 st: _Stats):
     """Leaf values from the node totals (renewed from the f32 stats first
     when quantized), and the ``[M]`` tree without the spare slot."""
     if cfg.quantized_grad and cfg.quant_renew_leaf:
         ng, nh, nc = _renew_leaf_stats(ng, nh, nc, is_leaf, row_node, grad,
-                                       hess, vm)
+                                       hess, st.vm, st.group, st.blocks,
+                                       st.rpb)
     ng, nh, nc = ng[:M], nh[:M], nc[:M]
     is_leaf = is_leaf[:M]
     raw_val = -_soft_threshold(ng, cfg.lambda_l1) / (nh + cfg.lambda_l2
@@ -413,8 +650,9 @@ def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
 def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               valid: torch.Tensor, feat_mask: torch.Tensor, cfg: GrowConfig,
               is_cat: Optional[torch.Tensor] = None,
-              qkey: Optional[Tuple[int, int]] = None):
-    """Grow one leafwise tree on one device.
+              qkey: Optional[Tuple[int, int]] = None, group=None):
+    """Grow one leafwise tree on one device, or on this rank's rows of
+    ``group`` (the collective path: every rank takes the same splits).
 
     binned_t: [F, n] int32/int16/uint8 (column-major); grad/hess: [n] f32;
     valid: [n] f32 row mask (0 for rows that must not count); feat_mask:
@@ -433,19 +671,21 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     B = int(cfg.num_bins)
     BW = bitset_words(B)
 
-    vm, base_t, qscales = _prepare_stats(grad, hess, valid, cfg, qkey)
-    use_sub = _use_subtraction(cfg, n)
+    st = _prepare_stats(grad, hess, valid, cfg, qkey, group)
+    base_t, qscales = st.base_t, st.qscales
+    use_sub = _use_subtraction(cfg, n, group)
     h_buf = max(n // 2, 1)
 
-    root_hist = node_histogram(binned_t, torch.zeros(n, dtype=torch.int32,
-                                                     device=dev),
-                               base_t, 1, B, scales=qscales)  # [F, 3, B]
-    tot = _stat_totals(base_t, qscales)
+    root_hist, sel0 = st.hist(binned_t, torch.zeros(
+        n, dtype=torch.int32, device=dev), 1, B, feat_mask, cfg)  # [F, 3, B]
+    # totals from the stats (under voting an unselected feature's rows are
+    # zeroed in the histograms)
+    tot = st.totals()
     root_allow = torch.tensor([cfg.max_depth < 0 or cfg.max_depth >= 1],
                               device=dev)
     g0, f0, b0, lg0, lh0, lc0, bits0 = _best_split(
         root_hist.reshape(1, F, 3, B), tot[0:1], tot[1:2], tot[2:3], cfg,
-        feat_mask, root_allow, is_cat)
+        feat_mask & sel0, root_allow, is_cat)
 
     def zeros(dtype):                      # M slots + the spare slot M
         return torch.zeros(M + 1, dtype=dtype, device=dev)
@@ -515,6 +755,7 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             hw = _subtracted_pair_hists(binned_t, base_t, qscales, row_small,
                                         small_is_left, parents, KB, B, h_buf,
                                         cfg.compact_selector)
+            sel = torch.ones_like(feat_mask)
         else:
             # child position in [0, 2*KB): 2i = left child of candidate i
             cpos = torch.where(goleft_k, 2 * arange_kb[:, None],
@@ -523,8 +764,7 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 move.any(dim=0),
                 torch.where(move, cpos, 0).sum(dim=0, dtype=torch.int32),
                 -1).to(torch.int32)
-            h = node_histogram(binned_t, child_pos, base_t, W2, B,
-                               scales=qscales)
+            h, sel = st.hist(binned_t, child_pos, W2, B, feat_mask, cfg)
             hw = h.reshape(F, W2, 3, B).permute(1, 0, 2, 3)  # [W2, F, 3, B]
 
         # child totals: left from the candidate cache, right = parent - left
@@ -537,7 +777,7 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                      else child_depth + 1 <= cfg.max_depth)
         allow2 = torch.repeat_interleave(can_split & do, 2)
         g2, f2, b2, lg2, lh2, lc2, bits2 = _best_split(
-            hw, tg, th, tc, cfg, feat_mask, allow2, is_cat)
+            hw, tg, th, tc, cfg, feat_mask & sel, allow2, is_cat)
 
         # record splits; slot M is the spare slot for non-splits
         pslot = torch.where(do, slots, slot_m).long()
@@ -567,7 +807,7 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         is_leaf[M] = True                  # the spare slot stays inert
 
     tree = _finish_tree(cfg, M, feat, thr, left, right, is_leaf, ng, nh, nc,
-                        gain, tbits, num_nodes, row_node, grad, hess, vm)
+                        gain, tbits, num_nodes, row_node, grad, hess, st)
     return tree, row_node
 
 
@@ -575,7 +815,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor, valid: torch.Tensor,
                         feat_mask: torch.Tensor, cfg: GrowConfig,
                         is_cat: Optional[torch.Tensor] = None,
-                        qkey: Optional[Tuple[int, int]] = None):
+                        qkey: Optional[Tuple[int, int]] = None, group=None):
     """Grow one tree level by level: one histogram pass per level.
 
     Counterpart of the JAX package's ``grow_tree_depthwise``. Every node
@@ -586,7 +826,8 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
     slots in frontier order. From level 1 on, with histogram subtraction
     (``n >= 8192``), only each sibling pair's smaller child is streamed and
     the larger one is its parent's histogram minus it. Without an explicit
-    ``max_depth`` the depth is capped at the balanced depth plus two.
+    ``max_depth`` the depth is capped at the balanced depth plus two. Under
+    voting, the ranks vote once per level over the whole frontier.
     Arguments and return value as :func:`grow_tree`.
     """
     F, n = binned_t.shape
@@ -597,8 +838,9 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
     depth_cap = (cfg.max_depth if cfg.max_depth > 0
                  else min(L - 1, (L - 1).bit_length() + 2))
 
-    vm, base_t, qscales = _prepare_stats(grad, hess, valid, cfg, qkey)
-    use_sub = _use_subtraction(cfg, n)
+    st = _prepare_stats(grad, hess, valid, cfg, qkey, group)
+    base_t, qscales = st.base_t, st.qscales
+    use_sub = _use_subtraction(cfg, n, group)
     h_buf = max(n // 2, 1)
 
     def zeros(dtype):                      # M slots + the spare slot M
@@ -609,7 +851,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
     ng, nh, nc, gain = (zeros(torch.float32) for _ in range(4))
     bits = torch.zeros((M + 1, bitset_words(B)), dtype=torch.int64,
                        device=dev)
-    tot0 = _stat_totals(base_t, qscales)
+    tot0 = st.totals()
     ng[0], nh[0], nc[0] = tot0[0], tot0[1], tot0[2]
 
     row_node = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -632,6 +874,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
         active = fr >= 0
         fr_l = fr.clamp(min=0).long()
 
+        fm_level = feat_mask
         if use_sub and depth >= 1:
             h = _sub_level_hist(binned_t, base_t, qscales, aux, frontier,
                                 row_node, W, M, B, h_buf,
@@ -644,14 +887,14 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
             slot_to_pos[torch.where(active, fr, M).long()] = torch.arange(
                 W, dtype=torch.int32, device=dev)
             row_pos = slot_to_pos[row_node.long()]
-            h = node_histogram(binned_t, row_pos, base_t, W, B,
-                               scales=qscales)
+            h, sel = st.hist(binned_t, row_pos, W, B, feat_mask, cfg)
+            fm_level = feat_mask & sel
             h = h.reshape(F, W, 3, B).permute(1, 0, 2, 3)      # [W, F, 3, B]
 
         pg, ph, pc = ng[fr_l], nh[fr_l], nc[fr_l]
         allow = active & (cfg.max_depth < 0 or depth + 1 <= cfg.max_depth)
         gains, feats, bins_, lgs, lhs, lcs, bits_w = _best_split(
-            h, pg, ph, pc, cfg, feat_mask, allow, is_cat)
+            h, pg, ph, pc, cfg, fm_level, allow, is_cat)
         gains = torch.where(active, gains, torch.full_like(gains, NEG_INF))
 
         # budget: leaves + splits <= num_leaves, best gains first
@@ -711,7 +954,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
         leaves = leaves + n_split
 
     tree = _finish_tree(cfg, M, feat, thr, left, right, is_leaf, ng, nh, nc,
-                        gain, bits, num_nodes, row_node, grad, hess, vm)
+                        gain, bits, num_nodes, row_node, grad, hess, st)
     return tree, row_node
 
 

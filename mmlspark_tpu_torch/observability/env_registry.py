@@ -139,6 +139,11 @@ REGISTRY: Tuple[EnvVar, ...] = (
     EnvVar(name="MMLSPARK_TPU_WATCHDOG_LOSS_WINDOW", default="8",
            doc="training-health sentinel window length (divergence / "
                "throughput-collapse detection)"),
+    EnvVar(name="MMLSPARK_TPU_TELEMETRY_ROUNDS", default="(off)",
+           doc="`1` enables the per-boost-round telemetry callback of the "
+               "estimators (a `boost_round` instant, "
+               "`gbdt_boost_rounds_total` and `gbdt_round_metric` per "
+               "round)"),
     # -- SLO plane / tail attribution --------------------------------------
     EnvVar(name="MMLSPARK_TPU_SLO", default="(off)",
            doc="per-endpoint serving objectives, `;`-separated "
@@ -168,6 +173,32 @@ REGISTRY: Tuple[EnvVar, ...] = (
            doc="period of the background `device_memory_bytes` sampling "
                "hooked into the watchdog tick and federation sweep "
                "(0 disables; samples only once CUDA is initialised)"),
+    # -- training ---------------------------------------------------------
+    EnvVar(name="MMLSPARK_TPU_HIST_BLOCKS", default="0",
+           section="performance",
+           doc="canonical histogram-reduction block count for "
+               "topology-independent GBDT training: world sizes dividing "
+               "it grow bit-identical trees (`8` covers 1/2/4/8 ranks); "
+               "0 keeps the plain all-reduce path (resolved via "
+               "`placement.resolve_hist_blocks` before training; a value "
+               "the group or the rows cannot tile degrades to 0 with a "
+               "flight event)"),
+    EnvVar(name="MMLSPARK_TPU_MESH_DEVICES", default="(all devices)",
+           section="performance",
+           doc="cap the default data group to its first N ranks "
+               "(scaling A/B legs, placement debugging); an explicit "
+               "`make_mesh` group is honored as given"),
+    EnvVar(name="MMLSPARK_TPU_TIMING", default="(off)",
+           section="performance",
+           doc="`1` prints a wall-time phase breakdown per "
+               "`train_booster` call (console output by design — an "
+               "explicit operator request, independent of the telemetry "
+               "kill switch)"),
+    EnvVar(name="MMLSPARK_TPU_BINNED_CACHE", default="1",
+           section="performance",
+           doc="`0` disables the binned-device-dataset fit cache (the "
+               "cache pins up to two [F, n] bin matrices in device "
+               "memory; `clear_binned_dataset_cache()` releases them)"),
     # -- predict lanes / ingest -------------------------------------------
     EnvVar(name="MMLSPARK_TPU_PREDICT_DTYPE", default="f32",
            section="performance",

@@ -17,7 +17,12 @@ The kernels (``KERNELS``, sources in ``csrc/``):
     stats (exact int32 sums, dequantized here); launches counted in
     ``node_histogram.int8_launches``;
   * ``hist_bf16`` — :func:`histogram_cols` / :func:`histogram`, the unfused
-    ``[F, S, B]`` histogram; launches counted in ``histogram_cols.launches``.
+    ``[F, S, B]`` histogram; launches counted in ``histogram_cols.launches``;
+  * ``node_hist_det`` — kernel 1's deterministic mode, :func:`node_histogram`
+    with ``blocks=`` over f32 stats: one partial per fixed row block, the
+    same bits on every launch (fixed-point int64 sums); launches counted in
+    ``node_histogram.det_launches``. With int8 stats ``blocks=`` launches
+    ``node_hist_int8``, whose int32 sums are exact already.
 
 Layout matches the JAX package: ``binned_t`` is column-major ``[F, n]``,
 node stats are ``[3, n]`` and a node histogram is ``out[f, w*3 + s, b]``.
@@ -32,12 +37,14 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .histogram_scatter import hist_plain, node_hist_plain
+from .histogram_scatter import (blocks_as_nodes, hist_plain,
+                                node_hist_blocked_plain, node_hist_plain)
 
-KERNELS = ("node_hist", "node_hist_int8", "hist_bf16")
+KERNELS = ("node_hist", "node_hist_int8", "hist_bf16", "node_hist_det")
 _ENTRIES = {"node_hist": "mm_node_hist_bf16",
             "node_hist_int8": "mm_node_hist_int8",
-            "hist_bf16": "mm_hist_bf16"}
+            "hist_bf16": "mm_hist_bf16",
+            "node_hist_det": "mm_node_hist_det"}
 _BIN_BYTES = {torch.int32: 4, torch.int16: 2, torch.uint8: 1}
 _SMEM_MAX = 232448          # the kernels' per-block shared-memory ceiling
 _SM_SMEM = 233472           # shared memory of one Hopper SM (228 KB)
@@ -59,6 +66,7 @@ _COLS_MAX_GROUP = 4
 # and 16; every cost in (0.46, 0.71) picks those
 _ROW_COST = 0.6
 _MAX_BLOCKS = 2 ** 31 - 1   # the most blocks of a one-dimensional grid
+_INT32_CELL = 2 ** 31 - 1   # the most an int32 histogram cell holds
 _M32 = 0xFFFFFFFF
 _STATS_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -68,7 +76,23 @@ def quant_q_max(rows: int) -> float:
     below 127 once a histogram cell could overflow the int32 accumulator
     (``q_max * rows`` must stay under 2^31). Mirrors
     ``mmlspark_tpu/ops/histogram.py:quant_q_max``."""
-    return float(max(1, min(127, (2 ** 31 - 1) // max(int(rows), 1))))
+    return float(max(1, min(127, _INT32_CELL // max(int(rows), 1))))
+
+
+def _check_int8_range(base_t: torch.Tensor, cell_rows: int) -> None:
+    """Kernel 2's and its plain version's overflow guard: a cell sums at
+    most ``cell_rows`` int8 stats (all of them, or one block's), and
+    ``quantize_stats`` clips them to ``quant_q_max(cell_rows)``, which
+    keeps the cell's int32 sum in range. Only where a full int8 range could
+    overflow are the stats read (one sync), and a larger one raises."""
+    if 128 * cell_rows <= _INT32_CELL:
+        return
+    q = int(base_t.to(torch.int16).abs().amax()) if base_t.numel() else 0
+    if q > quant_q_max(cell_rows):
+        raise ValueError(
+            f"int8 stats reach |{q}| over {cell_rows} rows per histogram "
+            f"cell: an int32 cell could overflow (quant_q_max({cell_rows}) "
+            f"= {quant_q_max(cell_rows):g})")
 
 
 def quantize_stats(base_t: torch.Tensor, *,
@@ -117,16 +141,18 @@ def quant_key(seed: int, iteration: int, klass: int = 0) -> Tuple[int, int]:
 
 
 def positional_uniform(qkey: Tuple[int, int], channels: int, n: int,
-                       device=None) -> torch.Tensor:
+                       device=None, start: int = 0) -> torch.Tensor:
     """``[channels, n]`` f32 uniforms in [0, 1) that depend only on the key
-    and each row's index: the port's one source of stochastic-rounding
-    draws. A port of ``mmlspark_tpu/models/gbdt/growth.py:
-    _positional_uniform`` (one device, so the global row index is the local
-    one) with uint32 arithmetic done in int64 and reduced mod 2^32: for
-    the key words ``(k0, k1)`` it reproduces the JAX function's draws bit
-    for bit, and the same key gives the same draws on every device."""
+    and each row's global index (``start + i``: a rank's first row in the
+    global order): the port's one source of stochastic-rounding draws. A
+    port of ``mmlspark_tpu/models/gbdt/growth.py:_positional_uniform``
+    with uint32 arithmetic done in int64 and reduced mod 2^32: for the key
+    words ``(k0, k1)`` it reproduces the JAX function's draws bit for bit,
+    and the same key gives the same draws on every device and world
+    size."""
     k0, k1 = (int(k) & _M32 for k in qkey)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = (torch.arange(n, dtype=torch.int64, device=device)
+           + int(start)) & _M32
     ch = torch.arange(channels, dtype=torch.int64, device=device)[:, None]
     x = ((idx[None, :] ^ k0) + _mul32(ch, 0x9E3779B9)) & _M32
     x = _mix32(x ^ k1)
@@ -164,7 +190,8 @@ def _launch(kernel: str, entry: str, args: list, dev: torch.device) -> None:
 
 def node_histogram(binned_t: torch.Tensor, row_pos: torch.Tensor,
                    base_t: torch.Tensor, num_nodes: int, num_bins: int,
-                   scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   scales: Optional[torch.Tensor] = None,
+                   blocks: int = 0) -> torch.Tensor:
     """Per-frontier-node histograms in one pass: ``[F, 3W, B]`` f32.
 
     binned_t: [F, n] int32/int16/uint8; row_pos: [n] int32 in [-1, W) (-1:
@@ -175,16 +202,27 @@ def node_histogram(binned_t: torch.Tensor, row_pos: torch.Tensor,
     ``scales`` ([3] f32, with int8 ``base_t`` from :func:`quantize_stats`)
     selects the quantized-gradient histogram: the int8 stats are summed
     exactly in int32 and dequantized on return, ``out * scales[s]``.
+
+    ``blocks`` > 0 selects the deterministic blocked reduction
+    (``GrowConfig.hist_blocks``): ``[blocks, F, 3W, B]``, one partial per
+    block of ``n / blocks`` consecutive rows, each a function of its
+    block's rows and shape alone — on ``cuda`` kernel 1's deterministic
+    mode (``node_hist_det``) or, with ``scales``, kernel 2 over the blocks
+    as ``blocks * W`` nodes; on the CPU :func:`node_hist_blocked_plain`.
     """
     dev = binned_t.device
     W, B = int(num_nodes), int(num_bins)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"node_histogram: unsupported device {dev}")
+    if blocks:
+        return _node_histogram_blocked(binned_t, row_pos, base_t, W, B,
+                                       scales, int(blocks))
     if scales is None:
         if dev.type == "cpu":
             return node_hist_plain(binned_t, row_pos, base_t, W, B)
         return _node_hist_cuda(binned_t, row_pos, base_t, W, B)
     if dev.type == "cpu":
+        _check_int8_range(base_t, binned_t.shape[1])
         out = node_hist_plain(binned_t, row_pos, base_t, W, B,
                               acc_dtype=torch.int32)
     else:
@@ -195,6 +233,34 @@ def node_histogram(binned_t: torch.Tensor, row_pos: torch.Tensor,
 
 node_histogram.launches = 0
 node_histogram.int8_launches = 0
+node_histogram.det_launches = 0
+
+
+def _node_histogram_blocked(binned_t, row_pos, base_t, W: int, B: int,
+                            scales: Optional[torch.Tensor],
+                            blocks: int) -> torch.Tensor:
+    """:func:`node_histogram`'s ``blocks`` route: ``[blocks, F, 3W, B]``
+    f32 partials."""
+    if scales is None:
+        if binned_t.device.type == "cpu":
+            return node_hist_blocked_plain(binned_t, row_pos, base_t, W, B,
+                                           blocks)
+        return _node_hist_det_cuda(binned_t, row_pos, base_t, W, B, blocks)
+    rows = binned_t.shape[1] // blocks    # what one cell sums at most
+    if binned_t.device.type == "cpu":
+        _check_int8_range(base_t, rows)
+        out = node_hist_blocked_plain(binned_t, row_pos, base_t, W, B, blocks,
+                                      acc_dtype=torch.int32)
+    else:
+        # the int8 sums are exact, so kernel 2 needs no mode of its own:
+        # one launch over the blocks as nodes
+        out = _node_hist_int8_cuda(binned_t,
+                                   blocks_as_nodes(row_pos, W, blocks),
+                                   base_t, blocks * W, B, cell_rows=rows)
+        F = binned_t.shape[0]
+        out = out.reshape(F, blocks, 3 * W, B).permute(1, 0, 2, 3)
+    chan_scale = scales[torch.arange(3 * W, device=scales.device) % 3]
+    return out.to(torch.float32) * chan_scale[None, None, :, None]
 
 
 class NodeGeometry(NamedTuple):
@@ -474,26 +540,120 @@ def _node_hist_cuda(binned_t, row_pos, base_t, W: int, B: int,
 
 
 def _node_hist_int8_cuda(binned_t, row_pos, base_t, W: int, B: int,
-                         geometry: Optional[NodeGeometry] = None):
+                         geometry: Optional[NodeGeometry] = None,
+                         cell_rows: Optional[int] = None):
     """Kernel 2: validate, allocate the zeroed int32 output, launch
     ``node_hist_int8`` on the current stream with ``geometry`` (by default
-    :func:`_node_geometry`'s). A cell sums at most ``n`` stats of magnitude
-    at most ``quant_q_max(n)`` (``quantize_stats`` clips to it), which
-    keeps it below 2^31; at row counts where a full int8 range could
-    overflow, the stats are checked against that bound."""
+    :func:`_node_geometry`'s). A cell sums at most ``cell_rows`` of the
+    stats (by default all ``n``; one block's in the blocked route), whose
+    range :func:`_check_int8_range` bounds."""
     _check_node_args(binned_t, row_pos, base_t, W, B, torch.int8)
     F, n = binned_t.shape
-    if 128 * n > 2 ** 31 - 1:
-        q = int(base_t.to(torch.int16).abs().amax()) if n else 0
-        if q > quant_q_max(n):
-            raise ValueError(
-                f"int8 stats reach |{q}| over {n} rows: an int32 cell could "
-                f"overflow (quant_q_max({n}) = {quant_q_max(n):g})")
+    _check_int8_range(base_t, n if cell_rows is None else int(cell_rows))
     out = torch.zeros((F, 3 * W, B), dtype=torch.int32,
                       device=binned_t.device)
     _launch_node("node_hist_int8", binned_t, row_pos, base_t, out, W, B,
                  geometry)
     node_histogram.int8_launches += 1
+    return out
+
+
+# the SM count the deterministic mode's grid is sized for: a constant (an
+# H100 SXM's), so the geometry is a function of the shape alone
+_DET_SMS = 132
+
+
+def _det_geometry(rows: int, F: int, W: int, B: int,
+                  blocks: int) -> NodeGeometry:
+    """The geometry of one deterministic pass (``node_hist_det``) over
+    ``blocks`` row blocks of ``rows`` rows: a shape-only function (the
+    result does not depend on it — its sums are integers — but the mode
+    takes nothing from the card). Each (row block, feature group, node
+    tile) item holds a ``[group, tile, 3, B]`` int64 histogram in shared
+    memory, tiled as kernel 1's by :func:`_tiling` at ``24 B`` bytes per
+    node and feature; feature groups fill the tile's budget; the row
+    slices per item are as many as one wave of ``_DET_SMS`` SMs gives, one
+    row per thread per sweep. ``cluster`` is 1 and ``reps`` 1 (unused)."""
+    _check_shape(rows, F, W, B, 4)
+    item_bytes = 24 * B
+    if item_bytes > _SMEM_MAX:
+        raise ValueError(f"num_bins={B} needs {item_bytes} bytes of shared "
+                         f"memory per node in the deterministic mode; it "
+                         f"takes at most {_SMEM_MAX}")
+    tile, tiles, budget = _tiling(W, item_bytes, W)
+    groups = -(-F // max(1, min(F, budget // (tile * item_bytes))))
+    group = -(-F // groups)
+    smem = group * tile * item_bytes
+    wave = _DET_SMS * max(1, min(_NODE_BLOCKS_PER_SM,
+                                 _SM_SMEM // (smem + _BLOCK_RESERVE)))
+    items = blocks * groups * tiles
+    row_blocks = max(1, min(wave // items,
+                            -(-rows // (2 * _NODE_THREADS))))
+    if row_blocks * items > _MAX_BLOCKS:
+        raise ValueError(f"{row_blocks * items} blocks exceed a grid's "
+                         f"{_MAX_BLOCKS}")
+    return NodeGeometry(group, tile, 1, row_blocks,
+                        _balanced_threads(rows, row_blocks), smem, groups,
+                        tiles)
+
+
+NONFINITE_SHIFT = -2 ** 31   # the shift of a block with a non-finite value
+
+
+def fixed_point_shifts(amax: torch.Tensor, rows: int) -> torch.Tensor:
+    """int32 shifts of an exact fixed-point block sum, one per entry of
+    ``amax`` (a block's largest |value|, over ``rows`` values): each value
+    is added as ``round(x * 2^shift)`` in int64, with ``shift = 62 - e -
+    ceil(log2(rows))`` for ``amax < 2^e``, so the block's sum stays below
+    2^62 and no summation order moves it. Values below ``2^-shift`` lose
+    only their bits under it, far below f32's rounding of the sum. A
+    non-finite ``amax`` gets :data:`NONFINITE_SHIFT`: its sums come out
+    NaN. Computed on ``amax``'s device, with no sync."""
+    e = torch.frexp(amax).exponent.to(torch.int32)
+    shift = 62 - (max(rows, 1) - 1).bit_length() - e
+    return torch.where(torch.isfinite(amax), shift,
+                       torch.full_like(shift, NONFINITE_SHIFT))
+
+
+def _det_shifts(base_t: torch.Tensor, blocks: int) -> torch.Tensor:
+    """``[blocks, 3]`` :func:`fixed_point_shifts` of the deterministic
+    mode, from each block's largest |bf16 stat| (rounding to bf16 is
+    monotone, so that is the rounded largest |stat|)."""
+    rows = base_t.shape[1] // blocks
+    amax = base_t.reshape(3, blocks, rows).abs().amax(dim=2).t()
+    return fixed_point_shifts(amax.to(torch.bfloat16).to(torch.float32),
+                              rows).contiguous()
+
+
+def _node_hist_det_cuda(binned_t, row_pos, base_t, W: int, B: int,
+                        blocks: int,
+                        geometry: Optional[NodeGeometry] = None):
+    """Kernel 1's deterministic mode: validate, compute the shifts,
+    allocate the zeroed int64 sums and the f32 output, launch
+    ``node_hist_det`` (scatter and finish) on the current stream with
+    ``geometry`` (by default :func:`_det_geometry`'s). Returns
+    ``[blocks, F, 3W, B]`` f32."""
+    _check_node_args(binned_t, row_pos, base_t, W, B, torch.float32)
+    F, n = binned_t.shape
+    if blocks < 1 or n % blocks:
+        raise ValueError(f"{n} rows do not tile into {blocks} blocks")
+    g = geometry or _det_geometry(n // blocks, F, W, B, blocks)
+    shift = _det_shifts(base_t, blocks)
+    acc = torch.zeros((blocks, F, 3 * W, B), dtype=torch.int64,
+                      device=binned_t.device)
+    out = torch.empty((blocks, F, 3 * W, B), dtype=torch.float32,
+                      device=binned_t.device)
+    c = ctypes
+    _launch("node_hist_det", _ENTRIES["node_hist_det"], [
+        (c.c_void_p, binned_t.data_ptr()),
+        (c.c_int, _BIN_BYTES[binned_t.dtype]),
+        (c.c_void_p, row_pos.data_ptr()), (c.c_void_p, base_t.data_ptr()),
+        (c.c_void_p, shift.data_ptr()), (c.c_void_p, acc.data_ptr()),
+        (c.c_void_p, out.data_ptr()), (c.c_longlong, n), (c.c_int, blocks),
+        (c.c_int, F), (c.c_int, W), (c.c_int, B), (c.c_int, g.group),
+        (c.c_int, g.node_tile), (c.c_int, g.row_blocks),
+        (c.c_int, g.threads)], binned_t.device)
+    node_histogram.det_launches += 1
     return out
 
 

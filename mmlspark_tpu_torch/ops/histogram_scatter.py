@@ -14,6 +14,9 @@ Counterparts of ``mmlspark_tpu/ops/histogram_scatter.py``:
     summation order. With int8 stats (``acc_dtype=torch.int32``, the
     quantized-gradient path) they are accumulated exactly in int32, with
     no rounding.
+  * :func:`node_hist_blocked_plain` — the same per fixed row block
+    (``GrowConfig.hist_blocks``): ``[blocks, F, 3W, B]``, one partial per
+    block of ``n / blocks`` consecutive rows;
   * :func:`hist_plain` (``hist_scatter``) — the unfused ``[F, S, B]``
     histogram of ``histogram_cols``: stats rounded to ``stats_dtype``,
     summed in f32.
@@ -63,6 +66,37 @@ def node_hist_plain(binned_t: torch.Tensor, row_pos: torch.Tensor,
 
 
 node_hist_plain.calls = 0
+
+
+def node_hist_blocked_plain(binned_t: torch.Tensor, row_pos: torch.Tensor,
+                            base_t: torch.Tensor, num_nodes: int,
+                            num_bins: int, blocks: int,
+                            acc_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """``[blocks, F, 3W, B]``: :func:`node_hist_plain` of each of
+    ``blocks`` consecutive row blocks of ``n / blocks`` rows, in one call —
+    block ``j``'s rows take nodes ``j*W .. j*W + W - 1``, so each cell
+    sums its own block's rows only, in row order."""
+    F, n = binned_t.shape
+    W = int(num_nodes)
+    out = node_hist_plain(binned_t, blocks_as_nodes(row_pos, W, blocks),
+                          base_t, blocks * W, num_bins, acc_dtype)
+    return out.reshape(F, blocks, 3 * W, -1).permute(1, 0, 2, 3).contiguous()
+
+
+def blocks_as_nodes(row_pos: torch.Tensor, num_nodes: int,
+                    blocks: int) -> torch.Tensor:
+    """``[n]`` int32 positions of ``blocks * W`` nodes: block ``j``'s rows
+    (``n / blocks`` consecutive) move to nodes ``j*W .. j*W + W - 1``;
+    rows at -1 stay there. One histogram pass over them holds each block's
+    partial apart."""
+    n = row_pos.shape[0]
+    if blocks < 1 or n % blocks:
+        raise ValueError(f"{n} rows do not tile into {blocks} blocks")
+    block = torch.arange(n, device=row_pos.device) // (n // blocks)
+    return torch.where(row_pos >= 0,
+                       row_pos + (block * int(num_nodes)).to(torch.int32),
+                       row_pos).to(torch.int32)
 
 
 def hist_plain(binned_t: torch.Tensor, stats_t: torch.Tensor, num_bins: int,

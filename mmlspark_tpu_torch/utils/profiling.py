@@ -4,6 +4,9 @@ and ``torch.cuda``.
 Counterpart of the part of ``mmlspark_tpu/utils/profiling.py`` that
 observability calls:
 
+- :func:`trace` captures a ``torch.profiler`` trace of everything run
+  inside the ``with`` block (host ops, and the card's kernels where CUDA
+  is up) into ``log_dir`` as Chrome-trace JSON, viewable in Perfetto.
 - :func:`annotate` / :func:`annotate_fn` name host-side regions
   (``torch.profiler.record_function``), so device work launched inside
   them carries the label in a ``torch.profiler`` trace; ``spans.span``
@@ -13,13 +16,13 @@ observability calls:
   exports (``observability/device.py``).
 
 Every entry point degrades to a no-op (with the reason logged) rather
-than failing the work it instruments. The trace capture of the JAX module
-(``trace``) is not ported here.
+than failing the work it instruments.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Any, Dict, Iterator, Optional
 
 from ..observability.device import cuda_initialized
@@ -27,7 +30,43 @@ from ..observability.logging import get_logger
 
 logger = get_logger(__name__)
 
-__all__ = ["annotate", "annotate_fn", "device_memory_stats"]
+__all__ = ["trace", "annotate", "annotate_fn", "device_memory_stats"]
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, create_perfetto_link: bool = False) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of everything run inside the
+    ``with`` block into ``log_dir/trace-<pid>.json`` (Chrome-trace format,
+    opens in Perfetto): host ops always, the card's kernels too once CUDA
+    is initialised. ``create_perfetto_link`` is accepted for the JAX
+    signature and does nothing (there is no link to make offline). No-op
+    (but still a valid context) if the profiler cannot start, e.g. while
+    another trace runs."""
+    del create_perfetto_link
+    prof = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if cuda_initialized():
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+    except Exception as e:  # noqa: BLE001 — degrade to no-op, never break
+        logger.warning("profiler trace unavailable (%r); continuing "
+                       "untraced", e)
+        prof = None
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                os.makedirs(log_dir, exist_ok=True)
+                prof.export_chrome_trace(
+                    os.path.join(log_dir, f"trace-{os.getpid()}.json"))
+            except Exception as e:  # noqa: BLE001
+                logger.warning("profiler trace export failed: %r", e)
 
 
 @contextlib.contextmanager

@@ -183,8 +183,8 @@ def test_categorical_quantized_fit_matches_jax(policy, monkeypatch):
     jq, tq = JG._quantize_for, TG._quantize_for
     monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
                         jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey:
-                        tq(base_t, None))
+    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
+                        tq(base_t, None, *a))
     X, y = _cat_data(9000, seed=3)
     jb, tb = _fit_pair(X, y, num_leaves=15, min_data_in_leaf=100,
                        growth_policy=policy, quantized_grad=True,

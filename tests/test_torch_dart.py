@@ -133,8 +133,8 @@ def test_dart_quantized_matches_jax(monkeypatch):
     jq, tq = JG._quantize_for, TG._quantize_for
     monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
                         jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey:
-                        tq(base_t, None))
+    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
+                        tq(base_t, None, *a))
     X, y = _rows(1997, 5)
     jb, tb = _fit_pair(X, y, cfg=dict(quantized_grad=True,
                                       quant_warmup_iters=1))

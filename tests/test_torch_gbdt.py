@@ -135,23 +135,6 @@ def test_regressor_fit_transform():
     assert np.mean((pred - y) ** 2) < np.var(y)
 
 
-@pytest.mark.parametrize("param,value", [
-    ("parallelism", "voting_parallel"),
-])
-def test_unported_params_raise(param, value):
-    X, y, _ = _data(200, seed=4)
-    est = LightGBMClassifier(device="cpu", numIterations=1, **{param: value})
-    with pytest.raises(NotImplementedError, match=param):
-        est.fit(TDataset({"features": X, "label": y}))
-
-
-def test_hist_blocks_is_not_ported():
-    X, y, _ = _data(200, seed=4)
-    with pytest.raises(NotImplementedError, match="hist_blocks"):
-        ttrain(X, y, objective="binary", num_iterations=1,
-               cfg=TGrowConfig(hist_blocks=8), device="cpu")
-
-
 def test_booster_npz_round_trip_and_jax_interop(binary_pair, tmp_path):
     X, jb, tb = binary_pair
     tb.save(str(tmp_path / "port"))

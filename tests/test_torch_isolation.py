@@ -6,8 +6,8 @@
     (which also starts no CUDA context); no source of the package, nor ``chip_smoke.py`` or
     the port's tools (``tools/profile_torch_gbdt.py``,
     ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``,
-    ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``), imports
-    either.
+    ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``,
+    ``tools/multi_card_fit.py``), imports either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -86,7 +86,12 @@ SERVING_MODULES = (
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
-            "mmlspark_tpu_torch.models.gbdt.lgbm_format"} <= set(mods)
+            "mmlspark_tpu_torch.models.gbdt.lgbm_format",
+            "mmlspark_tpu_torch.parallel",
+            "mmlspark_tpu_torch.parallel.mesh",
+            "mmlspark_tpu_torch.parallel.distributed",
+            "mmlspark_tpu_torch.parallel.placement",
+            "mmlspark_tpu_torch.utils.stopwatch"} <= set(mods)
     assert set(SERVING_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -138,13 +143,14 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "ab_node_hist.py"),
              os.path.join(ROOT, "tools", "node_hist_sweeps.py"),
              os.path.join(ROOT, "tools", "rehearse_chip_smoke.py"),
-             os.path.join(ROOT, "tools", "ab_predict.py")]
+             os.path.join(ROOT, "tools", "ab_predict.py"),
+             os.path.join(ROOT, "tools", "multi_card_fit.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:6])
+    assert all(os.path.isfile(p) for p in paths[:7])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
-    for sub in ("observability", "robustness", "tuning",
+    for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):
         assert os.path.join(PKG, sub, "__init__.py") in paths
     for f in (os.path.join("io", "serving.py"),
@@ -152,7 +158,11 @@ def test_no_source_imports_jax_or_the_jax_package():
               os.path.join("utils", "profiling.py"),
               os.path.join("io", "distributed_serving.py"),
               os.path.join("observability", "federation.py"),
-              os.path.join("bundles", "bundle.py")):
+              os.path.join("bundles", "bundle.py"),
+              os.path.join("parallel", "mesh.py"),
+              os.path.join("parallel", "distributed.py"),
+              os.path.join("parallel", "placement.py"),
+              os.path.join("utils", "stopwatch.py")):
         assert os.path.join(PKG, f) in paths
     bad = [(os.path.relpath(p, ROOT), line, name) for p in paths
            for line, name in _imports(p) if _forbidden(name)]

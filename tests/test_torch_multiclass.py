@@ -107,8 +107,8 @@ def test_train_booster_multiclass_quantized_matches_jax(data, monkeypatch):
     jq, tq = JG._quantize_for, TG._quantize_for
     monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
                         jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey:
-                        tq(base_t, None))
+    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
+                        tq(base_t, None, *a))
     jb, tb = _fit_pair(X[:8997], y[:8997], num_leaves=7,
                        min_data_in_leaf=100, quantized_grad=True,
                        quant_warmup_iters=1)

@@ -627,7 +627,11 @@ def test_env_registry_entries_carry_the_jax_defaults():
     edited = {v.name for v in preg.REGISTRY
               if v.doc != jreg.get(v.name).doc}
     assert edited == {"MMLSPARK_TPU_DEVICE_MEMORY_INTERVAL_SECONDS",
-                      "MMLSPARK_TPU_SHAP_DEVICE", "MMLSPARK_TPU_BUNDLE_DIR"}
+                      "MMLSPARK_TPU_SHAP_DEVICE", "MMLSPARK_TPU_BUNDLE_DIR",
+                      "MMLSPARK_TPU_TELEMETRY_ROUNDS",
+                      "MMLSPARK_TPU_HIST_BLOCKS",
+                      "MMLSPARK_TPU_MESH_DEVICES",
+                      "MMLSPARK_TPU_BINNED_CACHE"}
     assert preg.render_markdown("robustness").splitlines()[:2] == \
         jreg.render_markdown("robustness").splitlines()[:2]
 

@@ -303,3 +303,57 @@ def test_threads_on_one_key(models):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in ts)
     assert errors == []
+
+
+@pytest.mark.parametrize("kind", ("binary", "multiclass", "categorical"))
+def test_pickled_booster_scores_equal_and_hits_the_cache(models, kind):
+    """The JAX package's pickle contract: a round trip drops the device
+    state (uploaded forests with their serials, active masks, bounds) and
+    scores equal, through the program already cached for its key."""
+    import pickle
+    _, tb, X = models[kind]
+    want = tb.predict(X[:33], device="cpu")
+    for lane in ("bf16", "int8"):
+        tb.predict(X[:33], device="cpu", predict_dtype=lane)
+    tb.predict_raw_tensor(torch.from_numpy(np.ascontiguousarray(X[:8])))
+    for name in Booster._DEVICE_STATE:
+        assert getattr(tb, name, None), name
+    cache_len = len(tbm._PREDICT_CACHE)
+    h0 = _counter("gbdt_predict_cache_hits_total")
+    state = tb.__getstate__()
+    assert not set(Booster._DEVICE_STATE) & set(state)
+    back = pickle.loads(pickle.dumps(tb))
+    assert back._dev_forest == {}
+    assert not hasattr(back, "_plan_forest")
+    np.testing.assert_array_equal(back.predict(X[:33], device="cpu"), want)
+    assert _counter("gbdt_predict_cache_hits_total") == h0 + 1
+    assert len(tbm._PREDICT_CACHE) == cache_len
+    assert back.model_string() == tb.model_string()
+
+
+_SERIALS = """
+import pickle, sys
+import numpy as np
+from mmlspark_tpu_torch.models.gbdt.booster import train_booster
+rng = np.random.default_rng(rank)
+X = rng.normal(size=(500, 4)).astype(np.float32)
+b = train_booster(X, (X[:, rank] > 0).astype(np.float32), objective="binary",
+                  num_iterations=3, device="cpu")
+b.predict(X[:8], device="cpu")
+ent = next(iter(b._plan_forest.values()))
+result = {"serial": list(ent["serial"]),
+          "dropped": "_plan_forest" not in pickle.loads(
+              pickle.dumps(b)).__dict__}
+"""
+
+
+def test_forest_serials_do_not_collide_across_processes(tmp_path):
+    """Two processes each upload one forest: their serials (a random
+    per-process prefix and a counter) differ, where per-process counters
+    alone both read 1."""
+    from _torch_ranks import run_ranks
+    out = [run_ranks(tmp_path, 1, _SERIALS.replace(
+        "rank)", f"{r})").replace("rank]", f"{r}]"))[0] for r in (0, 1)]
+    assert out[0]["serial"][1] == out[1]["serial"][1]
+    assert out[0]["serial"] != out[1]["serial"]
+    assert all(o["dropped"] for o in out)

@@ -90,8 +90,8 @@ def _nearest(monkeypatch):
     jq, tq = JG._quantize_for, TG._quantize_for
     monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
                         jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey:
-                        tq(base_t, None))
+    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
+                        tq(base_t, None, *a))
 
 
 def _assert_same_fit(jb, tb, X):

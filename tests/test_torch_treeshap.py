@@ -301,7 +301,9 @@ def test_imported_missing_routing_raises():
 
 
 def test_features_shap_col_is_ported():
-    assert _LightGBMParams._NOT_PORTED == ("parallelism",)
+    # every Param is ported: the estimators keep no list of refused ones
+    assert not hasattr(_LightGBMParams, "_NOT_PORTED")
+    assert _LightGBMParams.featuresShapCol.default is None
 
 
 @pytest.mark.parametrize("method", ["treeshap", "saabas"])

@@ -5,6 +5,7 @@
     python tools/rehearse_chip_smoke.py p11 [--rows 40000 --higgs-rows 200000]
     python tools/rehearse_chip_smoke.py p12 [--rows 40000 --higgs-rows 20000]
     python tools/rehearse_chip_smoke.py p13 [--rows 40000 --higgs-rows 20000]
+    python tools/rehearse_chip_smoke.py p14 [--rows 40000 --higgs-rows 40000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -31,7 +32,12 @@ models, then phase 13 on the CPU: the plan route against the eager body,
 the batch costs, a bundle, bundled ``serving_main`` workers behind a
 gateway in subprocesses on the CPU, the checkpoint modes; the holds that
 need a graph — one graph launch per call, a graph per bucketed key — wait
-for the card).
+for the card), ``p14`` (phases 4, 4b and 6 for their models, then phase
+14: the deterministic mode stood in for by ``node_hist_blocked_plain``,
+the blocked fits, the world-size-2 fit as two gloo processes on the CPU,
+voting, telemetry, the pickled boosters). The plain versions are counted
+as the kernel each stands in for, so a phase's launch checks hold here
+as on the card.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from mmlspark_tpu_torch.ops.histogram_scatter import node_hist_plain  # noqa: E402
+from mmlspark_tpu_torch.ops.histogram_scatter import (  # noqa: E402
+    node_hist_blocked_plain, node_hist_plain)
 
 
 class _Event:
@@ -84,12 +91,32 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
     mod.hist_ops._node_hist_int8_cuda = (
         lambda b, p, q, W, B: node_hist_plain(b, p, q, W, B,
                                               acc_dtype=torch.int32))
+    counted = mod.hist_ops.node_histogram
+
+    def plain(b, p, q, W, B, acc_dtype=torch.float32):
+        # node_histogram's CPU route: counted as kernel 1 or kernel 2
+        if acc_dtype == torch.int32:
+            counted.int8_launches += 1
+        else:
+            counted.launches += 1
+        return node_hist_plain(b, p, q, W, B, acc_dtype=acc_dtype)
+
+    def blocked_plain(b, p, q, W, B, blocks, acc_dtype=torch.float32):
+        # the blocked route: the deterministic mode, or kernel 2
+        if acc_dtype == torch.int32:
+            counted.int8_launches += 1
+        else:
+            counted.det_launches += 1
+        return node_hist_blocked_plain(b, p, q, W, B, blocks, acc_dtype)
+
+    mod.hist_ops.node_hist_plain = plain
+    mod.hist_ops.node_hist_blocked_plain = blocked_plain
 
     def read_counts():
         # on the CPU the plain versions stand in for every kernel
-        calls = node_hist_plain.calls
-        return dict(node_hist_bf16=calls, node_hist_int8=calls, hist_bf16=0,
-                    plain=0)
+        return dict(node_hist_bf16=counted.launches,
+                    node_hist_int8=counted.int8_launches, hist_bf16=0,
+                    node_hist_det=counted.det_launches, plain=0)
 
     mod.read_counts = read_counts
     mod.COVERTYPE_ROWS, mod.COVERTYPE_HOLDOUT = rows, rows // 4
@@ -147,11 +174,23 @@ def phase_plan(mod) -> dict:
                                     "CPU rehearsal, no card")
 
 
+def phase_data_group(mod) -> dict:
+    """The fits phase 14 reads its models from, then phase 14."""
+    data = (*mod.higgs_shaped(mod.HIGGS_ROWS, seed=0),
+            *mod.higgs_shaped(mod.HIGGS_HOLDOUT, seed=1))
+    _, base = mod.phase_end_to_end("4", ["node_hist_bf16"], data)
+    _, quantized = mod.phase_end_to_end("4b", ["node_hist_int8"], data,
+                                        useQuantizedGrad=True,
+                                        quantWarmupIters=0)
+    _, multiclass = mod.phase_multiclass()
+    return mod.phase_data_group(base, quantized, multiclass, data)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
-                             "p11", "p12", "p13"])
+                             "p11", "p12", "p13", "p14"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     args = ap.parse_args()
@@ -163,7 +202,8 @@ def main() -> int:
            "p10b": mod.phase_small_sampling,
            "p11": lambda: phase_extensions(mod),
            "p12": lambda: phase_serving(mod),
-           "p13": lambda: phase_plan(mod)}
+           "p13": lambda: phase_plan(mod),
+           "p14": lambda: phase_data_group(mod)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
