@@ -249,10 +249,14 @@ Phases (any failure exits non-zero and prints no result line):
    telemetry and the pickled Booster (the models of phases 4, 4b and 6).
    14a, the deterministic blocked reduction: kernel 1's deterministic mode
    (``node_hist_det``: fixed-point int64 sums, one partial per row block)
-   against ``node_hist_blocked_plain`` at phase 4's rows in 8 blocks, W=1
-   and W=16 (counts bit-equal, grad/hess as phase 3), and bit for bit
-   against itself over 20 launches; its ms per launch beside kernel 1's
-   at the same shape, bound, plain and ``index_add_`` ms. Kernel 2's
+   at phase 4's rows in 8 blocks, W=1 and W=16: bit for bit against
+   ``node_hist_det_plain`` (the same fixed-point sums in int64
+   ``index_add_``), against ``node_hist_blocked_plain`` (counts
+   bit-equal, grad/hess as phase 3), and bit for bit against itself over
+   20 launches; its ms per launch warm and L2 cold beside kernel 1's at
+   the same shape, bound, plain and ``index_add_`` ms; bit for bit against
+   ``node_hist_det_plain`` too where its shifts meet their edges (zero,
+   subnormal, bf16-overflowing, inf and NaN blocks). Kernel 2's
    blocked route (the blocks as ``8 W`` nodes, permuted back and
    dequantized) on the same inputs quantized at the blocked ``q_max``,
    bit for bit against ``node_hist_blocked_plain`` summed in int32 times
@@ -337,6 +341,7 @@ from mmlspark_tpu_torch.ops.binning import bin_cols
 from mmlspark_tpu_torch.ops.histogram_scatter import (blocks_as_nodes,
                                                       hist_plain,
                                                       node_hist_blocked_plain,
+                                                      node_hist_det_plain,
                                                       node_hist_plain)
 from mmlspark_tpu_torch.robustness import failpoints
 from mmlspark_tpu_torch.utils.checkpoint import (CheckpointManager,
@@ -643,10 +648,14 @@ def log_geometry():
     for W in (1, 16):
         geo = hist_ops._det_geometry(HIGGS_ROWS // HIST_BLOCKS, 28, W, 255,
                                      HIST_BLOCKS)
+        held = hist_ops._clusters_held("node_hist_det", dev, 4, geo.smem,
+                                       geo.cluster)
         log(f"node_hist_det n={HIGGS_ROWS} in {HIST_BLOCKS} blocks W={W} "
             f"B=255: {geo}; grid "
             f"{geo.row_blocks * geo.groups * geo.tiles * HIST_BLOCKS} blocks "
-            "(from the shape alone)")
+            f"(from the shape alone) in clusters of {geo.cluster}, "
+            f"{'int64 partials' if hist_ops._det_staged(geo) else 'each cluster owning its item'}; "
+            f"the card holds {held} such clusters at once")
 
 
 def node_row(call, plain, binned, pos, base, W, B, cold: bool) -> dict:
@@ -2724,11 +2733,33 @@ def start_worker(model, bundle, registry, port, extra_env=None) -> Proc:
                  "--device", "cuda"], env=extra_env)
 
 
-def free_port() -> int:
+def free_port(avoid=()) -> int:
+    """A port that no socket holds now and that is not in ``avoid``. It is
+    released on return, so another socket can take it before its user
+    binds it."""
     import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    while True:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        if port not in avoid:
+            return port
+
+
+def healthz_while_starting(proc, port) -> list:
+    """``/healthz``'s ``ready`` of a starting worker, polled until it says
+    ready or the process ends (None while nothing answers)."""
+    early = []
+    while proc.p.poll() is None:
+        try:
+            early.append(json.loads(http_call(
+                "localhost", port, "/healthz")[1])["ready"])
+            if early[-1]:
+                break
+        except OSError:
+            early.append(None)
+        time.sleep(0.05)
+    return early
 
 
 def start_fleet(quantized) -> dict:
@@ -2812,26 +2843,38 @@ def phase_fleet(quantized, Xh, fleet, card) -> dict:
         manifest["fingerprint"]["torch_version"] = "0.0.0-edited"
         with open(os.path.join(skewed, "MANIFEST.json"), "w") as f:
             json.dump(manifest, f)
-        ports = [free_port(), free_port()]
+        ports = [free_port({gw_port})]
+        ports.append(free_port({gw_port, ports[0]}))
+        bundles = [bundle, skewed]
         t_start = time.perf_counter()
-        workers = [start_worker(model, bundle, registry, ports[0]),
-                   start_worker(model, skewed, registry, ports[1])]
+        workers = [start_worker(model, b, registry, port)
+                   for b, port in zip(bundles, ports)]
         procs += workers
         out["in_process_requests_per_s"] = in_process_fleet(quantized, Xh)
-        # /healthz while the first worker comes up: never ready before
-        # its prewarm is done (the socket binds after it)
-        early = []
-        while workers[0].p.poll() is None:
-            try:
-                early.append(json.loads(http_call(
-                    "localhost", ports[0], "/healthz")[1])["ready"])
-                if early[-1]:
+        ids = []
+        for i in (0, 1):
+            for again in (False, True):
+                if i == 0:
+                    # /healthz while the first worker comes up: never
+                    # ready before its prewarm is done (the socket binds
+                    # after it)
+                    early = healthz_while_starting(workers[0], ports[0])
+                try:
+                    ids.append(workers[i].wait_line(
+                        r"worker (\w+) serving on").group(1))
                     break
-            except OSError:
-                early.append(None)
-            time.sleep(0.05)
-        ids = [w.wait_line(r"worker (\w+) serving on").group(1)
-               for w in workers]
+                except AssertionError:
+                    if again or not any("address already in use" in x
+                                        for x in workers[i].seen):
+                        raise
+                # another socket took the port in the seconds between
+                # free_port and the worker's bind: start it once more
+                log(f"13c: port {ports[i]} was taken before worker {i} "
+                    f"bound it; starting the worker again on another")
+                ports[i] = free_port({gw_port, *ports})
+                workers[i] = start_worker(model, bundles[i], registry,
+                                          ports[i])
+                procs.append(workers[i])
         out["worker_start_s"] = time.perf_counter() - t_start
         gateway.wait_line(r"gateway on")
         ring = http_json("localhost", ports[0], "/debug/flight")["events"]
@@ -3118,17 +3161,22 @@ def det_library(binned, pos, base, W, B, blocks):
 
 
 def phase_det_kernel() -> tuple:
-    """14a's kernel checks: the deterministic mode against its plain
-    version at the blocked fit's two passes (the root, W=1; leafwise's
-    children, W=16), n = phase 4's rows, F=28, B=255, 8 blocks, and bit
-    for bit against itself over 20 launches; kernel 2's blocked route on
-    the same inputs (:func:`check_blocked_int8`). Returns (rows by W, max
-    error, the W=16 result's digest)."""
+    """14a's kernel checks: the deterministic mode at the blocked fit's
+    two passes (the root, W=1; leafwise's children, W=16), n = phase 4's
+    rows, F=28, B=255, 8 blocks: bit for bit against its plain version
+    (:func:`node_hist_det_plain`, the same fixed-point sums), within the
+    kernel-vs-plain contract of the f32 blocked plain version
+    (``node_hist_blocked_plain``), and bit for bit against itself over 20
+    launches; kernel 2's blocked route on the same inputs
+    (:func:`check_blocked_int8`); first the shift edges
+    (:func:`check_det_edges`). Returns (rows by W, max error against the
+    f32 plain version, the W=16 result's digest)."""
     import hashlib
     log("== phase 14a: node_hist_det (kernel 1's deterministic mode) vs "
         f"plain, and vs itself over 20 launches; n={HIGGS_ROWS}, F=28, "
         f"B=255, {HIST_BLOCKS} blocks")
     rows, max_err, digest = {}, 0.0, None
+    check_det_edges()
     for W in (1, 16):
         gen = torch.Generator(device="cuda").manual_seed(P14_SEED)
         binned, pos, base = hist_inputs(gen, HIGGS_ROWS, 28, W, 255)
@@ -3139,7 +3187,12 @@ def phase_det_kernel() -> tuple:
         want = node_hist_blocked_plain(binned, pos, base, W, 255,
                                        HIST_BLOCKS)
         first = call()
+        exact = node_hist_det_plain(binned, pos, base, W, 255, HIST_BLOCKS)
         torch.cuda.synchronize()
+        if not torch.equal(first, exact):
+            bad = int((first != exact).sum())
+            raise AssertionError(f"node_hist_det W={W}: {bad} cells differ "
+                                 "from node_hist_det_plain")
         err = max(check_hist(first[j], want[j]) for j in range(HIST_BLOCKS))
         max_err = max(max_err, err)
         for i in range(20):
@@ -3148,35 +3201,89 @@ def phase_det_kernel() -> tuple:
                                      "differs from the first")
         if W == 16:
             digest = hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()
-        check_blocked_int8(binned, pos, base, W)
-        ms = time_ms(call, reps=20)
+        int8_blocked = check_blocked_int8(binned, pos, base, W)
+        ms, cold = time_ms(call, reps=20), time_cold_ms(call)
         k1 = time_ms(lambda: hist_ops.node_histogram(binned, pos, base, W,
                                                      255), reps=20)
-        plain_ms = time_ms(lambda: node_hist_blocked_plain(
+        plain_ms = time_ms(lambda: node_hist_det_plain(
             binned, pos, base, W, 255, HIST_BLOCKS), reps=3, warm=1)
         lib = time_ms(det_library(binned, pos, base, W, 255, HIST_BLOCKS),
                       reps=5, warm=1)
         bound, by = det_bound_ms(binned, pos, base, W, 255, HIST_BLOCKS)
         geo = hist_ops._det_geometry(HIGGS_ROWS // HIST_BLOCKS, 28, W, 255,
                                      HIST_BLOCKS)
-        rows[W] = dict(ms=ms, ms_cold=None, plain_ms=plain_ms,
+        rows[W] = dict(ms=ms, ms_cold=cold, plain_ms=plain_ms,
                        library_ms=lib, bound_ms=bound, bound_by=by,
-                       kernel1_ms=k1, max_abs_err=err)
-        log(f"node_hist_det W={W}: {geo}; {ms:.4f} ms per launch against "
-            f"kernel 1's {k1:.4f} ms at this shape; bound "
-            f"{bound * 1e3:.1f} us ({by}, {100 * bound / ms:.1f}%); plain "
-            f"{plain_ms:.3f} ms; index_add_ {lib:.3f} ms; max_abs_err "
-            f"{err:.3g}; bit-equal over 20 launches")
-        del binned, pos, base, want, first
+                       kernel1_ms=k1, max_abs_err=err,
+                       int8_blocked=int8_blocked)
+        log(f"node_hist_det W={W}: {geo}; {ms:.4f} ms per launch warm, "
+            f"{cold:.4f} L2 cold, against kernel 1's {k1:.4f} ms at this "
+            f"shape; bound {bound * 1e3:.1f} us ({by}, "
+            f"{100 * bound / ms:.1f}%); plain (node_hist_det_plain) "
+            f"{plain_ms:.3f} ms; index_add_ {lib:.3f} ms; bit-equal to "
+            f"node_hist_det_plain; max_abs_err {err:.3g} against "
+            "node_hist_blocked_plain; bit-equal over 20 launches")
+        del binned, pos, base, want, first, exact
     return rows, max_err, digest
 
 
-def check_blocked_int8(binned, pos, base, W) -> None:
+# (rows, blocks, W) of the shift-edge checks: each cluster owning its item
+# (single blocks; clusters of 4), and int64 partials with a finish launch
+# (clusters of 2, three to an item)
+DET_EDGE_SHAPES = ((4096, 6, 3), (32768, 6, 1), (65536, 6, 1))
+
+
+def check_det_edges() -> None:
+    """The deterministic mode where its shifts (computed on the card from
+    each block's largest |stat|) meet their edges: a block of zeros, a
+    subnormal largest value, a finite value that rounds to inf in bf16, an
+    inf, a NaN (in the hess channel of blocks 0-4), bit for bit against
+    ``node_hist_det_plain`` with NaN where it has NaN, at each of
+    ``DET_EDGE_SHAPES``: both of the kernel's flush routes, the clusters'
+    conversion and the finish launch's."""
+    B, routes = 255, set()
+    for rows, blocks, W in DET_EDGE_SHAPES:
+        geo = hist_ops._det_geometry(rows, 28, W, B, blocks)
+        staged = hist_ops._det_staged(geo)
+        routes.add(staged)
+        gen = torch.Generator(device="cuda").manual_seed(P14_SEED + 1)
+        binned, pos, base = hist_inputs(gen, rows * blocks, 28, W, B)
+        hess = base[1].view(blocks, rows)
+        hess[0] = 0.0
+        hess[1] *= 3e-39
+        hess[2, 3] = 3.4e38
+        hess[3, 5] = -float("inf")
+        hess[4, 7] = float("nan")
+        got = hist_ops.node_histogram(binned, pos, base, W, B, blocks=blocks)
+        want = node_hist_det_plain(binned, pos, base, W, B, blocks)
+        torch.cuda.synchronize()
+        nan = want.isnan()
+        route = ("int64 partials and a finish launch" if staged else
+                 "each cluster owning its item")
+        if not (torch.equal(got.isnan(), nan) and torch.equal(got[~nan],
+                                                              want[~nan])):
+            raise AssertionError(
+                f"node_hist_det differs from node_hist_det_plain at the "
+                f"shift edges ({rows} rows x {blocks} blocks, W={W}; {route})")
+        log(f"node_hist_det at the shift edges (zero, subnormal, bf16 "
+            f"overflow, inf, NaN blocks), {rows} rows x {blocks} blocks, "
+            f"W={W}, clusters of {geo.cluster}, {geo.row_blocks} row blocks "
+            f"an item ({route}): bit-equal to node_hist_det_plain, "
+            f"{int(nan.sum())} NaN cells")
+    if routes != {False, True}:
+        raise AssertionError("the shift-edge shapes no longer take both of "
+                             "node_hist_det's flush routes: choose others")
+
+
+def check_blocked_int8(binned, pos, base, W) -> dict:
     """Kernel 2's blocked route (``node_histogram(..., scales=,
     blocks=8)``: one launch over the blocks as ``8 W`` nodes, permuted back
     and dequantized) bit for bit against its plain version, the per-block
     int32 sums times the scales, on ``base`` quantized at the blocked
-    ``q_max`` (from the rows per block, as a blocked fit quantizes)."""
+    ``q_max`` (from the rows per block, as a blocked fit quantizes).
+    Returns the times of its launch (kernel 2 at ``8 W`` nodes, warm and
+    L2 cold), the plain version, the ``index_add_`` yardstick and the
+    bound."""
     B, blocks = 255, HIST_BLOCKS
     q, scales = hist_ops.quantize_stats(base, q_max=hist_ops.quant_q_max(
         binned.shape[1] // blocks))
@@ -3195,8 +3302,28 @@ def check_blocked_int8(binned, pos, base, W) -> None:
         bad = (got != want).sum().item() if got.shape == want.shape else -1
         raise AssertionError(f"kernel 2 blocked W={W}: {bad} cells differ "
                              "from the per-block int32 plain version")
+    nodes = blocks_as_nodes(pos, W, blocks)
+    rows = binned.shape[1] // blocks
+
+    def launch():
+        return hist_ops._node_hist_int8_cuda(binned, nodes, q, blocks * W, B,
+                                             cell_rows=rows)
+    bound, by = node_bound_ms(binned, nodes, q, blocks * W, B)
+    r = dict(ms=time_ms(launch, reps=20), ms_cold=time_cold_ms(launch),
+             plain_ms=time_ms(lambda: node_hist_blocked_plain(
+                 binned, pos, q, W, B, blocks, acc_dtype=torch.int32),
+                 reps=3, warm=1),
+             library_ms=time_ms(library_index_add(binned, nodes, q,
+                                                  blocks * W, B), reps=5,
+                                warm=1),
+             bound_ms=bound, bound_by=by)
     log(f"node_hist_int8 blocked W={W} ({blocks * W} nodes in one launch): "
-        f"bit-equal to the per-block int32 plain version")
+        f"bit-equal to the per-block int32 plain version; kernel 2 at "
+        f"{blocks * W} nodes {r['ms']:.4f} ms warm, {r['ms_cold']:.4f} L2 "
+        f"cold; bound {bound * 1e3:.1f} us ({by}, "
+        f"{100 * bound / r['ms']:.1f}%); plain {r['plain_ms']:.3f} ms; "
+        f"index_add_ {r['library_ms']:.3f} ms")
+    return r
 
 
 def run_ranks(world: int, n: int, device: str) -> list:
@@ -3477,6 +3604,7 @@ def main() -> int:
     fits["14b"] = p14.pop("14b")
     fits["14c"] = p14.pop("14c")
     det_rows = p14["14a"].pop("det_rows")
+    log("14a kernel rows: " + json.dumps(det_rows))
     del X, y, Xh, yh, data
     log("fits: " + json.dumps(fits) + "; " + json.dumps(golden)
         + "; phase 11: " + json.dumps(p11) + "; phase 12: "

@@ -56,9 +56,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ...ops.histogram import (NONFINITE_SHIFT, fixed_point_shifts,
-                              node_histogram, positional_uniform,
+from ...ops.histogram import (node_histogram, positional_uniform,
                               quant_q_max, quantize_stats)
+from ...ops.histogram_scatter import (NONFINITE_SHIFT, fixed_point_shifts,
+                                      pow2)
 
 NEG_INF = float("-inf")
 
@@ -190,12 +191,6 @@ def _blocked_fold(parts: torch.Tensor, group) -> torch.Tensor:
     return acc
 
 
-def _pow2(k: torch.Tensor) -> torch.Tensor:
-    """``2^k`` in f64, exactly, for int ``k`` in [-1022, 1023]: built from
-    the exponent bits (a library ``pow`` or ``exp2`` need not be exact)."""
-    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
-
-
 def _exact_block_sums(x: torch.Tensor, blocks: int,
                       seg: Optional[torch.Tensor] = None,
                       segments: int = 1) -> torch.Tensor:
@@ -216,7 +211,7 @@ def _exact_block_sums(x: torch.Tensor, blocks: int,
     shift = fixed_point_shifts(xb.abs().amax(dim=2), rpb)      # [C, blocks]
     finite = shift != NONFINITE_SHIFT
     shift = torch.where(finite, shift, 0)
-    q = torch.round(xb * _pow2(shift)[:, :, None]).to(torch.int64)
+    q = torch.round(xb * pow2(shift)[:, :, None]).to(torch.int64)
     if seg is None:
         acc = q.sum(dim=2, keepdim=True)
     else:
@@ -226,7 +221,7 @@ def _exact_block_sums(x: torch.Tensor, blocks: int,
                           device=x.device)
         acc.index_add_(1, ids.reshape(-1), q.reshape(C, n))
         acc = acc.reshape(C, blocks, segments)
-    inv = torch.where(finite, _pow2(-shift), float("nan"))
+    inv = torch.where(finite, pow2(-shift), float("nan"))
     out = acc.to(torch.float64) * inv[..., None]
     return out.to(torch.float32).permute(1, 0, 2).contiguous()
 

@@ -403,23 +403,9 @@ def _hist_geometry(n: int, F: int, items: int, B: int, bin_bytes: int,
     pairs beat single blocks by 1-9% and clusters of 4 or 8 by 3-21% at
     every node-kernel shape measured."""
     tile, tiles, budget = _tiling(items, item_bytes, most_tile)
-
-    def blocks_in_wave(group: int) -> int:
-        smem = group * tile * item_bytes
-        return num_sms * min(_NODE_BLOCKS_PER_SM,
-                             _SM_SMEM // (smem + _BLOCK_RESERVE))
-
-    def cost(groups: int) -> float:
-        group = -(-F // groups)
-        return (group * tile * item_bytes // 4
-                + _ROW_COST * n * groups * tiles / blocks_in_wave(group))
-
-    most_group = min(most_group, budget // (tile * item_bytes))
-    groups = min(sorted({-(-F // g) for g in range(1, most_group + 1)}),
-                 key=cost)
-    group = -(-F // groups)
-    smem = group * tile * item_bytes
-    slots = blocks_in_wave(group)
+    group, groups, smem, slots = _feature_groups(
+        n, F, tile, tiles, item_bytes, min(most_group, budget // (
+            tile * item_bytes)), num_sms)
     nv = n // _node_rows(bin_bytes)
     most = max(1, min(-(-nv // _NODE_THREADS), n // (2 * tile * B)))
 
@@ -442,6 +428,28 @@ def _hist_geometry(n: int, F: int, items: int, B: int, bin_bytes: int,
                          f"{tiles} tiles exceed a grid's {_MAX_BLOCKS} blocks")
     return NodeGeometry(group, tile, chosen, blocks,
                         _balanced_threads(nv, blocks), smem, groups, tiles)
+
+
+def _feature_groups(n: int, F: int, tile: int, tiles: int, item_bytes: int,
+                    most_group: int, num_sms: int):
+    """The feature group of :func:`_hist_geometry`'s cost over ``n`` rows
+    and ``tiles`` tiles of ``tile`` items of ``item_bytes`` bytes per
+    feature, at most ``most_group`` features: ``(group, groups, smem, the
+    blocks a wave of num_sms SMs holds)``."""
+    def blocks_in_wave(group: int) -> int:
+        smem = group * tile * item_bytes
+        return num_sms * min(_NODE_BLOCKS_PER_SM,
+                             _SM_SMEM // (smem + _BLOCK_RESERVE))
+
+    def cost(groups: int) -> float:
+        group = -(-F // groups)
+        return (group * tile * item_bytes // 4
+                + _ROW_COST * n * groups * tiles / blocks_in_wave(group))
+
+    groups = min(sorted({-(-F // g) for g in range(1, most_group + 1)}),
+                 key=cost)
+    group = -(-F // groups)
+    return group, groups, group * tile * item_bytes, blocks_in_wave(group)
 
 
 def _balanced_threads(vectors: int, row_blocks: int) -> int:
@@ -558,22 +566,37 @@ def _node_hist_int8_cuda(binned_t, row_pos, base_t, W: int, B: int,
     return out
 
 
-# the SM count the deterministic mode's grid is sized for: a constant (an
-# H100 SXM's), so the geometry is a function of the shape alone
+# what the deterministic mode's grid is sized for: constants (an H100
+# SXM's), so the geometry is a function of the shape alone. Its SMs, and
+# by blocks of _NODE_THREADS per SM (2, or 1 above half an SM's shared
+# memory) the clusters of c blocks it holds at once: the mode's
+# cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3, as
+# tools/ab_node_hist.py --det-ablation reports it
 _DET_SMS = 132
+_DET_CLUSTERS_HELD = {2: {1: 264, 2: 132, 4: 62, 8: 30},
+                      1: {1: 132, 2: 66, 4: 30, 8: 15}}
+_DET_ROWS = 4            # node_hist_common.cuh: kRowVec of the fixed-point mode
 
 
 def _det_geometry(rows: int, F: int, W: int, B: int,
                   blocks: int) -> NodeGeometry:
-    """The geometry of one deterministic pass (``node_hist_det``) over
-    ``blocks`` row blocks of ``rows`` rows: a shape-only function (the
-    result does not depend on it — its sums are integers — but the mode
-    takes nothing from the card). Each (row block, feature group, node
-    tile) item holds a ``[group, tile, 3, B]`` int64 histogram in shared
-    memory, tiled as kernel 1's by :func:`_tiling` at ``24 B`` bytes per
-    node and feature; feature groups fill the tile's budget; the row
-    slices per item are as many as one wave of ``_DET_SMS`` SMs gives, one
-    row per thread per sweep. ``cluster`` is 1 and ``reps`` 1 (unused)."""
+    """The geometry of one deterministic pass (``node_hist_det``, the
+    fixed-point mode of the histogram body) over ``blocks`` row blocks of
+    ``rows`` rows: a function of the shape alone (the result does not
+    depend on it — its sums are integers — but the mode takes nothing from
+    the card). Each (row block, feature group, node tile) item holds a
+    ``[group, tile, 3, B]`` histogram of 8-byte cells; tiles and feature
+    groups are kernel 1's (:func:`_tiling`, :func:`_feature_groups`) at
+    ``24 B`` bytes per node and feature, over all ``blocks * rows`` rows.
+
+    The row blocks of an item come in clusters of 1, 2, 4 or 8, as many
+    whole clusters per item as one wave of ``_DET_CLUSTERS_HELD`` gives,
+    but no more than one sweep of whole row vectors per thread over the
+    item's rows (rounded up to whole clusters), and none walking fewer
+    rows than twice its tile's bins. The cluster size giving the most row
+    blocks wins; on a tie, one whose cluster spans all the item's row
+    blocks (no int64 partials: :func:`_det_staged`), then the larger. An
+    item count above a wave of single blocks takes one row block each."""
     _check_shape(rows, F, W, B, 4)
     item_bytes = 24 * B
     if item_bytes > _SMEM_MAX:
@@ -581,80 +604,77 @@ def _det_geometry(rows: int, F: int, W: int, B: int,
                          f"memory per node in the deterministic mode; it "
                          f"takes at most {_SMEM_MAX}")
     tile, tiles, budget = _tiling(W, item_bytes, W)
-    groups = -(-F // max(1, min(F, budget // (tile * item_bytes))))
-    group = -(-F // groups)
-    smem = group * tile * item_bytes
-    wave = _DET_SMS * max(1, min(_NODE_BLOCKS_PER_SM,
-                                 _SM_SMEM // (smem + _BLOCK_RESERVE)))
+    group, groups, smem, slots = _feature_groups(
+        blocks * rows, F, tile, tiles, item_bytes,
+        min(F, budget // (tile * item_bytes)), _DET_SMS)
     items = blocks * groups * tiles
-    row_blocks = max(1, min(wave // items,
-                            -(-rows // (2 * _NODE_THREADS))))
+    nv = rows // _DET_ROWS
+    most = max(1, min(-(-nv // _NODE_THREADS), rows // (2 * tile * B)))
+    fills = {}
+    for c, held in _DET_CLUSTERS_HELD[slots // _DET_SMS].items():
+        fills[c] = min(held // items * c, -(-most // c) * c)
+    cluster = max(fills, key=lambda c: (fills[c], fills[c] == c, c))
+    row_blocks = fills[cluster]
+    if row_blocks < cluster:
+        cluster = row_blocks = 1
     if row_blocks * items > _MAX_BLOCKS:
         raise ValueError(f"{row_blocks * items} blocks exceed a grid's "
                          f"{_MAX_BLOCKS}")
-    return NodeGeometry(group, tile, 1, row_blocks,
-                        _balanced_threads(rows, row_blocks), smem, groups,
+    return NodeGeometry(group, tile, cluster, row_blocks,
+                        _balanced_threads(nv, row_blocks), smem, groups,
                         tiles)
 
 
-NONFINITE_SHIFT = -2 ** 31   # the shift of a block with a non-finite value
-
-
-def fixed_point_shifts(amax: torch.Tensor, rows: int) -> torch.Tensor:
-    """int32 shifts of an exact fixed-point block sum, one per entry of
-    ``amax`` (a block's largest |value|, over ``rows`` values): each value
-    is added as ``round(x * 2^shift)`` in int64, with ``shift = 62 - e -
-    ceil(log2(rows))`` for ``amax < 2^e``, so the block's sum stays below
-    2^62 and no summation order moves it. Values below ``2^-shift`` lose
-    only their bits under it, far below f32's rounding of the sum. A
-    non-finite ``amax`` gets :data:`NONFINITE_SHIFT`: its sums come out
-    NaN. Computed on ``amax``'s device, with no sync."""
-    e = torch.frexp(amax).exponent.to(torch.int32)
-    shift = 62 - (max(rows, 1) - 1).bit_length() - e
-    return torch.where(torch.isfinite(amax), shift,
-                       torch.full_like(shift, NONFINITE_SHIFT))
-
-
-def _det_shifts(base_t: torch.Tensor, blocks: int) -> torch.Tensor:
-    """``[blocks, 3]`` :func:`fixed_point_shifts` of the deterministic
-    mode, from each block's largest |bf16 stat| (rounding to bf16 is
-    monotone, so that is the rounded largest |stat|)."""
-    rows = base_t.shape[1] // blocks
-    amax = base_t.reshape(3, blocks, rows).abs().amax(dim=2).t()
-    return fixed_point_shifts(amax.to(torch.bfloat16).to(torch.float32),
-                              rows).contiguous()
+def _det_staged(g: NodeGeometry) -> bool:
+    """Whether a deterministic pass of geometry ``g`` sums through int64
+    partials and a finish launch: where its clusters do not span all the
+    row blocks of an item."""
+    return g.row_blocks > g.cluster
 
 
 def _node_hist_det_cuda(binned_t, row_pos, base_t, W: int, B: int,
                         blocks: int,
                         geometry: Optional[NodeGeometry] = None):
-    """Kernel 1's deterministic mode: validate, compute the shifts,
-    allocate the zeroed int64 sums and the f32 output, launch
-    ``node_hist_det`` (scatter and finish) on the current stream with
-    ``geometry`` (by default :func:`_det_geometry`'s). Returns
-    ``[blocks, F, 3W, B]`` f32."""
+    """Kernel 1's deterministic mode: validate, allocate the f32 output,
+    the ``[blocks, 3]`` scratch the library fills with each stat's largest
+    |value| (whence its shift, as ``histogram_scatter._det_shifts``) and,
+    where the pass sums through int64 partials (:func:`_det_staged`), the
+    zeroed partials; launch ``node_hist_det`` on the current stream with
+    ``geometry`` (by default :func:`_det_geometry`'s). Returns ``[blocks,
+    F, 3W, B]`` f32."""
     _check_node_args(binned_t, row_pos, base_t, W, B, torch.float32)
     F, n = binned_t.shape
     if blocks < 1 or n % blocks:
         raise ValueError(f"{n} rows do not tile into {blocks} blocks")
     g = geometry or _det_geometry(n // blocks, F, W, B, blocks)
-    shift = _det_shifts(base_t, blocks)
-    acc = torch.zeros((blocks, F, 3 * W, B), dtype=torch.int64,
-                      device=binned_t.device)
+    amax = torch.empty((blocks, 3), dtype=torch.int32, device=binned_t.device)
+    acc = (torch.zeros((blocks, F, 3 * W, B), dtype=torch.int64,
+                       device=binned_t.device) if _det_staged(g) else None)
     out = torch.empty((blocks, F, 3 * W, B), dtype=torch.float32,
                       device=binned_t.device)
-    c = ctypes
-    _launch("node_hist_det", _ENTRIES["node_hist_det"], [
-        (c.c_void_p, binned_t.data_ptr()),
-        (c.c_int, _BIN_BYTES[binned_t.dtype]),
-        (c.c_void_p, row_pos.data_ptr()), (c.c_void_p, base_t.data_ptr()),
-        (c.c_void_p, shift.data_ptr()), (c.c_void_p, acc.data_ptr()),
-        (c.c_void_p, out.data_ptr()), (c.c_longlong, n), (c.c_int, blocks),
-        (c.c_int, F), (c.c_int, W), (c.c_int, B), (c.c_int, g.group),
-        (c.c_int, g.node_tile), (c.c_int, g.row_blocks),
-        (c.c_int, g.threads)], binned_t.device)
+    _launch("node_hist_det", _ENTRIES["node_hist_det"], _det_args(
+        binned_t, row_pos, base_t, amax, acc, out, W, B, blocks, g),
+        binned_t.device)
     node_histogram.det_launches += 1
     return out
+
+
+def _det_args(binned_t, row_pos, base_t, amax, acc, out, W: int, B: int,
+              blocks: int, g: NodeGeometry) -> list:
+    """``mm_node_hist_det``'s arguments before the stream; ``acc`` None
+    where each cluster owns its item."""
+    F, n = binned_t.shape
+    c = ctypes
+    return [(c.c_void_p, binned_t.data_ptr()),
+            (c.c_int, _BIN_BYTES[binned_t.dtype]),
+            (c.c_void_p, row_pos.data_ptr()), (c.c_void_p, base_t.data_ptr()),
+            (c.c_void_p, amax.data_ptr()),
+            (c.c_void_p, None if acc is None else acc.data_ptr()),
+            (c.c_void_p, out.data_ptr()), (c.c_longlong, n),
+            (c.c_int, blocks), (c.c_int, F), (c.c_int, W), (c.c_int, B),
+            (c.c_int, g.group), (c.c_int, g.node_tile),
+            (c.c_int, g.cluster), (c.c_int, g.row_blocks),
+            (c.c_int, g.threads)]
 
 
 def _launch_node(kernel: str, binned_t, row_pos, base_t, out, W: int,

@@ -18,7 +18,12 @@ PyTorch port against itself across world sizes and against the JAX package.
     in numpy from ``_det_shifts``: every block sum stays below 2^63 and the
     result is within the kernel-vs-plain contract of ``chip_smoke.py``
     (grad/hess within 1e-4 of the channel's largest magnitude plus 1e-4,
-    counts bit-equal).
+    counts bit-equal); its bit-exact plain version ``node_hist_det_plain``
+    against that emulation, at the shift rule's edges too; the histogram
+    body's cut of the mode (``_det_geometry``'s items, row blocks and
+    clusters, (lo, hi) cells with adds in a shuffled order, cluster folds,
+    int64 partials) against it bit for bit; the geometry at the path's
+    shapes and the wrapper's C arguments.
   * The exact block sums behind the blocked totals and leaf renewal.
   * Bagging (each rank draws its slice of the global stream) and DART are
     byte-equal across world sizes too; validation metrics, summed over
@@ -41,7 +46,9 @@ from mmlspark_tpu.parallel.mesh import make_mesh
 from mmlspark_tpu_torch.models.gbdt import growth as TG
 from mmlspark_tpu_torch.models.gbdt.booster import train_booster as ttrain
 from mmlspark_tpu_torch.ops import histogram as TH
+from mmlspark_tpu_torch.ops import histogram_scatter as HS
 from mmlspark_tpu_torch.ops.histogram_scatter import (node_hist_blocked_plain,
+                                                      node_hist_det_plain,
                                                       node_hist_plain)
 
 torch.set_num_threads(1)
@@ -264,27 +271,50 @@ def test_blocked_int8_guard_bounds_one_block(monkeypatch):
                                 q, 24, 31, cell_rows=120)
 
 
+def _fixed_point(base, blocks):
+    """The deterministic mode's per-row values: ``[3, n]`` int64
+    ``round(bf16(x) * 2^shift)`` of each row's block (0 where its (block,
+    stat) is not finite), and the ``[blocks, 3]`` shifts."""
+    shift = HS._det_shifts(torch.from_numpy(base), blocks).numpy()
+    rows = base.shape[1] // blocks
+    bf = torch.from_numpy(base).to(torch.bfloat16).to(torch.float64).numpy()
+    row_shift = np.repeat(shift.T, rows, axis=1)
+    ok = row_shift != HS.NONFINITE_SHIFT
+    q = np.rint(np.ldexp(np.where(ok, bf, 0.0), np.where(ok, row_shift, 0)))
+    return q.astype(np.int64), shift
+
+
+def _to_f32(acc, shift):
+    """An exact sum of one stat converted as the mode converts it: to f64,
+    times 2^-shift, to f32; NaN where the stat has no shift."""
+    if shift == HS.NONFINITE_SHIFT:
+        return np.full(np.shape(acc), np.nan, np.float32)
+    return np.ldexp(np.asarray(acc, np.int64).astype(np.float64),
+                    -int(shift)).astype(np.float32)
+
+
 def _emulate_det(binned, pos, base, W, B, blocks):
     """What ``csrc/node_hist_det.cu`` computes, in numpy: bf16-rounded
     stats scaled by 2^shift, rounded to int64, summed exactly, converted
-    back with one rounding."""
-    shift = TH._det_shifts(torch.from_numpy(base), blocks).numpy()
+    back with one rounding (NaN for a (block, stat) with a non-finite
+    value)."""
+    q_all, shift = _fixed_point(base, blocks)
     F, n = binned.shape
     rows = n // blocks
-    bf = torch.from_numpy(base).to(torch.bfloat16).to(torch.float64).numpy()
     out = np.zeros((blocks, F, 3 * W, B), np.float32)
     for j in range(blocks):
         sl = slice(j * rows, (j + 1) * rows)
-        q = np.rint(np.ldexp(bf[:, sl], shift[j][:, None])).astype(np.int64)
+        q = q_all[:, sl]
         acc = np.zeros((F, 3 * W, B), np.int64)
         for r in np.nonzero(pos[sl] >= 0)[0]:
             w = pos[sl][r]
+            b = binned[:, sl][:, r].astype(np.int64)
+            f = np.flatnonzero((b >= 0) & (b < B))   # bad ids add nothing
             for s in range(3):
-                acc[np.arange(F), 3 * w + s, binned[:, sl][:, r]] += q[s, r]
+                acc[f, 3 * w + s, b[f]] += q[s, r]
         assert np.abs(acc).max() < 2 ** 62 + rows
         for s in range(3):
-            out[j, :, s::3] = np.ldexp(acc[:, s::3].astype(np.float64),
-                                       -shift[j][s]).astype(np.float32)
+            out[j, :, s::3] = _to_f32(acc[:, s::3], shift[j][s])
     return out
 
 
@@ -302,22 +332,359 @@ def test_det_mode_fixed_point_is_within_the_plain_contract(scale):
         assert np.abs(got[:, :, s::3] - want[:, :, s::3]).max() <= lim
 
 
+def _det_inputs(scale, n=480, F=3, W=2, B=31, blocks=4):
+    """Node inputs with grad scaled by ``scale``; ``"non-finite"`` puts an
+    inf into block 1's hess."""
+    binned, pos, base = _node_inputs(5, n, F, W, B)
+    if scale == "non-finite":
+        base[1, n // blocks + 10] = np.inf
+    else:
+        base[0] *= scale
+    return binned, pos, base
+
+
+@pytest.mark.parametrize("scale", [1.0, 3e-12, 7e9, "non-finite"])
+def test_det_plain_is_bit_equal_to_the_fixed_point_emulation(scale):
+    """``node_hist_det_plain`` (int64 ``index_add_`` at ``_det_shifts``'s
+    shifts), the kernel's plain version on the card, against the numpy
+    emulation bit for bit; a non-finite block's stat comes out NaN."""
+    binned, pos, base = _det_inputs(scale)
+    got = node_hist_det_plain(torch.from_numpy(binned),
+                              torch.from_numpy(pos),
+                              torch.from_numpy(base), 2, 31, 4)
+    assert got.dtype == torch.float32 and got.shape == (4, 3, 6, 31)
+    want = _emulate_det(binned, pos, base, 2, 31, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if scale == "non-finite":
+        assert np.isnan(want[1, :, 1::3]).all()
+        assert not np.isnan(np.delete(want[1], np.s_[1::3], axis=1)).any()
+        assert not np.isnan(want[[0, 2, 3]]).any()
+
+
+_M32 = (1 << 32) - 1
+
+
+def _pair_add(cell, v):
+    """One add of the (lo u32, hi i32) cell ``cell`` (a two-item list) as
+    ``node_hist_common.cuh:add_fixed`` does it: the low word's add returns
+    the old value, and the add wrapped where the new low word is below
+    the added one; the high word and the carry go in only if not zero,
+    with int32 wrap-around."""
+    lo_v, hi_v = v & _M32, v >> 32
+    if lo_v:
+        cell[0] = (cell[0] + lo_v) & _M32
+        hi_v += cell[0] < lo_v
+    if hi_v:
+        cell[1] = ((cell[1] + hi_v + 2 ** 31) & _M32) - 2 ** 31
+
+
+def _segment_rows(row_block, rows, threads, row_blocks):
+    """The rows of a segment one row block walks: vectors of
+    ``_DET_ROWS`` rows in sweeps of ``threads``, sweep k to row block
+    k % row_blocks; the last row block also takes the segment's rows
+    after its last whole vector."""
+    V = TH._DET_ROWS
+    nv = rows // V
+    sweep = np.arange(nv * V) // (V * threads)
+    got = np.flatnonzero(sweep % row_blocks == row_block)
+    if row_block == row_blocks - 1:
+        got = np.concatenate([got, np.arange(nv * V, rows)])
+    return got
+
+
+def _emulate_det_cut(binned, pos, base, W, B, blocks, geo, seed):
+    """The fixed-point mode of the histogram body in numpy, as
+    ``_det_geometry``'s cut runs it: per (segment, feature group, node
+    tile) item, per row block, a partial histogram of (lo, hi) cells whose
+    adds come in a shuffled order; a cluster's partials folded in rank
+    order; where the cluster owns the item, converted once and stored,
+    else added into int64 partials converted at the end. Returns (the
+    ``[blocks, F, 3W, B]`` f32 result, per-(item, row) visit counts)."""
+    rng = np.random.default_rng(seed)
+    q, shift = _fixed_point(base, blocks)
+    F, n = binned.shape
+    rows = n // blocks
+    staged = TH._det_staged(geo)
+    out = np.full((blocks, F, 3 * W, B), -1.0, np.float32)   # unwritten
+    acc = np.zeros((blocks, F, 3 * W, B), np.int64)
+    visits = np.zeros((geo.groups * geo.tiles, n), np.int64)
+    for j in range(blocks):
+        for y in range(geo.groups * geo.tiles):
+            f0 = (y // geo.tiles) * geo.group
+            w0 = (y % geo.tiles) * geo.node_tile
+            g_n = min(geo.group, F - f0)
+            tn = min(geo.node_tile, W - w0)
+            for c0 in range(0, geo.row_blocks, geo.cluster):
+                folded = np.zeros((g_n, 3 * tn, B), np.int64)
+                for rb in range(c0, c0 + geo.cluster):
+                    mine = j * rows + _segment_rows(rb, rows, geo.threads,
+                                                    geo.row_blocks)
+                    visits[y, mine] += 1
+                    adds = [((g, 3 * (pos[r] - w0) + s, binned[f0 + g, r]),
+                             int(q[s, r]))
+                            for r in mine if 0 <= pos[r] - w0 < tn
+                            for g in range(g_n) if 0 <= binned[f0 + g, r] < B
+                            for s in range(3) if q[s, r]]
+                    cells = {}
+                    for k in rng.permutation(len(adds)):
+                        at, v = adds[k]
+                        _pair_add(cells.setdefault(at, [0, 0]), v)
+                    for at, (lo, hi) in cells.items():   # rank order
+                        folded[at] += (hi << 32) + lo
+                f_sl = slice(f0, f0 + g_n)
+                w_sl = slice(3 * w0, 3 * (w0 + tn))
+                if staged:
+                    acc[j, f_sl, w_sl] += folded
+                else:
+                    assert c0 == 0, "a cluster that owns its item is alone"
+                    for s in range(3):
+                        out[j, f_sl, w_sl][:, s::3] = _to_f32(
+                            folded[:, s::3], shift[j][s])
+    if staged:
+        for j in range(blocks):
+            for s in range(3):
+                out[j, :, s::3] = _to_f32(acc[j, :, s::3], shift[j][s])
+    return out, visits
+
+
+def _mixed_inputs(seed, n, F, W, B):
+    """Stats whose magnitudes within a block span six decades, signs
+    mixed: many values with a non-zero low word, so the (lo, hi) cells
+    carry."""
+    binned, pos, base = _node_inputs(seed, n, F, W, B)
+    rng = np.random.default_rng(seed + 1)
+    base[0] *= 10.0 ** rng.uniform(-6, 0, size=n)
+    base[1] *= 10.0 ** rng.uniform(-3, 0, size=n)
+    base[0, ::97] = 0.0
+    binned[0, ::13] = B + 2                      # ids outside [0, B) skip
+    return binned, pos, base.astype(np.float32)
+
+
+DET_CUTS = [
+    # n, F, W, B, blocks, (group, node_tile, cluster, row_blocks, threads)
+    (492, 5, 3, 31, 4, (2, 2, 2, 4, 32)),      # clusters of 2, partials
+    (492, 5, 3, 31, 4, (3, 3, 4, 4, 32)),      # a cluster owns its item
+    (486, 4, 2, 17, 2, (4, 1, 1, 3, 64)),      # single blocks, partials
+    (396, 3, 4, 9, 3, (1, 4, 3, 3, 32)),       # a cluster of 3 owns it
+    (240, 2, 1, 7, 8, (2, 1, 8, 8, 32)),       # rows below a sweep
+]
+
+
+@pytest.mark.parametrize("n,F,W,B,blocks,cut", DET_CUTS)
+def test_det_cut_with_pair_cells_is_bit_equal(n, F, W, B, blocks, cut):
+    """Whatever the cut and the order of adds, the fixed-point mode's (lo,
+    hi) cells, cluster folds and int64 partials give ``_emulate_det``'s
+    bits: every row is walked once per item."""
+    group, tile, cluster, row_blocks, threads = cut
+    geo = TH.NodeGeometry(group, tile, cluster, row_blocks, threads,
+                          group * tile * 24 * B, -(-F // group),
+                          -(-W // tile))
+    binned, pos, base = _mixed_inputs(n + F, n, F, W, B)
+    got, visits = _emulate_det_cut(binned, pos, base, W, B, blocks, geo,
+                                   seed=n)
+    assert (visits == 1).all(), "a row is walked twice or never"
+    np.testing.assert_array_equal(got, _emulate_det(binned, pos, base, W, B,
+                                                    blocks))
+
+
+def test_det_cut_carries_and_wraps():
+    """The (lo, hi) pair in isolation: sums whose low words wrap many times
+    and high words that cross zero, in every order, equal the int64 sum."""
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        vals = [int(v) for v in rng.integers(-2 ** 45, 2 ** 45, size=40)]
+        vals += [int(v) for v in rng.integers(-2 ** 33, 2 ** 33, size=40)]
+        for order in (vals, vals[::-1], list(rng.permutation(vals))):
+            cell = [0, 0]
+            for v in order:
+                _pair_add(cell, int(v))
+            assert (cell[1] << 32) + cell[0] == sum(vals)
+
+
+@pytest.mark.parametrize("W", [1, 16])
+def test_det_chosen_cut_is_bit_equal(W):
+    """``_det_geometry``'s own cut at a small shape (several items, row
+    blocks and, at W=1, int64 partials across clusters)."""
+    n, F, B, blocks = 8 * 3000, 6, 15, 8
+    geo = TH._det_geometry(n // blocks, F, W, B, blocks)
+    assert geo.row_blocks > 1 or W == 16
+    binned, pos, base = _mixed_inputs(W, n, F, W, B)
+    got, visits = _emulate_det_cut(binned, pos, base, W, B, blocks, geo,
+                                   seed=W)
+    assert (visits == 1).all()
+    np.testing.assert_array_equal(got, _emulate_det(binned, pos, base, W, B,
+                                                    blocks))
+
+
+def _edge_stats(rows=16, blocks=6):
+    """``[3, rows * blocks]`` stats whose blocks reach the shift rule's
+    edges: all zero; a subnormal largest value; a finite value that rounds
+    to inf in bf16; an inf; a NaN; ordinary values (the edges in stat 1,
+    stats 0 and 2 ordinary)."""
+    rng = np.random.default_rng(11)
+    base = rng.normal(size=(3, rows * blocks)).astype(np.float32)
+    b = base[1].reshape(blocks, rows)
+    b[0] = 0.0
+    b[1] = np.float32(3e-39) * rng.uniform(-1, 1, size=rows)
+    b[2, 3] = np.float32(3.4e38)
+    b[3, 5] = -np.inf
+    b[4, 7] = np.nan
+    return base
+
+
+def test_det_shifts_from_the_largest_bits():
+    """The library derives each shift from the bits of the block's largest
+    |f32 stat| (``node_hist_det.cu:amax_bits``, an atomicMax over the
+    bits; ``node_hist_common.cuh:FixedStats::shift_of``): round that value
+    to bf16, NaN-or-inf gets no shift, else 62 - ceil(log2(rows)) - its
+    frexp exponent. The same shifts as ``_det_shifts`` at every edge."""
+    base = _edge_stats()
+    rows, blocks = 16, 6
+    bits = np.abs(base).view(np.uint32).reshape(3, blocks, rows).max(axis=2).T
+    a = torch.from_numpy(bits.copy().view(np.float32)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+    with np.errstate(invalid="ignore"):
+        e = np.frexp(a)[1]
+    want = np.where(np.isfinite(a), 62 - 4 - e, HS.NONFINITE_SHIFT)
+    got = HS._det_shifts(torch.from_numpy(base), blocks).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[[2, 3, 4], 1] == HS.NONFINITE_SHIFT).all()
+    assert got[0, 1] == 62 - 4 and got[1, 1] > 62 + 120
+
+
+def test_det_plain_at_the_shift_edges():
+    """``node_hist_det_plain`` at those edges against the emulation."""
+    base = _edge_stats()
+    n = base.shape[1]
+    rng = np.random.default_rng(12)
+    binned = rng.integers(0, 9, size=(2, n)).astype(np.int32)
+    pos = rng.integers(-1, 3, size=n).astype(np.int32)
+    got = node_hist_det_plain(torch.from_numpy(binned),
+                              torch.from_numpy(pos), torch.from_numpy(base),
+                              3, 9, 6).numpy()
+    np.testing.assert_array_equal(got, _emulate_det(binned, pos, base, 3, 9,
+                                                    6))
+    assert np.isnan(got[[2, 3, 4]][:, :, 1::3]).all()
+    assert not np.isnan(got[[0, 1, 5]]).any()
+
+
 def test_det_shifts_flag_non_finite_blocks():
     base = np.ones((3, 64), np.float32)
     base[1, 40] = np.inf
-    shift = TH._det_shifts(torch.from_numpy(base), 4)
+    shift = HS._det_shifts(torch.from_numpy(base), 4)
     # 16 rows a block, largest |stat| 1 < 2^1: shift 62 - 4 - 1
     assert shift[2, 1] == -2 ** 31 and (shift[[0, 1, 3]] == 57).all()
     assert (shift[:, [0, 2]] == 57).all()
 
 
-def test_det_geometry_depends_on_the_shape_alone():
+def _det_wave(geo, blocks):
+    """Clusters of ``geo``'s size an H100 holds at once at its shared
+    memory (``_DET_CLUSTERS_HELD``), and the clusters its grid asks for."""
+    per_sm = min(2, TH._SM_SMEM // (geo.smem + TH._BLOCK_RESERVE))
+    held = TH._DET_CLUSTERS_HELD[per_sm][geo.cluster]
+    return held, blocks * geo.groups * geo.tiles * geo.row_blocks // \
+        geo.cluster
+
+
+def test_det_geometry_depends_on_the_shape_alone(monkeypatch):
+    """8-byte cells (``smem == group * tile * 24 * B``); the grid one wave
+    of the clusters an H100 holds (``_DET_CLUSTERS_HELD``) where the items
+    allow it; nothing asked of a card."""
+    def no_card(*a):
+        raise AssertionError("the deterministic geometry asked the card")
+    monkeypatch.setattr(TH, "_num_sms_of", no_card)
+    monkeypatch.setattr(TH, "_clusters_held", no_card)
     a = TH._det_geometry(125_000, 28, 16, 255, 8)
     assert a == TH._det_geometry(125_000, 28, 16, 255, 8)
     assert a.smem == a.group * a.node_tile * 24 * 255 <= TH._SMEM_MAX
-    assert a.row_blocks * a.groups * a.tiles * 8 <= 2 * TH._DET_SMS
+    held, asked = _det_wave(a, 8)
+    assert asked <= held
     root = TH._det_geometry(125_000, 28, 1, 255, 8)
     assert root.groups * root.group >= 28 and root.row_blocks > 1
+    held, asked = _det_wave(root, 8)
+    assert asked <= held
+    # leafwise's 16 children: one feature of 16 nodes a block (97,920
+    # bytes, two blocks an SM), 224 items, one row block each, which owns
+    # its item; the root: groups of 7 features (42,840 bytes), 8 row blocks
+    # an item in pairs (32 items need 128 pairs of the 132 held; clusters
+    # of 8 would need 32 of the 30 held), so int64 partials
+    assert (a.group, a.node_tile, a.cluster, a.row_blocks, a.threads) == (
+        1, 16, 1, 1, 512) and not TH._det_staged(a)
+    assert (root.group, root.groups, root.cluster, root.row_blocks,
+            root.smem) == (7, 4, 2, 8, 42_840) and TH._det_staged(root)
+
+
+@pytest.mark.parametrize("F,n", [(28, 1_000_000), (54, 581_016),
+                                 (136, 1_280_000)])
+def test_det_geometry_at_the_path_shapes(F, n):
+    """Phases 14's (F=28), 6's (F=54, rows padded to 8 blocks) and 7's
+    (F=136) shapes in 8 blocks, W from 1 to 16, B=255: every geometry fits
+    the shared memory, covers each (feature, node) once, has a cluster of
+    at most 8 that divides its row blocks (and owns its item exactly when
+    it spans them), stays within a grid's 2^31-1 blocks and one wave of
+    whole clusters where the items allow, and gives every row block the
+    same sweeps."""
+    blocks, B = 8, 255
+    rows = n // blocks
+    for W in range(1, 17):
+        geo = TH._det_geometry(rows, F, W, B, blocks)
+        assert geo.smem == geo.group * geo.node_tile * 24 * B
+        assert 0 < geo.smem <= TH._SMEM_MAX
+        assert geo.groups == -(-F // geo.group)
+        assert geo.tiles == -(-W // geo.node_tile)
+        seen = np.zeros((F, W), np.int64)
+        for y in range(geo.groups * geo.tiles):
+            f0 = (y // geo.tiles) * geo.group
+            w0 = (y % geo.tiles) * geo.node_tile
+            assert f0 < F and w0 < W
+            seen[f0:f0 + geo.group, w0:w0 + geo.node_tile] += 1
+        assert (seen == 1).all()
+        assert 1 <= geo.cluster <= 8
+        assert geo.row_blocks % geo.cluster == 0
+        assert TH._det_staged(geo) == (geo.row_blocks > geo.cluster)
+        grid = blocks * geo.groups * geo.tiles * geo.row_blocks
+        assert grid <= 2 ** 31 - 1
+        held, asked = _det_wave(geo, blocks)
+        assert asked <= held or geo.row_blocks == 1
+        assert 32 <= geo.threads <= 512 and geo.threads % 32 == 0
+        nv = rows // TH._DET_ROWS
+        sweeps = -(-nv // geo.threads)
+        assert -(-sweeps // geo.row_blocks) == -(-nv // (
+            geo.row_blocks * 512))
+        assert geo == TH._det_geometry(rows, F, W, B, blocks)
+
+
+def test_det_geometry_refuses_what_the_body_refuses():
+    with pytest.raises(ValueError, match="shared memory"):
+        TH._det_geometry(1000, 4, 1, 9_686, 2)
+    assert TH._det_geometry(1000, 4, 1, 9_685, 2).smem <= TH._SMEM_MAX
+
+
+def test_det_wrapper_passes_the_c_arguments_in_order(monkeypatch):
+    """mm_node_hist_det(binned, bin_bytes, pos, base, amax, acc, out, n,
+    blocks, F, W, B, group, tile, cluster, row_blocks, threads, stream): no
+    int64 partials where each cluster owns its item, a buffer where it does
+    not."""
+    calls = []
+    monkeypatch.setattr(TH, "_launch", lambda kernel, entry, args, dev:
+                        calls.append((kernel, entry, args)))
+    n, F, W, B = 64, 3, 2, 7
+    binned = torch.zeros(F, n, dtype=torch.int16)
+    pos = torch.zeros(n, dtype=torch.int32)
+    base = torch.ones(3, n)
+    owned = TH.NodeGeometry(2, 2, 4, 4, 32, 2 * 2 * 24 * B, 2, 1)
+    staged = owned._replace(cluster=2)
+    out = TH._node_hist_det_cuda(binned, pos, base, W, B, 4,
+                                 geometry=owned)
+    assert out.shape == (4, F, 3 * W, B) and out.dtype == torch.float32
+    TH._node_hist_det_cuda(binned, pos, base, W, B, 4, geometry=staged)
+    (k0, e0, a0), (_, _, a1) = calls
+    assert (k0, e0) == ("node_hist_det", "mm_node_hist_det")
+    values = [v for _, v in a0]
+    assert values[1] == 2 and values[5] is None
+    assert values[7:] == [n, 4, F, W, B, 2, 2, 4, 4, 32]
+    assert a1[5][1] is not None and [v for _, v in a1][-4:] == [2, 2, 4, 32]
+    assert TH.node_histogram.det_launches >= 2
 
 
 def test_exact_block_sums_round_the_exact_sum_once():
@@ -348,8 +715,8 @@ def test_exact_block_sums_flag_non_finite_blocks():
     assert np.isnan(got[1, 1])
     got[1, 1] = 16.0
     np.testing.assert_array_equal(got, np.full((4, 2), 16.0, np.float32))
-    shift = TH.fixed_point_shifts(torch.tensor([1.0, 0.75, np.inf]), 16)
-    assert shift.tolist() == [57, 58, TH.NONFINITE_SHIFT]
+    shift = HS.fixed_point_shifts(torch.tensor([1.0, 0.75, np.inf]), 16)
+    assert shift.tolist() == [57, 58, HS.NONFINITE_SHIFT]
 
 
 def test_blocked_quantized_totals_widen_before_the_fold():

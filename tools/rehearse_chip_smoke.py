@@ -33,8 +33,9 @@ the batch costs, a bundle, bundled ``serving_main`` workers behind a
 gateway in subprocesses on the CPU, the checkpoint modes; the holds that
 need a graph — one graph launch per call, a graph per bucketed key — wait
 for the card), ``p14`` (phases 4, 4b and 6 for their models, then phase
-14: the deterministic mode stood in for by ``node_hist_blocked_plain``,
-the blocked fits, the world-size-2 fit as two gloo processes on the CPU,
+14: the deterministic mode and its bit-exact plain version
+``node_hist_det_plain`` both stood in for by ``node_hist_blocked_plain``,
+as the CPU ranks' blocked route takes it, the blocked fits, the world-size-2 fit as two gloo processes on the CPU,
 voting, telemetry, the pickled boosters). The plain versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
@@ -89,8 +90,8 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
     mod.hist_ops._node_hist_int8_cuda = (
-        lambda b, p, q, W, B: node_hist_plain(b, p, q, W, B,
-                                              acc_dtype=torch.int32))
+        lambda b, p, q, W, B, **_: node_hist_plain(b, p, q, W, B,
+                                                   acc_dtype=torch.int32))
     counted = mod.hist_ops.node_histogram
 
     def plain(b, p, q, W, B, acc_dtype=torch.float32):
@@ -111,6 +112,12 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
 
     mod.hist_ops.node_hist_plain = plain
     mod.hist_ops.node_hist_blocked_plain = blocked_plain
+    # 14a holds the mode bit for bit to its fixed-point plain version; here
+    # both are the f32 blocked plain version, which the rank processes'
+    # CPU route runs too
+    mod.node_hist_det_plain = (
+        lambda b, p, q, W, B, blocks: node_hist_blocked_plain(b, p, q, W, B,
+                                                              blocks))
 
     def read_counts():
         # on the CPU the plain versions stand in for every kernel
