@@ -285,6 +285,32 @@ Phases (any failure exits non-zero and prints no result line):
    result; a process with CUDA hidden unpickles 4b's and scores it on the
    CPU bit-equal to this process's CPU result.
 
+15. The shared host stages, featurizers, TrainClassifier and the VW
+   learners. 15a: ``VowpalWabbitClassifier(numBits=24, numPasses=2,
+   batchSize=128)`` on 1,000,000 Criteo-shaped rows (13 log1p-scaled
+   integer columns, 26 categorical columns with Criteo Kaggle's distinct
+   counts, hashed in numpy; VW's constant feature: 40 features a row) and
+   the transform of 200,000 more, held to ``VW_AUC_FLOOR``; a profiler
+   window over 40 batch steps, eager and as the captured graph (launches,
+   host and device ms, busy share; the graph's weights equal the eager
+   step's); the deterministic scatter against ``index_add_`` at one
+   batch, bit-equal over repeats. 15b: every fit of ``VW_SMALL_FITS`` at
+   20,000 rows, ``numBits=18``, cuda against cpu on well-conditioned rows
+   (``VW_WEIGHT_ATOL``), then on raw Criteo-shaped columns through
+   ``VowpalWabbitFeaturizer`` (VW's defaults held to 8 times the margin
+   spread one ulp of input makes on the CPU; the rest printed); a streamed
+   fit and a resumed checkpointed fit bit-equal on the card. 15c: L-BFGS
+   at 200,000 rows, 10 iterations, the objective must not rise. 15d: the
+   contextual bandit over 10,000 events (8 actions, 32 + 16 dimensions),
+   epsilon and bag, cuda against cpu, ``fit_multiple`` on two threads
+   bit-equal to the fits in turn. 15e: ``TrainClassifier`` over
+   ``LightGBMClassifier`` on 48,842 Adult-shaped rows (kernel 1 alone, its
+   launches counted into the record; ``ADULT_AUC_FLOOR``; cuda against
+   cpu 1e-5) and ``ComputeModelStatistics``; ``TextFeaturizer`` ->
+   ``VowpalWabbitFeaturizer`` -> ``VowpalWabbitClassifier`` on 20,000
+   documents, cuda against cpu. The phase's seconds print beside the
+   card's name and power limit.
+
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
 ``index_add_`` ms; the deterministic mode's at 14a's W=16 pass, launches
@@ -310,6 +336,7 @@ import torch
 
 from mmlspark_tpu_torch import native
 from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.featurize.text import TextFeaturizer
 from mmlspark_tpu_torch.io import serving as serving_mod
 from mmlspark_tpu_torch.io import serving_main
 from mmlspark_tpu_torch.io.aserve import SlotTable
@@ -338,12 +365,21 @@ from mmlspark_tpu_torch.observability import watchdog as obs_watchdog
 from mmlspark_tpu_torch.ops import _build
 from mmlspark_tpu_torch.ops import histogram as hist_ops
 from mmlspark_tpu_torch.ops.binning import bin_cols
+from mmlspark_tpu_torch.models.vw import sgd as vw_sgd
+from mmlspark_tpu_torch.models.vw.api import (VW_CONSTANT_INDEX,
+                                              VowpalWabbitClassifier,
+                                              VowpalWabbitRegressor)
+from mmlspark_tpu_torch.models.vw.bandit import VowpalWabbitContextualBandit
+from mmlspark_tpu_torch.models.vw.featurizer import VowpalWabbitFeaturizer
+from mmlspark_tpu_torch.ops.murmur import hash_feature, hash_namespace
 from mmlspark_tpu_torch.ops.histogram_scatter import (blocks_as_nodes,
                                                       hist_plain,
                                                       node_hist_blocked_plain,
                                                       node_hist_det_plain,
                                                       node_hist_plain)
 from mmlspark_tpu_torch.robustness import failpoints
+from mmlspark_tpu_torch.train.core import (ComputeModelStatistics,
+                                           TrainClassifier)
 from mmlspark_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                  CheckpointMismatchError,
                                                  data_fingerprint)
@@ -3541,6 +3577,666 @@ def phase_data_group(base, quantized, multiclass, data) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the shared host stages, featurizers, TrainClassifier and the VW
+# learners (hashed SGD, L-BFGS, contextual bandits)
+# ---------------------------------------------------------------------------
+
+# Criteo Kaggle Display Advertising Challenge's row shape: 13 integer
+# columns and 26 categorical ones, these the distinct counts of its
+# training set's categorical columns (about 33.8M values in all)
+CRITEO_CARDINALITIES = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633,
+                        3, 93145, 5683, 8351593, 3194, 27, 14992, 5461306,
+                        10, 5652, 2173, 4, 7046547, 18, 15, 286181, 105,
+                        142572)
+CRITEO_INTS = 13
+CRITEO_POSITIVE_RATE = 0.25
+CRITEO_ROWS, CRITEO_HOLDOUT = 1_000_000, 200_000
+VW_BITS = 24
+VW_SMALL_ROWS = 20_000
+BFGS_ROWS = 200_000
+BFGS_ITERS = 10
+BANDIT_EVENTS, BANDIT_ACTIONS, BANDIT_SHARED, BANDIT_ACTION_DIM = (
+    10_000, 8, 32, 16)
+# Adult Census Income: 48,842 rows (its train and test splits), 6 numeric
+# and 8 string columns, about 24% positives
+ADULT_TRAIN, ADULT_TEST = 32_561, 16_281
+TEXT_DOCS = 20_000
+# phase 15 quality floors (PERF.md §2, set from a CPU rehearsal before the
+# first chip run)
+VW_AUC_FLOOR = 0.69
+ADULT_AUC_FLOOR = 0.83
+TEXT_ACCURACY_FLOOR = 0.70
+# cuda against cpu, VW, on rows where the fit is stable: an f32 batch step
+# sums the updates of the constant feature (and every shared index) in
+# index order on the CPU and in sorted warp runs on the card, and margins
+# in another order; one ulp of input moves these fits by 1e-6 to 5e-5
+VW_WEIGHT_ATOL = 1e-3
+# bandit: weights as VW's; the IPS/SNIPS counters move by one event's
+# cost / p_log if a near-tied argmin falls the other way on one device
+BANDIT_WEIGHT_ATOL = 1e-3
+BANDIT_ESTIMATE_RTOL = 1e-2
+VW_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke_vw")
+
+
+def _fmix32(h: np.ndarray) -> np.ndarray:
+    """MurmurHash3's 32-bit finalizer on uint64 values below 2^32."""
+    h = h ^ (h >> np.uint64(16))
+    h = (h * np.uint64(0x85EBCA6B)) & np.uint64(0xFFFFFFFF)
+    h = h ^ (h >> np.uint64(13))
+    h = (h * np.uint64(0xC2B2AE35)) & np.uint64(0xFFFFFFFF)
+    return h ^ (h >> np.uint64(16))
+
+
+def _criteo_keys(ids: np.ndarray) -> np.ndarray:
+    """[n, 26] uint64 keys of (column, id)."""
+    cols = np.arange(len(CRITEO_CARDINALITIES), dtype=np.uint64)
+    return (ids.astype(np.uint64) * np.uint64(0x9E3779B1)
+            + cols * np.uint64(0x7F4A7C15)) & np.uint64(0xFFFFFFFF)
+
+
+def criteo_raw(n: int, seed: int):
+    """Criteo-shaped rows from a seed: ``[n, 13]`` integer counts, ``[n,
+    26]`` category ids (skewed towards small ids, within each column's
+    distinct count) and labels from one fixed logistic model at Criteo's
+    positive rate of about 25%."""
+    model = np.random.default_rng(1234)
+    p = model.uniform(0.02, 0.4, size=CRITEO_INTS)
+    w_int = model.normal(0.0, 0.35, size=CRITEO_INTS)
+    scale = model.uniform(0.3, 1.2, size=len(CRITEO_CARDINALITIES))
+    rng = np.random.default_rng(seed)
+    counts = rng.geometric(p, size=(n, CRITEO_INTS)) - 1
+    card = np.asarray(CRITEO_CARDINALITIES, np.float64)
+    ids = np.floor(card * rng.random((n, len(card))) ** 3).astype(np.int64)
+    eff = (_fmix32(_criteo_keys(ids) ^ np.uint64(0x5BD1E995))
+           .astype(np.float64) / 2.0 ** 32 - 0.5) * 2.0 * scale
+    score = np.log1p(counts) @ w_int + eff.sum(axis=1)
+    score = (score - score.mean()) / score.std() * 1.6
+    lo, hi = -10.0, 10.0                       # the offset of a 25% rate
+    for _ in range(50):
+        mid = (lo + hi) / 2
+        if (1.0 / (1.0 + np.exp(-(score - mid)))).mean() > \
+                CRITEO_POSITIVE_RATE:
+            lo = mid
+        else:
+            hi = mid
+    prob = 1.0 / (1.0 + np.exp(-(score - lo)))
+    y = (rng.random(n) < prob).astype(np.float32)
+    return counts, ids, y, score.astype(np.float32)
+
+
+def criteo_hashed(counts, ids):
+    """The pre-hashed ``features_indices`` / ``features_values`` columns of
+    Criteo-shaped rows as VW hashes them: an integer column at the hash of
+    its name with value ``log1p(count)``, a category at a hash of (column,
+    id) with value 1 (VW's constant feature is the estimator's)."""
+    n = counts.shape[0]
+    ns = hash_namespace("", 0)
+    int_idx = np.asarray([hash_feature(f"I{j}", ns) & 0x7FFFFFFF
+                          for j in range(CRITEO_INTS)], np.int64)
+    cat_idx = (_fmix32(_criteo_keys(ids)) & np.uint64(0x7FFFFFFF)).astype(
+        np.int64)
+    idx = np.concatenate([np.broadcast_to(int_idx, (n, CRITEO_INTS)),
+                          cat_idx], axis=1).astype(np.int32)
+    val = np.concatenate([np.log1p(counts).astype(np.float32),
+                          np.ones(cat_idx.shape, np.float32)], axis=1)
+    return idx, val
+
+
+def criteo_columns(counts, ids, y):
+    """The same rows as raw columns for ``VowpalWabbitFeaturizer``
+    (integer columns log1p-scaled, categories as hex strings)."""
+    cols = {f"I{j}": np.log1p(counts[:, j]) for j in range(CRITEO_INTS)}
+    for j in range(ids.shape[1]):
+        cols[f"C{j}"] = np.char.mod("%08x", ids[:, j]).astype(object)
+    cols["label"] = y
+    return cols
+
+
+def vw_margins(model, ds) -> np.ndarray:
+    out = model.transform(ds)
+    if "rawPrediction" in out:
+        return out.array("rawPrediction")[:, 1]
+    return out.array("prediction")
+
+
+def vw_step_costs(est, ds, steps: int = 40) -> dict:
+    """Launches and host ms per batch step, and the device's busy share,
+    from a profiler window over ``steps`` steps of the fit's own loop
+    (``sgd._sgd_passes``) at the fit's shapes and table size: eager, and
+    as the captured graph the fit runs on the card (its capture outside
+    the window). The graph's weights must equal the eager loop's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = est._sgd_config(est.get_or_default("lossFunction"))._replace(
+        num_passes=1)
+    rows = steps * cfg.batch_size
+    idx, val = est._features(ds.take(np.arange(rows)))
+    idx = idx & ((1 << cfg.num_bits) - 1)
+    mesh = vw_sgd.meshlib.get_default_mesh()
+    dev = torch.device("cuda")
+    prepped = vw_sgd._prep_sgd_data(idx, val, ds.array("label")[:rows],
+                                    None, cfg, mesh, dev)
+    D = 1 << cfg.num_bits
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out, weights = {}, {}
+    # a CPU rehearsal has no graph to capture
+    modes = (("eager", False), ("graph", True))[
+        :2 if torch.cuda.is_available() else 1]
+    for mode, graph in modes:
+        args = [torch.zeros(D, device=dev), torch.zeros(D, device=dev), 0.0,
+                torch.zeros(1, device=dev)]
+        step = None
+        if graph:
+            step = vw_sgd._StepGraph(prepped, cfg, args[0], args[1], args[3],
+                                     0.0)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if step is None:
+                vw_sgd._sgd_passes(prepped, cfg, mesh, *args, graph=False)
+            else:
+                step.run_pass()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        weights[mode] = args[0]
+        rc = runtime_calls(prof)
+        dms = device_ms(prof)
+        out[mode] = {"launches_per_step": rc["cudaLaunchKernel"] / steps,
+                     "graph_launches_per_step": rc["cudaGraphLaunch"] / steps,
+                     "device_items_per_step": device_launches(prof) / steps,
+                     "host_ms_per_step": wall_ms / steps,
+                     "device_ms_per_step": dms / steps,
+                     "device_busy_share": dms / wall_ms}
+    diff = float((weights["eager"] - weights.get(
+        "graph", weights["eager"])).abs().max())
+    out["graph_vs_eager_max_abs"] = diff
+    out["steps"] = steps
+    if not diff <= 1e-5:
+        raise AssertionError(f"the captured step differs from the eager "
+                             f"step by {diff}")
+    return out
+
+
+def scatter_costs(nnz: int, bs: int = 128, bits: int = VW_BITS) -> dict:
+    """The fit's deterministic scatter-add (``index_put_`` with
+    ``accumulate``) against ``index_add_`` at one batch's shape: bs x nnz
+    updates into a 2^bits table, every row's constant feature among
+    them. Bit-equal over repeats is held; ``index_add_``'s float atomics
+    promise no such thing."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, 1 << bits, (bs, nnz), device="cuda",
+                        generator=gen)
+    idx[:, -1] = VW_CONSTANT_INDEX & ((1 << bits) - 1)
+    flat = idx.reshape(-1)
+    upd = torch.randn(bs * nnz, device="cuda", generator=gen)
+    table = torch.zeros(1 << bits, device="cuda")
+    outs = [vw_sgd.scatter_add(table.clone(), flat, upd) for _ in range(5)]
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError("the deterministic scatter-add is not "
+                             "bit-equal over repeats")
+    plain = table.clone().index_add_(0, flat, upd)
+    err = float((plain - outs[0]).abs().max())
+    det_ms = time_ms(lambda: vw_sgd.scatter_add(table, flat, upd), reps=200)
+    add_ms = time_ms(lambda: table.index_add_(0, flat, upd), reps=200)
+    return {"index_put_accumulate_ms": det_ms, "index_add_ms": add_ms,
+            "max_abs_diff": err, "updates": bs * nnz}
+
+
+def auc_of(p, y) -> float:
+    return float(auc_weighted(np.asarray(p, np.float64),
+                              np.asarray(y, np.float64), None))
+
+
+def phase_vw_full_width(train, hold) -> dict:
+    """15a: ``VowpalWabbitClassifier(numBits=24, numPasses=2,
+    batchSize=128)`` on Criteo-shaped rows, transform of the holdout."""
+    (idx, val, y), (idx_h, val_h, y_h) = train, hold
+    log(f"== phase 15a: VowpalWabbitClassifier(numBits={VW_BITS}, "
+        f"numPasses=2, batchSize=128) fit on {len(y):,} Criteo-shaped rows "
+        f"(13 + 26 + constant = {idx.shape[1] + 1} features), transform "
+        f"{len(y_h):,}")
+    ds = Dataset({"features_indices": idx, "features_values": val,
+                  "label": y})
+    dh = Dataset({"features_indices": idx_h, "features_values": val_h})
+    est = VowpalWabbitClassifier(numBits=VW_BITS, numPasses=2, batchSize=128,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = est.fit(ds)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the VW fit launched a histogram: {counts}")
+    t0 = time.perf_counter()
+    probs = model.transform(dh).array("probability")
+    pred_s = time.perf_counter() - t0
+    if not np.isfinite(probs).all():
+        raise AssertionError("non-finite VW probabilities")
+    a = auc_of(probs[:, 1], y_h)
+    log(f"fit {fit_s:.3f} s ({2 * len(y) / fit_s:,.0f} rows/s per pass of "
+        f"{len(y):,}); peak device memory {peak / 2**30:.3f} GiB; transform "
+        f"{len(y_h) / pred_s:,.0f} rows/s; holdout AUC {a:.5f} (floor "
+        f"{VW_AUC_FLOOR}); {model.stats['numWeights']:,} live weights")
+    if not a > VW_AUC_FLOOR:
+        raise AssertionError(f"VW holdout AUC {a} <= {VW_AUC_FLOOR}")
+    steps = vw_step_costs(est, ds)
+    log("one batch step: " + json.dumps(steps))
+    scatter = scatter_costs(idx.shape[1] + 1)
+    log("scatter-add at one batch's shape: " + json.dumps(scatter))
+    return {"fit_s": fit_s, "rows_per_s_per_pass": 2 * len(y) / fit_s,
+            "peak_gib": peak / 2 ** 30,
+            "transform_rows_per_s": len(y_h) / pred_s, "auc": a,
+            "step": steps, "scatter": scatter}
+
+
+# 15b: (estimator, Params) fitted on cuda and on cpu
+VW_SMALL_FITS = (
+    ("VowpalWabbitClassifier", {}),
+    ("VowpalWabbitClassifier", {"adaptive": False, "powerT": 0.4}),
+    ("VowpalWabbitClassifier", {"l1": 1e-6}),
+    ("VowpalWabbitClassifier", {"l2": 1e-6}),
+    ("VowpalWabbitClassifier", {"lossFunction": "hinge"}),
+    ("VowpalWabbitRegressor", {"lossFunction": "quantile"}),
+    ("VowpalWabbitRegressor", {"lossFunction": "squared"}),
+    ("VowpalWabbitClassifier", {"passThroughArgs": "--bfgs"}),
+)
+
+
+def well_conditioned(n: int, seed: int):
+    """Rows on which a VW fit is stable: 8 normal features hashed at
+    random into 2^18, labels from a linear model with noise. One ulp of
+    input moves these fits' weights by 1e-6 (5e-5 for the squared loss) on
+    the CPU (``tools/rehearse_chip_smoke.py p15``'s rows), so cuda against
+    cpu is held tightly."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 1 << 18, size=(n, 8)).astype(np.int32)
+    val = rng.normal(size=(n, 8)).astype(np.float32)
+    score = (val @ rng.normal(size=8)).astype(np.float32)
+    y = (score + 0.5 * rng.normal(size=n) > 0).astype(np.float32)
+    return {"features_indices": idx, "features_values": val}, y, score
+
+
+def vw_pair(name, params, base, label, devices=("cuda", "cpu")):
+    """One VW fit of ``VW_SMALL_FITS`` per device: (weights, margins)."""
+    cls = {"VowpalWabbitClassifier": VowpalWabbitClassifier,
+           "VowpalWabbitRegressor": VowpalWabbitRegressor}[name]
+    ds = Dataset(dict(base, label=label))
+    out = []
+    for dev in devices:
+        m = cls(numBits=18, numPasses=2, device=dev, **params).fit(ds)
+        out.append((m.weights, vw_margins(m, ds)))
+    return out
+
+
+def phase_vw_small() -> dict:
+    """15b: each fit of ``VW_SMALL_FITS`` on cuda against cpu, first on
+    well-conditioned rows (held tightly), then on raw Criteo-shaped columns
+    through VowpalWabbitFeaturizer (VW's defaults held to the spread one
+    ulp of input makes on the CPU: these fits amplify any rounding); on
+    the card alone a
+    streamed fit against the in-memory one and a resumed checkpointed fit
+    against an uninterrupted one, bit for bit."""
+    log(f"== phase 15b: VW fits on cuda vs cpu at {VW_SMALL_ROWS:,} rows "
+        "(numBits=18, 2 passes): well-conditioned rows, then raw "
+        "Criteo-shaped columns through VowpalWabbitFeaturizer")
+    out = {"fits": []}
+    base, y, score = well_conditioned(VW_SMALL_ROWS, seed=5)
+    for name, params in VW_SMALL_FITS:
+        label = y if name == "VowpalWabbitClassifier" else score
+        (wg, mg), (wc, mc) = vw_pair(name, params, base, label)
+        dw = float(np.abs(wg - wc).max())
+        dm = float(np.abs(mg - mc).max())
+        scale = max(1.0, float(np.abs(mc).max()))
+        log(f"{name}({shown(params)}): weights differ by {dw:.3g}, margins "
+            f"by {dm:.3g} (|margin| <= {scale:.3g}; tolerance "
+            f"{VW_WEIGHT_ATOL})")
+        if not (dw <= VW_WEIGHT_ATOL and dm <= VW_WEIGHT_ATOL * scale):
+            raise AssertionError(f"{name}({params}) cuda vs cpu: weights "
+                                 f"{dw}, margins {dm}")
+        out["fits"].append({"fit": name, "params": params,
+                            "weight_diff": dw, "margin_diff": dm})
+
+    counts, ids, y, score = criteo_raw(VW_SMALL_ROWS, seed=7)
+    cols = criteo_columns(counts, ids, y)
+    t0 = time.perf_counter()
+    feats = VowpalWabbitFeaturizer(
+        inputCols=[c for c in cols if c != "label"]).transform(Dataset(cols))
+    feat_s = time.perf_counter() - t0
+    out["featurizer_rows_per_s"] = VW_SMALL_ROWS / feat_s
+    log(f"featurizer {VW_SMALL_ROWS / feat_s:,.0f} rows/s "
+        f"({len(cols) - 1} columns, per element on the host); "
+        f"{feats.array('features_indices').shape[1]} slots a row")
+    base = {"features_indices": feats.array("features_indices"),
+            "features_values": feats.array("features_values")}
+    nudged = dict(base, features_values=base["features_values"]
+                  * np.float32(1 + 2 ** -23))
+    for name, params in VW_SMALL_FITS:
+        label = y if name == "VowpalWabbitClassifier" else score
+        (wg, mg), (wc, mc) = vw_pair(name, params, base, label)
+        ((wn, mn),) = vw_pair(name, params, nudged, label, devices=("cpu",))
+        dm = float(np.median(np.abs(mg - mc)))
+        spread = float(np.median(np.abs(mn - mc)))
+        agree = float(((mg > 0) == (mc > 0)).mean())
+        log(f"{name}({shown(params)}) on featurized rows: median |margin "
+            f"delta| {dm:.3g} (one ulp of input on the cpu: {spread:.3g}); "
+            f"weights {float(np.abs(wg - wc).max()):.3g} (one ulp: "
+            f"{float(np.abs(wn - wc).max()):.3g}); signs agree on "
+            f"{agree:.5f}")
+        # VW's defaults (15a's fit) are held: the card's rounding differs
+        # at every step, not once, so up to 8 times one ulp's spread. The
+        # other options are read, not held: on these rows their fits turn
+        # one ulp of input into margins apart by up to 5 (this phase on
+        # an H100), so cuda and cpu have no pointwise answer to agree on; the
+        # well-conditioned rows above hold each of them tightly
+        if not params and not (dm <= 8 * spread + 1e-4 and agree >= 0.99):
+            raise AssertionError(f"{name}({params}) on featurized rows: "
+                                 f"median margin delta {dm} against one "
+                                 f"ulp's {spread}, signs {agree}")
+        out["fits"].append({"fit": name, "params": params,
+                            "featurized": True, "median_margin_diff": dm,
+                            "ulp_spread": spread, "sign_agreement": agree})
+
+    ds = Dataset(dict(base, label=y))
+    est = VowpalWabbitClassifier(numBits=18, numPasses=2, device="cuda")
+    whole = est.fit(ds)
+    idx, val = est._features(ds)
+    shutil.rmtree(VW_DIR, ignore_errors=True)
+    paths = []
+    for k, a in (("idx", idx), ("val", val), ("y", y)):
+        d = os.path.join(VW_DIR, k)
+        os.makedirs(d)
+        cuts = np.linspace(0, len(a), 4).astype(int)
+        for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            np.save(os.path.join(d, f"part{i:03d}.npy"), a[lo:hi])
+        paths.append(d)
+    streamed = VowpalWabbitClassifier(
+        numBits=18, numPasses=2, device="cuda").fit_streamed(
+        *paths, chunk_rows=4096)
+    if not np.array_equal(streamed.weights, whole.weights):
+        raise AssertionError("the streamed VW fit differs from the "
+                             "in-memory fit on the card")
+    ck = os.path.join(VW_DIR, "ckpt")
+    three = VowpalWabbitClassifier(numBits=18, numPasses=3,
+                                   device="cuda").fit(ds)
+    VowpalWabbitClassifier(numBits=18, numPasses=2, checkpointDir=ck,
+                           device="cuda").fit(ds)
+    resumed = VowpalWabbitClassifier(numBits=18, numPasses=3,
+                                     checkpointDir=ck, device="cuda").fit(ds)
+    if not np.array_equal(resumed.weights, three.weights):
+        raise AssertionError("the resumed VW fit differs from the "
+                             "uninterrupted fit on the card")
+    shutil.rmtree(VW_DIR, ignore_errors=True)
+    log("on the card: streamed == in-memory and resumed == uninterrupted, "
+        "bit for bit")
+    return out
+
+
+def phase_vw_bfgs(train) -> dict:
+    """15c: ``train_bfgs`` at 200,000 Criteo-shaped rows, numBits=18, 10
+    iterations: the objective must not rise."""
+    idx, val, y = (a[:BFGS_ROWS] for a in train)
+    log(f"== phase 15c: L-BFGS at {len(y):,} rows, numBits=18, "
+        f"{BFGS_ITERS} iterations")
+    est = VowpalWabbitClassifier(numBits=18)
+    idx, val = est._features(Dataset({"features_indices": idx,
+                                      "features_values": val}))
+    idx = idx & ((1 << 18) - 1)
+    cfg = vw_sgd.SGDConfig(num_bits=18, loss="logistic",
+                           num_passes=BFGS_ITERS, optimizer="bfgs")
+    trace = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = vw_sgd.train_bfgs(idx, val, y, None, cfg, trace=trace,
+                          device="cuda")
+    secs = time.perf_counter() - t0
+    obj = trace["objective"]
+    log(f"{secs:.3f} s ({secs / BFGS_ITERS * 1e3:.1f} ms an iteration); "
+        f"objective {obj[0]:.6f} -> {obj[-1]:.6f}; line-search read-backs "
+        f"per iteration {trace['readbacks']}")
+    if not np.isfinite(w).all():
+        raise AssertionError("non-finite L-BFGS weights")
+    for a, b in zip(obj, obj[1:]):
+        if not b <= a + 1e-6 * abs(a):
+            raise AssertionError(f"the L-BFGS objective rose: {obj}")
+    return {"seconds": secs, "objective": obj,
+            "readbacks": trace["readbacks"]}
+
+
+def bandit_events(n, seed):
+    """Logged events: shared contexts, 8 actions each, a uniform logging
+    policy and costs from a hidden bilinear map of context and action."""
+    rng = np.random.default_rng(seed)
+    shared = rng.normal(size=(n, BANDIT_SHARED)).astype(np.float32)
+    proj = rng.normal(size=(BANDIT_SHARED, BANDIT_ACTION_DIM)).astype(
+        np.float32) / np.sqrt(BANDIT_SHARED)
+    acts = rng.normal(size=(n, BANDIT_ACTIONS, BANDIT_ACTION_DIM)).astype(
+        np.float32)
+    chosen = rng.integers(0, BANDIT_ACTIONS, size=n)
+    reward = np.einsum("nd,nd->n", shared @ proj, acts[np.arange(n), chosen])
+    cost = (-reward + 0.1 * rng.normal(size=n)).astype(np.float64)
+    return {"shared": shared, "features": [list(a) for a in acts],
+            "chosenAction": chosen + 1, "label": cost,
+            "probability": np.full(n, 1.0 / BANDIT_ACTIONS)}
+
+
+def phase_bandit() -> dict:
+    """15d: VowpalWabbitContextualBandit, epsilon and bag (4 policies),
+    interactions on, cuda against cpu; fit_multiple on two threads against
+    the same fits in turn."""
+    log(f"== phase 15d: contextual bandit, {BANDIT_EVENTS:,} events x "
+        f"{BANDIT_ACTIONS} actions, {BANDIT_SHARED} shared and "
+        f"{BANDIT_ACTION_DIM} action dimensions")
+    cols = bandit_events(BANDIT_EVENTS, seed=11)
+    maps = [{"explorationPolicy": "epsilon"},
+            {"explorationPolicy": "bag", "bagSize": 4}]
+    out = {}
+    cuda_models = []
+    for pm in maps:
+        models, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            models[dev] = VowpalWabbitContextualBandit(
+                device=dev, useInteractions=True, **pm).fit(Dataset(cols))
+            secs[dev] = time.perf_counter() - t0
+        g, c = models["cuda"], models["cpu"]
+        dw = max(float(np.abs(np.asarray(g.get_or_default(p))
+                              - np.asarray(c.get_or_default(p))).max())
+                 for p in ("sharedWeights", "actionWeights",
+                           "interactionWeights"))
+        ips = (g.metrics.get_ips_estimate(), c.metrics.get_ips_estimate())
+        snips = (g.metrics.get_snips_estimate(),
+                 c.metrics.get_snips_estimate())
+        rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in (ips, snips))
+        ms = secs["cuda"] / BANDIT_EVENTS * 1e3
+        log(f"{pm['explorationPolicy']}: cuda {ms:.4f} ms an event (cpu "
+            f"{secs['cpu'] / BANDIT_EVENTS * 1e3:.4f}); weights differ by "
+            f"{dw:.3g}; IPS {ips[0]:.6f} / {ips[1]:.6f}, SNIPS "
+            f"{snips[0]:.6f} / {snips[1]:.6f}")
+        if not (dw <= BANDIT_WEIGHT_ATOL and rel <= BANDIT_ESTIMATE_RTOL):
+            raise AssertionError(f"bandit {pm} cuda vs cpu: weights {dw}, "
+                                 f"estimates {vars(g.metrics)} against "
+                                 f"{vars(c.metrics)}")
+        out[pm["explorationPolicy"]] = {"ms_per_event": ms,
+                                        "cpu_ms_per_event": secs["cpu"]
+                                        / BANDIT_EVENTS * 1e3,
+                                        "weight_diff": dw, "ips": ips,
+                                        "snips": snips}
+        cuda_models.append(g)
+    t0 = time.perf_counter()
+    threaded = VowpalWabbitContextualBandit(
+        useInteractions=True, parallelism=2, device="cuda").fit_multiple(
+        Dataset(cols), maps)
+    out["fit_multiple_s"] = time.perf_counter() - t0
+    for a, b in zip(threaded, cuda_models):
+        for p in ("sharedWeights", "actionWeights", "interactionWeights"):
+            if not np.array_equal(a.get_or_default(p), b.get_or_default(p)):
+                raise AssertionError(f"fit_multiple on two threads differs "
+                                     f"from the fit in turn ({p})")
+        if vars(a.metrics) != vars(b.metrics):
+            raise AssertionError("fit_multiple's counters differ")
+    log(f"fit_multiple(parallelism=2): {out['fit_multiple_s']:.2f} s, "
+        "bit-equal to the fits in turn")
+    return out
+
+
+ADULT_CATEGORIES = {
+    "workclass": 9, "education": 16, "marital_status": 7, "occupation": 15,
+    "relationship": 6, "race": 5, "sex": 2, "native_country": 42}
+ADULT_NUMERIC = ("age", "fnlwgt", "education_num", "capital_gain",
+                 "capital_loss", "hours_per_week")
+
+
+def adult_shaped(n: int, seed: int) -> dict:
+    """Adult-Census-shaped rows: its 6 numeric and 8 string columns (each
+    with its distinct count), labels '<=50K' / '>50K' from one fixed
+    model at about 24% positives."""
+    model = np.random.default_rng(4321)
+    eff = {c: model.normal(0.0, 0.8, size=k)
+           for c, k in ADULT_CATEGORIES.items()}
+    rng = np.random.default_rng(seed)
+    cols = {"age": rng.integers(17, 91, size=n).astype(np.float64),
+            "fnlwgt": rng.lognormal(12.0, 0.5, size=n),
+            "education_num": rng.integers(1, 17, size=n).astype(np.float64),
+            "capital_gain": np.where(rng.random(n) < 0.08,
+                                     rng.lognormal(8.0, 1.0, size=n), 0.0),
+            "capital_loss": np.where(rng.random(n) < 0.05,
+                                     rng.lognormal(7.0, 0.4, size=n), 0.0),
+            "hours_per_week": np.clip(rng.normal(40, 12, size=n), 1, 99)}
+    z = (0.04 * (cols["age"] - 38) + 0.25 * (cols["education_num"] - 10)
+         + 0.4 * (cols["capital_gain"] > 0) + 0.03
+         * (cols["hours_per_week"] - 40))
+    for c, k in ADULT_CATEGORIES.items():
+        # skewed levels: the first few carry most rows, as Adult's do
+        p = 1.0 / np.arange(1, k + 1) ** 1.3
+        lv = rng.choice(k, size=n, p=p / p.sum())
+        cols[c] = np.asarray([f"{c}_{v}" for v in lv], dtype=object)
+        z = z + eff[c][lv]
+    z = z + rng.normal(0.0, 1.0, size=n)
+    cut = np.quantile(z, 0.76)
+    cols["income"] = np.where(z > cut, ">50K", "<=50K").astype(object)
+    return cols
+
+
+def text_docs(n: int, seed: int) -> dict:
+    """Seeded documents over a 2,000-word vocabulary; the label is 1 when
+    a document holds more of the 'positive' words than of the 'negative'."""
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray([f"w{i:04d}" for i in range(2000)], dtype=object)
+    pos, neg = set(range(0, 40)), set(range(40, 80))
+    docs, labels = [], []
+    for _ in range(n):
+        words = rng.integers(0, 2000, size=rng.integers(8, 30))
+        words[:3] = rng.integers(0, 80, size=3)
+        s = sum(w in pos for w in words) - sum(w in neg for w in words)
+        docs.append(" ".join(vocab[words]))
+        labels.append(float(s > 0 or (s == 0 and rng.random() < 0.5)))
+    return {"text": np.asarray(docs, dtype=object),
+            "label": np.asarray(labels)}
+
+
+def phase_train_classifier() -> dict:
+    """15e: TrainClassifier over LightGBMClassifier on Adult-shaped rows
+    (kernel 1 must launch, no plain version), ComputeModelStatistics,
+    cuda against cpu; then TextFeaturizer -> VowpalWabbitFeaturizer ->
+    VowpalWabbitClassifier on seeded documents, cuda against cpu."""
+    log(f"== phase 15e: TrainClassifier(LightGBMClassifier(numIterations="
+        f"10)) on {ADULT_TRAIN + ADULT_TEST:,} Adult-shaped rows (train "
+        f"{ADULT_TRAIN:,}, test {ADULT_TEST:,}), ComputeModelStatistics")
+    cols = adult_shaped(ADULT_TRAIN + ADULT_TEST, seed=21)
+    train = {k: v[:ADULT_TRAIN] for k, v in cols.items()}
+    test = {k: v[ADULT_TRAIN:] for k, v in cols.items()}
+    models, fit_s = {}, {}
+    for dev in ("cuda", "cpu"):
+        # leaves of 500+ rows: f32 totals summed in another order on each
+        # device then move no leaf value past the 1e-5 agreement
+        est = TrainClassifier(model=LightGBMClassifier(
+            numIterations=10, minDataInLeaf=500, device=dev),
+            labelCol="income")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_counts()
+        t0 = time.perf_counter()
+        models[dev] = est.fit(Dataset(dict(train)))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        fit_s[dev] = time.perf_counter() - t0
+    if counts["node_hist_bf16"] <= 0 or counts["plain"] != 0:
+        raise AssertionError(f"TrainClassifier's fit did not go through "
+                             f"kernel 1 alone: {counts}")
+    scored = {d: m.transform(Dataset(dict(test))) for d, m in models.items()}
+    diff = float(np.abs(scored["cuda"].array("probability")
+                        - scored["cpu"].array("probability")).max())
+    stats = ComputeModelStatistics(labelCol="income").transform(
+        scored["cuda"])
+    auc = float(stats["AUC"][0])
+    acc = float(stats["accuracy"][0])
+    card_s, host_s = fit_s["cuda"], fit_s["cpu"]
+    log(f"fit {card_s:.3f} s on cuda ({counts['node_hist_bf16']} "
+        f"kernel 1 launches), {host_s:.3f} s on cpu; test AUC "
+        f"{auc:.5f} (floor {ADULT_AUC_FLOOR}), accuracy {acc:.5f}; cuda vs "
+        f"cpu probabilities differ by {diff:.3g}")
+    if not auc > ADULT_AUC_FLOOR:
+        raise AssertionError(f"Adult test AUC {auc} <= {ADULT_AUC_FLOOR}")
+    if not diff <= 1e-5:
+        raise AssertionError(f"TrainClassifier cuda vs cpu: {diff}")
+
+    log(f"== phase 15e: TextFeaturizer -> VowpalWabbitFeaturizer -> "
+        f"VowpalWabbitClassifier on {TEXT_DOCS:,} documents, cuda vs cpu")
+    docs = text_docs(TEXT_DOCS, seed=23)
+    t0 = time.perf_counter()
+    tf = TextFeaturizer(inputCol="text", outputCol="tf",
+                        numFeatures=256).fit(Dataset(docs))
+    ds = VowpalWabbitFeaturizer(inputCols=["tf"], numBits=18).transform(
+        tf.transform(Dataset(docs)))
+    feat_s = time.perf_counter() - t0
+    vw = {dev: VowpalWabbitClassifier(numBits=18, numPasses=3,
+                                      device=dev).fit(ds)
+          for dev in ("cuda", "cpu")}
+    dw = float(np.abs(vw["cuda"].weights - vw["cpu"].weights).max())
+    pg, pc = (vw[d].transform(ds).array("probability")[:, 1]
+              for d in ("cuda", "cpu"))
+    dp = float(np.abs(pg - pc).max())
+    acc_t = float(((pg > 0.5) == (docs["label"] > 0)).mean())
+    log(f"featurizers {feat_s:.2f} s on the host; weights differ by "
+        f"{dw:.3g}, probabilities by {dp:.3g}; training accuracy "
+        f"{acc_t:.5f} (floor {TEXT_ACCURACY_FLOOR})")
+    if not (dw <= VW_WEIGHT_ATOL and dp <= VW_WEIGHT_ATOL):
+        raise AssertionError(f"text VW cuda vs cpu: {dw}, {dp}")
+    if not acc_t > TEXT_ACCURACY_FLOOR:
+        raise AssertionError(f"text VW accuracy {acc_t}")
+    return {"fit_s": card_s, "cpu_fit_s": host_s, "auc": auc,
+            "accuracy": acc, "prob_diff": diff, "counts": counts,
+            "text": {"host_s": feat_s, "weight_diff": dw, "prob_diff": dp,
+                     "accuracy": acc_t}}
+
+
+def phase_vw_and_host_stages(card) -> dict:
+    """Phase 15: 15a-15e."""
+    t0 = time.perf_counter()
+    counts, ids, y, _ = criteo_raw(CRITEO_ROWS, seed=3)
+    train = (*criteo_hashed(counts, ids), y)
+    counts, ids, y, _ = criteo_raw(CRITEO_HOLDOUT, seed=4)
+    hold = (*criteo_hashed(counts, ids), y)
+    del counts, ids
+    log(f"phase 15 data: {time.perf_counter() - t0:.1f} s on the host")
+    out = {"15a": phase_vw_full_width(train, hold)}
+    out["15b"] = phase_vw_small()
+    out["15c"] = phase_vw_bfgs(train)
+    del train, hold
+    out["15d"] = phase_bandit()
+    out["15e"] = phase_train_classifier()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 15: {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -3599,17 +4295,20 @@ def main() -> int:
     p12 = phase_serving(quantized, multiclass, Xh, card)
     p13 = phase_plan_and_fleet(base, quantized, multiclass, data, card)
     p14 = phase_data_group(base, quantized, multiclass, data)
+    del X, y, Xh, yh, data
+    p15 = phase_vw_and_host_stages(card)
+    fits["15e"] = p15.pop("15e")
     for k in ("bf16", "quantized"):
         fits[f"14a_{k}"] = p14["14a"].pop(k)
     fits["14b"] = p14.pop("14b")
     fits["14c"] = p14.pop("14c")
     det_rows = p14["14a"].pop("det_rows")
     log("14a kernel rows: " + json.dumps(det_rows))
-    del X, y, Xh, yh, data
     log("fits: " + json.dumps(fits) + "; " + json.dumps(golden)
         + "; phase 11: " + json.dumps(p11) + "; phase 12: "
         + json.dumps(p12) + "; phase 13: " + json.dumps(p13)
-        + "; phase 14: " + json.dumps(p14))
+        + "; phase 14: " + json.dumps(p14) + "; phase 15: "
+        + json.dumps(p15))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

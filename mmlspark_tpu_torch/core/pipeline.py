@@ -255,14 +255,47 @@ class Lambda(Transformer):
 
     def _load_extra(self, path: str) -> None:
         with open(os.path.join(path, "fn.pkl"), "rb") as f:
-            self.fn = pickle.load(f)
+            self.fn = load_pickle(f)
 
 
 # ---------------------------------------------------------------------------
 # Persistence (reference: org/apache/spark/ml/Serializer.scala:52-130 — here a
 # plain directory format: metadata.json with class + simple params; numpy /
 # pickle payloads for complex params; nested dirs for sub-stages).
+#
+# Directories saved by the JAX package load here too: their metadata and
+# pickles name classes under ``mmlspark_tpu.``, which are read as their
+# ``mmlspark_tpu_torch.`` counterparts without importing the JAX package.
 # ---------------------------------------------------------------------------
+
+_JAX_ROOT = "mmlspark_tpu"
+_PORT_ROOT = "mmlspark_tpu_torch"
+
+#: JAX classes whose pickled state differs from their counterpart's: the
+#: port reads them through a class of its own
+_JAX_PICKLED = {
+    ("mmlspark_tpu.models.gbdt.booster", "Booster"):
+        ("mmlspark_tpu_torch.models.gbdt.convert", "JaxPickledBooster"),
+}
+
+
+def port_module(name: str) -> str:
+    """The port's module for a module of the JAX package
+    (``mmlspark_tpu.x`` -> ``mmlspark_tpu_torch.x``); other names as given."""
+    if name == _JAX_ROOT or name.startswith(_JAX_ROOT + "."):
+        return _PORT_ROOT + name[len(_JAX_ROOT):]
+    return name
+
+
+class _PortUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        module, name = _JAX_PICKLED.get((module, name), (module, name))
+        return super().find_class(port_module(module), name)
+
+
+def load_pickle(f):
+    """``pickle.load`` with the JAX package's classes read as the port's."""
+    return _PortUnpickler(f).load()
 
 
 def _is_jsonable(v: Any) -> bool:
@@ -305,7 +338,7 @@ def load_stage(path: str) -> PipelineStage:
     with open(os.path.join(path, "metadata.json")) as f:
         meta = json.load(f)
     module, _, qualname = meta["class"].rpartition(".")
-    cls = importlib.import_module(module)
+    cls = importlib.import_module(port_module(module))
     for part in qualname.split("."):
         cls = getattr(cls, part)
     stage = cls.__new__(cls)
@@ -319,7 +352,7 @@ def load_stage(path: str) -> PipelineStage:
             stage._paramMap[name] = np.load(npy, allow_pickle=False)
         else:
             with open(pkl, "rb") as f:
-                stage._paramMap[name] = pickle.load(f)
+                stage._paramMap[name] = load_pickle(f)
     stage._load_extra(path)
     return stage
 

@@ -79,3 +79,24 @@ def booster_from_jax_arrays(tree_fields: Mapping[str, np.ndarray],
     return Booster(trees, thr_raw, num_class, base_score, objective,
                    depth_cap, binner_state,
                    objective_kwargs=objective_kwargs, missing_dec=missing_dec)
+
+
+class JaxPickledBooster(Booster):
+    """Reads a Booster pickled by the JAX package (its ``__dict__``: a
+    ``Tree`` of ``[T, M]`` arrays, raw thresholds, base score, objective,
+    binner state, history) and becomes the port's :class:`Booster` of those
+    arrays. ``core/pipeline.load_pickle`` routes the JAX class here."""
+
+    def __setstate__(self, state):
+        trees = state["trees"]
+        trees = (trees._asdict() if hasattr(trees, "_asdict")
+                 else dict(trees))
+        b = Booster({k: np.asarray(v) for k, v in trees.items()},
+                    state["thr_raw"], state["num_class"],
+                    state["base_score"], state["objective"],
+                    state["depth_cap"], state.get("binner_state"),
+                    best_iteration=state.get("best_iteration", -1),
+                    eval_history=state.get("eval_history"),
+                    objective_kwargs=state.get("objective_kwargs"))
+        self.__class__ = Booster
+        self.__dict__.update(b.__dict__)

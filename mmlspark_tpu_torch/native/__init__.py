@@ -11,6 +11,9 @@ Python instead; the port does not).
 - ``treeshap_tree(...) -> float64[n, F] | None``: exact TreeSHAP for one
   tree; None when the engine rejects the tree (too deep, malformed), which
   the caller routes to its numpy engine.
+- ``murmur3_32(data, seed) -> int`` and ``murmur3_batch(strings, seeds)
+  -> uint32[n]``: MurmurHash3_x86_32, the feature identity of
+  :mod:`..ops.murmur` (bit-equal to the JAX package's native hash).
 
 ``MMLSPARK_TPU_NATIVE_THREADS`` caps the worker pool (default: the host's
 cores).
@@ -28,7 +31,10 @@ from ..ops import _build
 
 NAME = "mmlspark_native"
 # mm_abi_version of the source this loader binds
-ABI_VERSION = 1
+ABI_VERSION = 2
+# every symbol _bind wires up: a library without one of them is refused
+EXPECTED_SYMBOLS = ("mm_abi_version", "mm_csv_read_floats", "mm_treeshap",
+                    "mm_murmur3_32", "mm_murmur3_batch")
 
 _LOCK = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,6 +48,9 @@ def get_lib() -> ctypes.CDLL:
     with _LOCK:
         if _lib is None:
             lib = _build.load_host(NAME)
+            missing = [s for s in EXPECTED_SYMBOLS if not hasattr(lib, s)]
+            if missing:
+                raise RuntimeError(f"{NAME}: library lacks {missing}")
             _bind(lib)
             if int(lib.mm_abi_version()) != ABI_VERSION:
                 raise RuntimeError(
@@ -65,6 +74,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_double)]
+    lib.mm_murmur3_32.restype = ctypes.c_uint32
+    lib.mm_murmur3_32.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                  ctypes.c_uint32]
+    lib.mm_murmur3_batch.restype = None
+    lib.mm_murmur3_batch.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint32)]
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -117,3 +134,29 @@ def treeshap_tree(feat: np.ndarray, left: np.ndarray, right: np.ndarray,
         _ptr(go_left, ctypes.c_uint8), M, n, int(n_features),
         int(n_threads), _ptr(phi, ctypes.c_double))
     return None if rc != 0 else phi
+
+
+def murmur3_32(data: bytes, seed: int) -> int:
+    """MurmurHash3_x86_32 of ``data`` (bytes) with a uint32 ``seed``."""
+    return int(get_lib().mm_murmur3_32(data, len(data), seed & 0xFFFFFFFF))
+
+
+def murmur3_batch(strings, seeds) -> np.ndarray:
+    """Hash n utf-8 strings with per-string seeds -> ``uint32[n]`` (large
+    batches fan out over the worker pool)."""
+    lib = get_lib()
+    encoded = [s.encode("utf-8") if isinstance(s, str) else bytes(s)
+               for s in strings]
+    offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in encoded], out=offsets[1:])
+    buf = b"".join(encoded)
+    seeds_arr = np.ascontiguousarray(
+        np.asarray(seeds, dtype=np.int64) & 0xFFFFFFFF, dtype=np.uint32)
+    if seeds_arr.shape != (len(encoded),):
+        raise ValueError(f"{len(encoded)} strings but seeds of shape "
+                         f"{seeds_arr.shape}")
+    out = np.empty(len(encoded), dtype=np.uint32)
+    lib.mm_murmur3_batch(buf, _ptr(offsets, ctypes.c_int64),
+                         _ptr(seeds_arr, ctypes.c_uint32), len(encoded),
+                         _ptr(out, ctypes.c_uint32))
+    return out

@@ -7,6 +7,8 @@
 //     (csv_to_shards in models/gbdt/ingest.py);
 //   * mm_treeshap — exact TreeSHAP for one tree, all instances, threaded
 //     over instances (the host engine of models/gbdt/treeshap.py);
+//   * mm_murmur3_32 / mm_murmur3_batch — MurmurHash3_x86_32, the feature
+//     identity of ops/murmur.py and the VW featurizer;
 //   * mm_abi_version.
 //
 // Exposed C-ABI for ctypes. Built at first use by
@@ -136,8 +138,84 @@ class WorkPool {
 extern "C" {
 
 // Behavioral ABI version: bump on any change to native semantics. Keep in
-// sync with ABI_VERSION in mmlspark_tpu_torch/native/__init__.py.
-int64_t mm_abi_version() { return 1; }
+// sync with ABI_VERSION in mmlspark_tpu_torch/native/__init__.py
+// (v2: the murmur hashes).
+int64_t mm_abi_version() { return 2; }
+
+// ---------------------------------------------------------------------------
+// MurmurHash3_x86_32 (Austin Appleby, public domain) — must match the JAX
+// package's native/mmlspark_native.cpp and the plain Python body in
+// mmlspark_tpu_torch/ops/murmur.py bit for bit: hashing defines feature
+// identity.
+// ---------------------------------------------------------------------------
+
+static inline uint32_t rotl32(uint32_t x, int8_t r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+static inline uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6b;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35;
+  h ^= h >> 16;
+  return h;
+}
+
+uint32_t mm_murmur3_32(const uint8_t* data, int64_t len, uint32_t seed) {
+  const int64_t nblocks = len / 4;
+  uint32_t h1 = seed;
+  const uint32_t c1 = 0xcc9e2d51;
+  const uint32_t c2 = 0x1b873593;
+
+  for (int64_t i = 0; i < nblocks; i++) {
+    uint32_t k1;
+    std::memcpy(&k1, data + 4 * i, 4);  // little-endian hosts only
+    k1 *= c1;
+    k1 = rotl32(k1, 15);
+    k1 *= c2;
+    h1 ^= k1;
+    h1 = rotl32(h1, 13);
+    h1 = h1 * 5 + 0xe6546b64;
+  }
+
+  const uint8_t* tail = data + nblocks * 4;
+  uint32_t k1 = 0;
+  switch (len & 3) {
+    case 3: k1 ^= tail[2] << 16; [[fallthrough]];
+    case 2: k1 ^= tail[1] << 8;  [[fallthrough]];
+    case 1:
+      k1 ^= tail[0];
+      k1 *= c1;
+      k1 = rotl32(k1, 15);
+      k1 *= c2;
+      h1 ^= k1;
+  }
+
+  h1 ^= (uint32_t)len;
+  return fmix32(h1);
+}
+
+// Batch: n strings packed into one utf-8 buffer with offsets[n+1]; one seed
+// per string (the VW namespace hash). Out: n uint32 hashes. Rows are
+// independent — large batches fan out over the worker pool; the threshold
+// keeps small calls on the caller.
+void mm_murmur3_batch(const uint8_t* buf, const int64_t* offsets,
+                      const uint32_t* seeds, int64_t n, uint32_t* out) {
+  auto body = [&](int64_t r0, int64_t r1) {
+    for (int64_t i = r0; i < r1; i++) {
+      out[i] = mm_murmur3_32(buf + offsets[i], offsets[i + 1] - offsets[i],
+                             seeds[i]);
+    }
+  };
+  // threshold checked BEFORE touching the pool: instance() spawns the
+  // permanent worker threads, which a small batch should never trigger
+  if (n < 65536) {
+    body(0, n);
+    return;
+  }
+  WorkPool::instance().run(n, WorkPool::instance().size() + 1, body);
+}
 
 // ---------------------------------------------------------------------------
 // Float CSV ingestion (data loader). Parses a comma/newline-delimited buffer

@@ -1,0 +1,272 @@
+"""The port's test harnesses (``core/datagen``, ``core/benchmarks``,
+``core/fuzzing``) against the JAX package's, and the fuzzing gate over
+the port's own stages.
+
+* ``generate_dataset`` gives the JAX package's arrays for the same specs
+  and seed (bit-equal, object columns element by element).
+* A ``Benchmarks`` suite writes the JAX package's CSV byte for byte; each
+  package verifies against the other's baseline, and both refuse a drift.
+* ``discover_stages()`` defaults to the port and finds every concrete stage
+  of it; every one is fuzzed (fit/transform smoke plus save/load round
+  trip) through a ``TestObject`` here, is a model an estimator here
+  produces, or is exempt with a reason.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mmlspark_tpu.core import benchmarks as jbench
+from mmlspark_tpu.core import datagen as jgen
+from mmlspark_tpu_torch.core import benchmarks as tbench
+from mmlspark_tpu_torch.core import datagen as tgen
+from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.core.fuzzing import (TestObject, discover_stages,
+                                             experiment_fuzz,
+                                             serialization_fuzz)
+from mmlspark_tpu_torch.core.pipeline import Lambda, Pipeline
+from mmlspark_tpu_torch.featurize import core as fcore
+from mmlspark_tpu_torch.featurize import text as ftext
+from mmlspark_tpu_torch.models.gbdt import api as gbdt
+from mmlspark_tpu_torch.models.vw import api as vw
+from mmlspark_tpu_torch.models.vw import bandit, featurizer
+from mmlspark_tpu_torch.stages import basic, batching
+from mmlspark_tpu_torch.train import core as train
+
+from _torch_parity import assert_same
+
+torch.set_num_threads(1)
+
+
+def _specs(mod):
+    return [mod.numeric("x", -2.0, 3.0, missing_fraction=0.2),
+            mod.numeric("i", -3.5, 9.2, dtype="int32"),
+            mod.numeric("d", dtype="float64"),
+            mod.categorical("c", ["a", "b", 7, None]),
+            mod.text("t", ["alpha", "beta", "gamma"], words_per_row=4),
+            mod.boolean("b"),
+            mod.labels("y", num_classes=3)]
+
+
+@pytest.mark.parametrize("seed,n", [(0, 50), (11, 1), (3, 0)])
+def test_generate_dataset_equals_jax(seed, n):
+    t = tgen.generate_dataset(_specs(tgen), n, seed=seed)
+    j = jgen.generate_dataset(_specs(jgen), n, seed=seed)
+    assert_same(t, j)
+
+
+def test_generate_dataset_validation_equals_jax():
+    for mod in (tgen, jgen):
+        with pytest.raises(ValueError, match="duplicate"):
+            mod.generate_dataset([mod.boolean("a"), mod.boolean("a")], 3)
+        with pytest.raises(ValueError, match="missing_fraction"):
+            mod.numeric("x", missing_fraction=2.0)
+        with pytest.raises(ValueError, match="NaN"):
+            mod.generate_dataset([mod.numeric("x", missing_fraction=0.5,
+                                              dtype="int64")], 4)
+
+
+def _suite(mod, bump=0.0):
+    b = mod.Benchmarks("port_parity")
+    b.record("auc", 0.8123456789 + bump, 1e-4)
+    b.record("rmse", 1.25, 1e-3)
+    b.record("rows", 1000)
+    return b
+
+
+def test_benchmarks_csv_equals_jax_and_verifies_across(tmp_path):
+    tp = _suite(tbench).write(str(tmp_path / "t"))
+    jp = _suite(jbench).write(str(tmp_path / "j"))
+    assert open(tp, "rb").read() == open(jp, "rb").read()
+    _suite(tbench).verify(str(tmp_path / "j"))
+    _suite(jbench).verify(str(tmp_path / "t"))
+    assert tbench.Benchmarks.read(jp).keys() == jbench.Benchmarks.read(
+        tp).keys()
+    for mod, base in ((tbench, "j"), (jbench, "t")):
+        with pytest.raises(AssertionError, match="auc"):
+            _suite(mod, bump=1e-3).verify(str(tmp_path / base))
+    with pytest.raises(AssertionError, match="no baseline"):
+        _suite(tbench).verify(str(tmp_path / "empty"))
+    assert (tmp_path / "empty" / "new_benchmarks"
+            / "benchmarks_port_parity.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# The fuzzing gate over the port's stages
+# ---------------------------------------------------------------------------
+
+_rng = np.random.default_rng(7)
+_N = 24
+_X = _rng.normal(size=(_N, 4)).astype(np.float32)
+_Y = (_X[:, 0] + 0.3 * _rng.normal(size=_N) > 0).astype(np.float64)
+
+TAB = Dataset({
+    "features": _X, "label": _Y, "num": np.linspace(0.0, 1.0, _N),
+    "cat": np.asarray([("a" if i % 3 else "b") for i in range(_N)], object),
+    "text": np.asarray([f"row {i} some words here" for i in range(_N)],
+                       object),
+    "lists": [list(range(i % 3)) for i in range(_N)],
+})
+HASHED = featurizer.VowpalWabbitFeaturizer(
+    inputCols=["features", "cat"], numBits=12).transform(TAB)
+BANDIT = Dataset({
+    "shared": np.eye(3, dtype=np.float32)[np.arange(24) % 3],
+    "features": [[np.eye(3, dtype=np.float32)[a] for a in range(3)]
+                 for _ in range(24)],
+    "chosenAction": (np.arange(24) % 3) + 1,
+    "label": (_rng.random(24) > 0.5).astype(np.float64),
+    "probability": np.full(24, 1.0 / 3),
+})
+GROUPED = Dataset({"features": _X, "label": _Y,
+                   "group": np.repeat(np.arange(4), _N // 4)})
+SCORED = Dataset({"label": _Y, "prediction": (_X[:, 0] > 0).astype(float),
+                  "probability": np.stack([1 - _Y * 0.8 - 0.1,
+                                           _Y * 0.8 + 0.1], 1)})
+
+
+def _double(v):
+    return np.asarray(v) * 2
+
+
+def _add_sum(ds: Dataset) -> Dataset:
+    return ds.with_column("sum", np.asarray(ds["features"]).sum(1))
+
+
+GB = dict(numIterations=2, numLeaves=4, minDataInLeaf=3, device="cpu")
+
+REGISTRY = [
+    TestObject(Pipeline([basic.Cacher(), basic.DropColumns(cols=["num"])]),
+               TAB),
+    TestObject(Lambda(fn=_add_sum), TAB),
+    TestObject(fcore.CleanMissingData(inputCols=["num"]), TAB,
+               produces=[fcore.CleanMissingDataModel]),
+    TestObject(fcore.DataConversion(cols=["num"], convertTo="float"), TAB),
+    TestObject(fcore.Featurize(numberOfFeatures=8), TAB,
+               produces=[fcore.FeaturizeModel]),
+    TestObject(fcore.ValueIndexer(inputCol="cat", outputCol="ci"), TAB,
+               produces=[fcore.ValueIndexerModel]),
+    TestObject(fcore.IndexToValue(inputCol="ci", outputCol="back",
+                                  levels=["a", "b"]),
+               TAB.with_column("ci", np.arange(_N) % 3)),
+    TestObject(ftext.HashingTF(inputCol="lists", outputCol="h",
+                               numFeatures=16),
+               TAB.with_column("lists", [[f"w{j}" for j in range(i % 4)]
+                                         for i in range(_N)])),
+    TestObject(ftext.IDF(inputCol="features", outputCol="idf"), TAB,
+               produces=[ftext.IDFModel]),
+    TestObject(ftext.MultiNGram(inputCol="toks", outputCol="g"),
+               TAB.with_column("toks", [["a", "b", "c"][:i % 4]
+                                        for i in range(_N)])),
+    TestObject(ftext.NGram(inputCol="toks", outputCol="g"),
+               TAB.with_column("toks", [["a", "b", "c"][:i % 4]
+                                        for i in range(_N)])),
+    TestObject(ftext.PageSplitter(inputCol="text", outputCol="p",
+                                  maximumPageLength=8, minimumPageLength=4),
+               TAB),
+    TestObject(ftext.StopWordsRemover(inputCol="toks", outputCol="s"),
+               TAB.with_column("toks", [["the", "plot", "a"]] * _N)),
+    TestObject(ftext.TextFeaturizer(inputCol="text", outputCol="tf",
+                                    numFeatures=16), TAB,
+               produces=[ftext.TextFeaturizerModel]),
+    TestObject(ftext.Tokenizer(inputCol="text", outputCol="tok"), TAB),
+    TestObject(gbdt.LightGBMClassifier(**GB), TAB,
+               produces=[gbdt.LightGBMClassificationModel]),
+    TestObject(gbdt.LightGBMRegressor(**GB), TAB,
+               produces=[gbdt.LightGBMRegressionModel]),
+    TestObject(gbdt.LightGBMRanker(groupCol="group", **GB), GROUPED,
+               produces=[gbdt.LightGBMRankerModel]),
+    TestObject(vw.VowpalWabbitClassifier(numBits=12, device="cpu"), HASHED,
+               produces=[vw.VowpalWabbitClassificationModel]),
+    TestObject(vw.VowpalWabbitRegressor(numBits=12, device="cpu"), HASHED,
+               produces=[vw.VowpalWabbitRegressionModel]),
+    TestObject(bandit.VowpalWabbitContextualBandit(device="cpu"), BANDIT,
+               produces=[bandit.VowpalWabbitContextualBanditModel]),
+    TestObject(bandit.VectorZipper(inputCols=["num", "label"],
+                                   outputCol="z"), TAB),
+    TestObject(bandit.VowpalWabbitInteractions(inputCols=["features",
+                                                          "features"],
+                                               outputCol="q", numBits=10),
+               TAB),
+    TestObject(featurizer.VowpalWabbitFeaturizer(inputCols=["num", "text"],
+                                                 stringSplitInputCols=[
+                                                     "text"]), TAB),
+    TestObject(basic.Cacher(), TAB),
+    TestObject(basic.ClassBalancer(inputCol="label"), TAB,
+               produces=[basic.ClassBalancerModel]),
+    TestObject(basic.DropColumns(cols=["num"]), TAB),
+    TestObject(basic.EnsembleByKey(keys=["cat"], cols=["num"]), TAB),
+    TestObject(basic.Explode(inputCol="lists", outputCol="item"), TAB),
+    TestObject(basic.MultiColumnAdapter(
+        baseStage=basic.UnicodeNormalize(), inputCols=["text"],
+        outputCols=["tn"]), TAB),
+    TestObject(basic.RenameColumn(inputCol="num", outputCol="n2"), TAB),
+    TestObject(basic.Repartition(n=3), TAB),
+    TestObject(basic.SelectColumns(cols=["num", "cat"]), TAB),
+    TestObject(basic.StratifiedRepartition(labelCol="label"), TAB),
+    TestObject(basic.SummarizeData(), TAB.select("num", "label")),
+    TestObject(basic.TextPreprocessor(inputCol="text", outputCol="t2",
+                                      map={"row": "ROW"}), TAB),
+    TestObject(basic.Timer(stage=basic.Cacher()), TAB,
+               produces=[basic.TimerModel]),
+    TestObject(basic.UDFTransformer(udf=_double, inputCol="num",
+                                    outputCol="d"), TAB),
+    TestObject(basic.UnicodeNormalize(inputCol="text", outputCol="u"), TAB),
+    TestObject(batching.DynamicMiniBatchTransformer(maxBatchSize=5),
+               TAB.select("num", "label")),
+    TestObject(batching.FixedMiniBatchTransformer(batchSize=5),
+               TAB.select("num", "label")),
+    TestObject(batching.TimeIntervalMiniBatchTransformer(maxBatchSize=7),
+               TAB.select("num", "label")),
+    TestObject(batching.FlattenBatch(),
+               batching.FixedMiniBatchTransformer(batchSize=5).transform(
+                   TAB.select("num", "label"))),
+    TestObject(batching.PadBatch(padToSize=5),
+               batching.FixedMiniBatchTransformer(batchSize=5).transform(
+                   TAB.select("num", "label"))),
+    TestObject(train.ComputeModelStatistics(), SCORED),
+    TestObject(train.ComputePerInstanceStatistics(), SCORED),
+    TestObject(train.TrainClassifier(model=gbdt.LightGBMClassifier(**GB),
+                                     numFeatures=8), TAB.drop("lists"),
+               produces=[train.TrainedClassifierModel]),
+    TestObject(train.TrainRegressor(model=gbdt.LightGBMRegressor(**GB),
+                                    numFeatures=8), TAB.drop("lists"),
+               produces=[train.TrainedRegressorModel]),
+]
+
+EXEMPT = {
+    "mmlspark_tpu_torch.core.pipeline.PipelineModel":
+        "produced by the Pipeline entry",
+    "mmlspark_tpu_torch.core.pipeline.UnaryTransformer":
+        "abstract base of single-column transformers",
+}
+
+
+def _name(cls):
+    return f"{cls.__module__}.{cls.__name__}"
+
+
+def test_discover_stages_defaults_to_the_port():
+    found = discover_stages()
+    assert found and all(k.startswith("mmlspark_tpu_torch.") for k in found)
+    assert "mmlspark_tpu_torch.models.vw.api.VowpalWabbitClassifier" in found
+
+
+def test_every_port_stage_is_covered():
+    covered = set(EXEMPT)
+    for obj in REGISTRY:
+        covered.add(_name(type(obj.stage)))
+        covered.update(_name(c) for c in obj.produces)
+    missing = sorted(set(discover_stages()) - covered)
+    assert missing == []
+
+
+@pytest.mark.parametrize("obj", REGISTRY,
+                         ids=[type(o.stage).__name__ for o in REGISTRY])
+def test_experiment_fuzz(obj):
+    assert isinstance(experiment_fuzz(obj), Dataset)
+
+
+@pytest.mark.parametrize("obj", REGISTRY,
+                         ids=[type(o.stage).__name__ for o in REGISTRY])
+def test_serialization_fuzz(obj, tmp_path):
+    serialization_fuzz(obj, str(tmp_path))

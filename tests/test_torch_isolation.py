@@ -7,12 +7,18 @@
     the port's tools (``tools/profile_torch_gbdt.py``,
     ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``,
     ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``,
-    ``tools/multi_card_fit.py``), imports either.
+    ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``), imports
+    either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
   * The kernel build raises when ``nvcc`` is missing, and the kernel
-    wrapper refuses inputs the kernel does not take.
+    wrapper refuses inputs the kernel does not take; the murmur hash
+    raises when the native host library cannot be built, instead of
+    hashing in Python.
+  * The VW learners' entry points (``VowpalWabbitClassifier.fit``,
+    ``VowpalWabbitContextualBandit.fit``, ``predict_sgd``) default to
+    ``cuda`` and raise without a GPU; they run with ``device="cpu"``.
   * The port's test files lint clean under ``tools.graftlint``.
 """
 
@@ -83,6 +89,28 @@ SERVING_MODULES = (
 )
 
 
+#: the shared host stages, featurizers, TrainClassifier and the VW learners
+SLICE_13_MODULES = (
+    "mmlspark_tpu_torch.ops.murmur",
+    "mmlspark_tpu_torch.stages.udfs",
+    "mmlspark_tpu_torch.stages.basic",
+    "mmlspark_tpu_torch.stages.batching",
+    "mmlspark_tpu_torch.featurize.core",
+    "mmlspark_tpu_torch.featurize.text",
+    "mmlspark_tpu_torch.train.core",
+    "mmlspark_tpu_torch.utils.plot",
+    "mmlspark_tpu_torch.core.datagen",
+    "mmlspark_tpu_torch.core.benchmarks",
+    "mmlspark_tpu_torch.core.fuzzing",
+    "mmlspark_tpu_torch.models.vw",
+    "mmlspark_tpu_torch.models.vw.featurizer",
+    "mmlspark_tpu_torch.models.vw.sgd",
+    "mmlspark_tpu_torch.models.vw.api",
+    "mmlspark_tpu_torch.models.vw.bandit",
+    "mmlspark_tpu_torch.models.vw.convert",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
@@ -93,6 +121,7 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.parallel.placement",
             "mmlspark_tpu_torch.utils.stopwatch"} <= set(mods)
     assert set(SERVING_MODULES) <= set(mods)
+    assert set(SLICE_13_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -144,11 +173,12 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "node_hist_sweeps.py"),
              os.path.join(ROOT, "tools", "rehearse_chip_smoke.py"),
              os.path.join(ROOT, "tools", "ab_predict.py"),
-             os.path.join(ROOT, "tools", "multi_card_fit.py")]
+             os.path.join(ROOT, "tools", "multi_card_fit.py"),
+             os.path.join(ROOT, "tools", "chip_phase15.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:7])
+    assert all(os.path.isfile(p) for p in paths[:8])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):
@@ -164,6 +194,10 @@ def test_no_source_imports_jax_or_the_jax_package():
               os.path.join("parallel", "placement.py"),
               os.path.join("utils", "stopwatch.py")):
         assert os.path.join(PKG, f) in paths
+    for mod in SLICE_13_MODULES:
+        rel = mod.split(".", 1)[1].replace(".", os.sep)
+        assert (os.path.join(PKG, rel + ".py") in paths
+                or os.path.join(PKG, rel, "__init__.py") in paths), mod
     bad = [(os.path.relpath(p, ROOT), line, name) for p in paths
            for line, name in _imports(p) if _forbidden(name)]
     assert bad == []
@@ -295,3 +329,56 @@ def test_port_tests_lint_clean():
     active, _ = core.run(core.Repo(ROOT))
     mine = [f for f in active if f.path.startswith("tests/test_torch_")]
     assert mine == []
+
+
+def _vw_rows(n=64):
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 1 << 10, size=(n, 3)).astype(np.int32)
+    val = rng.normal(size=(n, 3)).astype(np.float32)
+    y = (val[:, 0] > 0).astype(np.float32)
+    return idx, val, y
+
+
+def _bandit_rows(n=12):
+    return Dataset({
+        "shared": np.eye(3, dtype=np.float32)[np.arange(n) % 3],
+        "features": [[np.eye(3, dtype=np.float32)[a] for a in range(3)]
+                     for _ in range(n)],
+        "chosenAction": (np.arange(n) % 3) + 1,
+        "label": np.ones(n), "probability": np.full(n, 1.0 / 3)})
+
+
+def test_vw_entry_points_default_to_cuda_and_raise(no_gpu):
+    from mmlspark_tpu_torch.models.vw import (VowpalWabbitClassifier,
+                                              VowpalWabbitContextualBandit)
+    from mmlspark_tpu_torch.models.vw.sgd import predict_sgd
+    idx, val, y = _vw_rows()
+    ds = Dataset({"features_indices": idx, "features_values": val,
+                  "label": y})
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        VowpalWabbitClassifier(numBits=10).fit(ds)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        VowpalWabbitContextualBandit().fit(_bandit_rows())
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        predict_sgd(idx, val, np.zeros(1 << 10, np.float32))
+    m = VowpalWabbitClassifier(numBits=10, device="cpu").fit(ds)
+    assert m.transform(ds).array("probability").shape == (64, 2)
+    m.set(device=None)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        m.transform(ds)
+    b = VowpalWabbitContextualBandit(device="cpu").fit(_bandit_rows())
+    assert len(b.transform(_bandit_rows())["prediction"]) == 12
+    assert predict_sgd(idx, val, m.weights, device="cpu").shape == (64,)
+
+
+def test_murmur_raises_when_the_native_build_fails(monkeypatch):
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.ops import murmur
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setenv("CXX", "")
+    monkeypatch.setenv("PATH", "")
+    with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+        murmur.murmur3_32("abc", 0)
+    with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+        murmur.murmur3_batch(["abc"], [0])

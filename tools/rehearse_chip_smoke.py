@@ -6,6 +6,7 @@
     python tools/rehearse_chip_smoke.py p12 [--rows 40000 --higgs-rows 20000]
     python tools/rehearse_chip_smoke.py p13 [--rows 40000 --higgs-rows 20000]
     python tools/rehearse_chip_smoke.py p14 [--rows 40000 --higgs-rows 40000]
+    python tools/rehearse_chip_smoke.py p15 [--vw-rows 200000 --events 2000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -36,7 +37,13 @@ for the card), ``p14`` (phases 4, 4b and 6 for their models, then phase
 14: the deterministic mode and its bit-exact plain version
 ``node_hist_det_plain`` both stood in for by ``node_hist_blocked_plain``,
 as the CPU ranks' blocked route takes it, the blocked fits, the world-size-2 fit as two gloo processes on the CPU,
-voting, telemetry, the pickled boosters). The plain versions are counted
+voting, telemetry, the pickled boosters), ``p15`` (phase 15: the VW fit
+on ``--vw-rows`` Criteo-shaped rows, a fifth of that held out, its step
+costs and scatter-add; the small VW fits, streamed and resumed; L-BFGS on
+at most 200,000 of the rows; the bandit on ``--events`` events;
+TrainClassifier on the Adult-shaped rows and the text chain — every
+"cuda against cpu" check compares the CPU with itself here). The plain
+versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
 """
@@ -193,13 +200,24 @@ def phase_data_group(mod) -> dict:
     return mod.phase_data_group(base, quantized, multiclass, data)
 
 
+def phase_vw(mod, vw_rows: int, events: int) -> dict:
+    """Phase 15 at ``vw_rows`` Criteo-shaped rows and ``events`` bandit
+    events."""
+    mod.CRITEO_ROWS, mod.CRITEO_HOLDOUT = vw_rows, vw_rows // 5
+    mod.BFGS_ROWS = min(mod.BFGS_ROWS, vw_rows)
+    mod.BANDIT_EVENTS = events
+    return mod.phase_vw_and_host_stages("CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
-                             "p11", "p12", "p13", "p14"])
+                             "p11", "p12", "p13", "p14", "p15"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
+    ap.add_argument("--vw-rows", type=int, default=200_000)
+    ap.add_argument("--events", type=int, default=2_000)
     args = ap.parse_args()
     torch.set_num_threads(4)
     mod = load_on_cpu(args.rows, args.higgs_rows)
@@ -210,7 +228,8 @@ def main() -> int:
            "p11": lambda: phase_extensions(mod),
            "p12": lambda: phase_serving(mod),
            "p13": lambda: phase_plan(mod),
-           "p14": lambda: phase_data_group(mod)}
+           "p14": lambda: phase_data_group(mod),
+           "p15": lambda: phase_vw(mod, args.vw_rows, args.events)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
