@@ -310,6 +310,37 @@ Phases (any failure exits non-zero and prints no result line):
    ``VowpalWabbitFeaturizer`` -> ``VowpalWabbitClassifier`` on 20,000
    documents, cuda against cpu. The phase's seconds print beside the
    card's name and power limit.
+16. The isolation forest, exact KNN, SAR with the ranking tools and
+   CyberML's AccessAnomaly, at full width; no histogram kernel runs here
+   (their device work is torch ops; the counts are reset before and must
+   read 0 after). 16a: ``IsolationForest`` (100 trees, 256 samples,
+   ``contamination=0.01``) on phase 4's 1,000,000 x 28 rows with 1% moved
+   far from the mass: fit s, transform rows/s, peak memory; AUC against
+   the planted labels over ``IF_AUC_FLOOR``; trees bit-equal to a cpu
+   fit; scores within 1e-6 of the cpu on 20,000 rows. 16b: ``KNN(k=100,
+   blockSize=4096)`` at sift-128-euclidean's shape (1,000,000 x 128
+   integer components in [0, 255], 10,000 queries): queries/s, peak
+   memory, one block's product and top-k in device ms against its f32
+   bound; on 100 queries against float64 brute force, every returned id
+   within (1 + 1e-4) of the exact k-th distance, recall@100 >= 0.99,
+   distances within 1e-4; ``ConditionalKNN`` (10 labels, 3 allowed a
+   query) returns allowed ids only; ``BallTree.query_batch`` on 50,000 x
+   16 rows equals brute force. 16c: ``SAR`` (jaccard, support 4, 30-day
+   decay) at MovieLens-1M's shape (6,040 users, 3,706 items, 1,000,209
+   ratings): fit, ``transform`` of every pair, ``recommend_for_all_users
+   (10)``; similarity, affinity and seen equal to a cpu fit, scores within
+   1e-5 relative, the top 10 equal to cpu's up to swaps inside near ties;
+   ``RankingTrainValidationSplit`` over ``RankingAdapter(SAR)``, NDCG@10
+   over ``SAR_NDCG_FLOOR`` and MAP@10; the sparse path
+   (``DENSE_CELLS_MAX=0``) equal to the dense path. 16d:
+   ``AccessAnomaly`` (implicit, rank 10, 25 sweeps) on about 1.1M
+   ``DataFactory`` events: fit s, ALS s a sweep, a second ALS run
+   bit-equal, transform rows/s, inter-department scores above
+   intra-department ones by ``AA_MARGIN``; implicit and explicit
+   (``complementsetFactor=2``) fits at one department's size, cuda
+   against one-thread cpu within ``AA_SPREAD_FACTOR`` times the spread
+   that two ulps on half the likelihoods make. ``tools/chip_phase16.py``
+   runs this phase alone.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -336,6 +367,9 @@ import torch
 
 from mmlspark_tpu_torch import native
 from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.cyber import anomaly as anomaly_mod
+from mmlspark_tpu_torch.cyber.anomaly import AccessAnomaly
+from mmlspark_tpu_torch.cyber.dataset import DataFactory
 from mmlspark_tpu_torch.featurize.text import TextFeaturizer
 from mmlspark_tpu_torch.io import serving as serving_mod
 from mmlspark_tpu_torch.io import serving_main
@@ -354,10 +388,12 @@ from mmlspark_tpu_torch.models.gbdt.growth import (GrowConfig, Tree,
                                                    leaf_nodes_binned)
 from mmlspark_tpu_torch.models.gbdt.ingest import write_shards
 from mmlspark_tpu_torch.models.gbdt.treeshap import shap_values
+from mmlspark_tpu_torch.models.isolation_forest import IsolationForest
 from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
                                                        auc_weighted,
                                                        get_objective,
                                                        score_transform)
+from mmlspark_tpu_torch.nn.knn import KNN, BallTree, ConditionalKNN
 from mmlspark_tpu_torch.observability import flight as obs_flight
 from mmlspark_tpu_torch.observability import metrics as obs_metrics
 from mmlspark_tpu_torch.observability import roofline
@@ -372,11 +408,16 @@ from mmlspark_tpu_torch.models.vw.api import (VW_CONSTANT_INDEX,
 from mmlspark_tpu_torch.models.vw.bandit import VowpalWabbitContextualBandit
 from mmlspark_tpu_torch.models.vw.featurizer import VowpalWabbitFeaturizer
 from mmlspark_tpu_torch.ops.murmur import hash_feature, hash_namespace
+from mmlspark_tpu_torch.ops.topk import top_k
 from mmlspark_tpu_torch.ops.histogram_scatter import (blocks_as_nodes,
                                                       hist_plain,
                                                       node_hist_blocked_plain,
                                                       node_hist_det_plain,
                                                       node_hist_plain)
+from mmlspark_tpu_torch.recommendation import sar as sar_mod
+from mmlspark_tpu_torch.recommendation.ranking import (
+    RankingAdapter, RankingEvaluator, RankingTrainValidationSplit)
+from mmlspark_tpu_torch.recommendation.sar import SAR, SARModel
 from mmlspark_tpu_torch.robustness import failpoints
 from mmlspark_tpu_torch.train.core import (ComputeModelStatistics,
                                            TrainClassifier)
@@ -3127,6 +3168,9 @@ import numpy as np
 import torch
 from chip_smoke import P14_SEED, higgs_shaped, hist_inputs
 from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.cyber import anomaly as anomaly_mod
+from mmlspark_tpu_torch.cyber.anomaly import AccessAnomaly
+from mmlspark_tpu_torch.cyber.dataset import DataFactory
 from mmlspark_tpu_torch.models.gbdt.api import LightGBMClassifier
 from mmlspark_tpu_torch.ops import histogram as hist_ops
 from mmlspark_tpu_torch.parallel import distributed
@@ -4237,6 +4281,546 @@ def phase_vw_and_host_stages(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: isolation forest, exact KNN, SAR with the ranking tools, CyberML
+# ---------------------------------------------------------------------------
+
+# 16a: Liu et al.'s (and the reference's) defaults, on phase 4's rows with
+# 1% of them moved far from the mass
+IF_TREES, IF_SAMPLES, IF_OUTLIER_SHARE = 100, 256, 0.01
+IF_CHECK_ROWS = 20_000
+IF_SCORE_ATOL = 1e-6
+# 16b: ANN-benchmarks' sift-128-euclidean: 1,000,000 base vectors of 128
+# integer components in [0, 255], 10,000 queries, k = 100
+SIFT_BASE, SIFT_QUERIES, SIFT_DIM = 1_000_000, 10_000, 128
+KNN_K, KNN_BLOCK = 100, 4096
+KNN_CHECK_QUERIES = 100
+KNN_DIST_RTOL = 1e-4
+KNN_RECALL_FLOOR = 0.99
+KNN_LABELS, KNN_ALLOWED = 10, 3
+BALL_ROWS, BALL_DIM, BALL_QUERIES, BALL_K = 50_000, 16, 500, 10
+# 16c: MovieLens-1M: 6,040 users, 3,706 rated items, 1,000,209 ratings of
+# 1-5 over about three years; its rating shares, 1 to 5
+ML_USERS, ML_ITEMS, ML_RATINGS = 6_040, 3_706, 1_000_209
+ML_RATING_SHARES = (0.056, 0.108, 0.261, 0.349, 0.226)
+ML_GENRES = 18
+ML_START, ML_SPAN = 956_703_932.0, 3 * 365 * 86_400.0
+SAR_PARAMS = dict(similarityFunction="jaccard", supportThreshold=4,
+                  timeDecayCoeff=30, timeCol="ts")
+SAR_SCORE_RTOL = 1e-5
+SAR_CHECK_PAIRS = 100_000
+SAR_SPARSE_USERS = 512
+# 16d: DataFactory's three departments at these sizes, ratio 0.25: about
+# 1.1M access events; the small fits at one department's 2,000 users and
+# 400 resources, split three ways so that inter-department pairs exist
+AA_USERS = {"hr": 2_000, "fin": 1_500, "eng": 4_000}
+AA_RESOURCES = {"hr": 400, "fin": 300, "eng": 800}
+AA_SMALL_USERS = {"hr": 700, "fin": 500, "eng": 800}
+AA_SMALL_RESOURCES = {"hr": 140, "fin": 100, "eng": 160}
+AA_RATIO = 0.25
+# cuda against cpu, AccessAnomaly: scores within this many times the
+# spread that moving every other likelihood up two f32 ulps makes on the
+# CPU (the larger of the even and the odd half; the batched solves and YtY
+# round in another order on the card, and ALS carries that through its
+# sweeps as it carries an ulp of input)
+AA_SPREAD_FACTOR = 8.0
+# phase 16 quality floors (PERF.md §2, set from a CPU rehearsal before the
+# first chip run: AUC 0.96701 at 200,000 rows; NDCG@10 0.36649 at full
+# size; inter - intra 12.85 at full size, 7.41 implicit and 1.75 explicit
+# at the small size)
+IF_AUC_FLOOR = 0.93
+SAR_NDCG_FLOOR = 0.33
+AA_MARGIN = 1.0
+
+
+def plant_outliers(X, seed) -> np.ndarray:
+    """Move ``IF_OUTLIER_SHARE`` of the rows of ``X`` (in place) far from
+    the mass: 4 of their features each shifted by 3 to 6 standard
+    deviations, either way. Returns the 0/1 outlier labels."""
+    rng = np.random.default_rng(seed)
+    n, F = X.shape
+    rows = rng.choice(n, int(n * IF_OUTLIER_SHARE), replace=False)
+    cols = np.argsort(rng.random((len(rows), F)), axis=1)[:, :4]
+    shift = (rng.choice([-1.0, 1.0], size=cols.shape)
+             * rng.uniform(3.0, 6.0, size=cols.shape)).astype(np.float32)
+    X[rows[:, None], cols] += shift
+    y = np.zeros(n, np.float32)
+    y[rows] = 1.0
+    return y
+
+
+def phase_isolation_forest(card) -> dict:
+    """16a: ``IsolationForest`` at 100 trees x 256 samples on phase 4's
+    1,000,000 x 28 rows with 1% planted outliers."""
+    X, _ = higgs_shaped(HIGGS_ROWS, seed=0)
+    y = plant_outliers(X, seed=16)
+    ds = Dataset({"features": X})
+    params = dict(numEstimators=IF_TREES, maxSamples=float(IF_SAMPLES),
+                  contamination=IF_OUTLIER_SHARE)
+    log(f"== phase 16a: IsolationForest({params}) fit -> transform on "
+        f"{len(X):,} x {X.shape[1]} rows, {int(y.sum()):,} planted outliers")
+    torch.cuda.reset_peak_memory_stats()
+    model, fit_s = timed(lambda: IsolationForest(device="cuda",
+                                                 **params).fit(ds))
+    out, tr_s = timed(lambda: model.transform(ds))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    scores = out.array("outlierScore")
+    if not np.isfinite(scores).all():
+        raise AssertionError("16a: non-finite outlier scores")
+    auc = auc_of(scores, y)
+    flagged = float(out.array("prediction").mean())
+    t0 = time.perf_counter()
+    host = IsolationForest(device="cpu", **dict(params, contamination=0.0)
+                           ).fit(ds)
+    build_s = time.perf_counter() - t0
+    for a in ("feat", "thr", "is_leaf", "leaf_size"):
+        if not np.array_equal(getattr(host, a), getattr(model, a)):
+            raise AssertionError(f"16a: trees differ from a cpu fit ({a})")
+    model.set(device="cpu")
+    cpu = model.transform(Dataset({"features": X[:IF_CHECK_ROWS]})).array(
+        "outlierScore")
+    model.set(device="cuda")
+    diff = float(np.abs(cpu - scores[:IF_CHECK_ROWS]).max())
+    log(f"fit {fit_s:.3f} s (host build of {IF_TREES} trees alone "
+        f"{build_s:.3f} s, then one score of every row), transform "
+        f"{len(X) / tr_s:,.0f} rows/s ({tr_s:.3f} s), peak {peak:.3f} GiB; "
+        f"AUC {auc:.5f} (floor {IF_AUC_FLOOR}), flagged {flagged:.5f} at "
+        f"threshold {model.get_or_default('threshold'):.6f}; trees equal "
+        f"to a cpu fit; cuda vs cpu scores on {IF_CHECK_ROWS:,} rows "
+        f"{diff:.3g}; {card}")
+    if not auc > IF_AUC_FLOOR:
+        raise AssertionError(f"16a: AUC {auc} <= {IF_AUC_FLOOR}")
+    if not diff <= IF_SCORE_ATOL:
+        raise AssertionError(f"16a: cuda vs cpu scores differ by {diff}")
+    return {"fit_s": fit_s, "host_build_s": build_s,
+            "transform_rows_per_s": len(X) / tr_s, "peak_gib": peak,
+            "auc": auc, "flagged": flagged, "cuda_vs_cpu": diff}
+
+
+def sift_shaped(n, seed) -> np.ndarray:
+    """Rows of sift-128-euclidean's shape: 128 integer components in
+    [0, 255], gathered around 1,000 shared visual words (SIFT descriptors
+    cluster so), skewed towards small values."""
+    words = np.random.default_rng(1616).gamma(
+        0.6, 30.0, size=(1000, SIFT_DIM)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    X = words[rng.integers(0, len(words), n)]
+    X += rng.standard_normal((n, SIFT_DIM), dtype=np.float32) * 12.0
+    return np.clip(np.rint(X), 0.0, 255.0)
+
+
+def knn_exact_check(index, q, d2, ids) -> dict:
+    """The returned neighbours of queries ``q`` against float64 brute force
+    on the card: each returned id's exact squared distance within (1 +
+    1e-4) of the exact k-th; recall@k (the share of returned ids at or
+    inside the exact k-th distance); the returned f32 distances against
+    the exact ones of the same ids."""
+    x = torch.as_tensor(index, device="cuda", dtype=torch.float64)
+    qq = torch.as_tensor(q, device="cuda", dtype=torch.float64)
+    exact = ((qq * qq).sum(1, keepdim=True) - 2.0 * (qq @ x.T)
+             + (x * x).sum(1)[None, :])       # integers: exact in f64
+    kth = torch.topk(exact, ids.shape[1], dim=1, largest=False).values[:, -1:]
+    got = exact.gather(1, torch.as_tensor(ids, device="cuda"))
+    within = bool((got <= kth * (1.0 + 1e-4)).all())
+    recall = float((got <= kth).double().mean())
+    rel = float(((torch.as_tensor(d2, device="cuda", dtype=torch.float64)
+                  - got).abs() / got.clamp(min=1.0)).max())
+    return {"within_kth": within, "recall": recall, "dist_rel": rel}
+
+
+def knn_block_costs(index, q) -> dict:
+    """One full block of 16b, piece by piece, in device ms: the f32
+    product into the ``[block, n]`` block (``addmm``, then ``+ x2``), the
+    top-k in ``lax.top_k``'s order, and ``torch.topk`` alone; the rows of
+    the block whose (k+1)-th distance ties the k-th (sorted whole); the
+    block's bound: its f32 operations at the card's peak."""
+    x = torch.as_tensor(index, device="cuda")
+    qq = torch.as_tensor(q[:KNN_BLOCK], device="cuda")
+    q2 = (qq * qq).sum(1, keepdim=True)
+    x2 = (x * x).sum(1)[None, :]
+    d2 = torch.empty((len(qq), len(x)), device="cuda")
+
+    def product():
+        torch.addmm(q2, qq, x.T, alpha=-2.0, out=d2)
+        d2.add_(x2)
+
+    out = {"product_ms": time_ms(product, reps=5, warm=1)}
+    out["top_k_ms"] = time_ms(lambda: top_k(d2, KNN_K, largest=False),
+                              reps=5, warm=1)
+    out["torch_topk_ms"] = time_ms(
+        lambda: torch.topk(d2, KNN_K + 1, dim=1, largest=False,
+                           sorted=False), reps=5, warm=1)
+    v = torch.topk(d2, KNN_K + 1, dim=1, largest=False).values
+    out["crowded_rows"] = int((v[:, KNN_K] == v[:, KNN_K - 1]).sum())
+    out["bound_ms"] = 1e3 * 2.0 * len(qq) * len(x) * SIFT_DIM / (
+        PEAK_F32_OPS_PER_S)
+    return out
+
+
+def phase_knn(card) -> dict:
+    """16b: ``KNN`` and ``ConditionalKNN`` at sift-128-euclidean's shape;
+    ``BallTree`` on 50,000 x 16 rows."""
+    t0 = time.perf_counter()
+    index = sift_shaped(SIFT_BASE, seed=0)
+    q = sift_shaped(SIFT_QUERIES, seed=1)
+    log(f"== phase 16b: KNN(k={KNN_K}, blockSize={KNN_BLOCK}) on "
+        f"{SIFT_BASE:,} x {SIFT_DIM} sift-shaped rows, {SIFT_QUERIES:,} "
+        f"queries (data {time.perf_counter() - t0:.1f} s on the host)")
+    model = KNN(k=KNN_K, blockSize=KNN_BLOCK, device="cuda").fit(
+        Dataset({"features": index}))
+    torch.cuda.reset_peak_memory_stats()
+    (d2, ids), search_s = timed(lambda: model.kneighbors(q))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out, tr_s = timed(lambda: model.transform(Dataset({"features": q})))
+    first = [m["value"] for m in out["matches"][0]]
+    if first != ids[0].tolist() or len(out["matches"]) != len(q):
+        raise AssertionError("16b: transform disagrees with kneighbors")
+    chk = knn_exact_check(index, q[:KNN_CHECK_QUERIES],
+                          d2[:KNN_CHECK_QUERIES], ids[:KNN_CHECK_QUERIES])
+    costs = knn_block_costs(index, q)
+    log(f"search {SIFT_QUERIES / search_s:,.0f} queries/s ({search_s:.3f} "
+        f"s), transform {SIFT_QUERIES / tr_s:,.0f} queries/s, peak "
+        f"{peak:.3f} GiB; against float64 brute force on "
+        f"{KNN_CHECK_QUERIES} queries: within (1 + 1e-4) of the k-th "
+        f"{chk['within_kth']}, recall@{KNN_K} {chk['recall']:.5f}, "
+        f"distances {chk['dist_rel']:.3g} relative; one block of "
+        f"{KNN_BLOCK}: product {costs['product_ms']:.3f} ms, top-k "
+        f"{costs['top_k_ms']:.3f} ms (torch.topk alone "
+        f"{costs['torch_topk_ms']:.3f}), {costs['crowded_rows']} rows tied "
+        f"across the k-th, bound {costs['bound_ms']:.3f} ms; {card}")
+    if not (chk["within_kth"] and chk["recall"] >= KNN_RECALL_FLOOR
+            and chk["dist_rel"] <= KNN_DIST_RTOL):
+        raise AssertionError(f"16b: exact check failed: {chk}")
+
+    rng = np.random.default_rng(2)
+    labels = rng.integers(0, KNN_LABELS, SIFT_BASE)
+    conds = [list(rng.choice(KNN_LABELS, KNN_ALLOWED, replace=False))
+             for _ in range(SIFT_QUERIES)]
+    cmodel = ConditionalKNN(k=KNN_K, blockSize=KNN_BLOCK, device="cuda").fit(
+        Dataset({"features": index, "label": labels}))
+    torch.cuda.reset_peak_memory_stats()
+    (cd2, cids), cond_s = timed(lambda: cmodel.kneighbors(q, conds))
+    cpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    allowed = np.zeros((SIFT_QUERIES, KNN_LABELS), bool)
+    np.put_along_axis(allowed, np.asarray(conds), True, axis=1)
+    ok = bool(np.take_along_axis(allowed, labels[cids], axis=1).all()
+              and np.isfinite(cd2).all())
+    log(f"ConditionalKNN, {KNN_LABELS} labels, {KNN_ALLOWED} allowed a "
+        f"query: {SIFT_QUERIES / cond_s:,.0f} queries/s, peak {cpeak:.3f} "
+        f"GiB; every returned id allowed: {ok}")
+    if not ok:
+        raise AssertionError("16b: ConditionalKNN returned a disallowed id")
+    del model, cmodel, index, d2, cd2
+
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(BALL_ROWS, BALL_DIM))
+    bq = rng.normal(size=(BALL_QUERIES, BALL_DIM))
+    t0 = time.perf_counter()
+    tree = BallTree(pts)
+    (bi, bd), ball_s = timed(lambda: tree.query_batch(bq, k=BALL_K))
+    build_s = time.perf_counter() - t0 - ball_s
+    exact = torch.cdist(torch.as_tensor(bq, device="cuda"),
+                        torch.as_tensor(pts, device="cuda"),
+                        compute_mode="donot_use_mm_for_euclid_dist")
+    ev, ei = torch.topk(exact, BALL_K, dim=1, largest=False)
+    same = bool(np.array_equal(bi, ei.cpu().numpy()))
+    drel = float(np.abs(bd - ev.cpu().numpy()).max())
+    log(f"BallTree on {BALL_ROWS:,} x {BALL_DIM}: build {build_s:.3f} s, "
+        f"{BALL_QUERIES:,} queries k={BALL_K} {BALL_QUERIES / ball_s:,.0f} "
+        f"queries/s on the host; ids equal to brute force {same}, "
+        f"distances {drel:.3g}")
+    if not (same and drel <= 1e-9):
+        raise AssertionError("16b: BallTree differs from brute force")
+    return {"queries_per_s": SIFT_QUERIES / search_s,
+            "transform_queries_per_s": SIFT_QUERIES / tr_s,
+            "peak_gib": peak, **chk, "block": costs,
+            "conditional_queries_per_s": SIFT_QUERIES / cond_s,
+            "conditional_peak_gib": cpeak,
+            "ball_tree_queries_per_s": BALL_QUERIES / ball_s}
+
+
+def movielens_shaped(seed) -> dict:
+    """Ratings of MovieLens-1M's shape: 6,040 users with at least 20
+    ratings each (a lognormal activity, 1,000,209 in all), 3,706 items of
+    Zipf-skewed popularity in 18 genres, users drawn to their genre; the
+    ratings' shares of 1-5 as ML-1M's; timestamps over three years."""
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, ML_ITEMS + 1) ** 0.9
+    pop = pop[rng.permutation(ML_ITEMS)]
+    item_genre = rng.integers(0, ML_GENRES, ML_ITEMS)
+    user_genre = rng.integers(0, ML_GENRES, ML_USERS)
+    act = rng.lognormal(4.3, 0.9, ML_USERS)
+    counts = np.minimum(20 + np.floor(act * (ML_RATINGS - 20 * ML_USERS)
+                                      / act.sum()), ML_ITEMS).astype(int)
+    room = [i for i in np.argsort(-act) if counts[i] < ML_ITEMS]
+    counts[room[:ML_RATINGS - counts.sum()]] += 1
+    users, items = [], []
+    logw = np.log(pop)
+    for u in range(ML_USERS):
+        key = (logw + np.log1p(4.0 * (item_genre == user_genre[u]))
+               + rng.gumbel(size=ML_ITEMS))      # Gumbel top-k: a draw
+        chosen = np.argpartition(-key, counts[u] - 1)[:counts[u]]
+        users.append(np.full(counts[u], u, np.int32))
+        items.append(chosen.astype(np.int32))
+    n = int(counts.sum())
+    return {"user_idx": np.concatenate(users),
+            "item_idx": np.concatenate(items),
+            "rating": (rng.choice(5, n, p=ML_RATING_SHARES) + 1).astype(
+                np.float32),
+            "ts": ML_START + rng.uniform(0.0, ML_SPAN, n)}
+
+
+def recs_of(model, k):
+    r = model.recommend_for_all_users(k)
+    return np.stack(r["recommendations"]), np.stack(r["ratings"])
+
+
+def same_ranking(ids, vals, ref_ids, ref_vals, ref_scores, rtol) -> int:
+    """Hold ``(ids, vals)`` to the reference top-k: values within ``rtol``
+    rank by rank, and wherever an id differs, its reference score within
+    ``rtol`` of the reference's at that rank (a near tie that rounding may
+    order either way; an exact tie orders by id on both). Returns the
+    count of such swapped ranks."""
+    both = np.isfinite(ref_vals)
+    if not (np.array_equal(np.isfinite(vals), both) and np.allclose(
+            vals[both], ref_vals[both], rtol=rtol, atol=0)):
+        raise AssertionError("16c: recommended ratings differ")
+    diff = ids != ref_ids
+    rows, ranks = np.nonzero(diff)
+    mine = ref_scores[rows, ids[rows, ranks]]
+    if not np.allclose(mine, ref_vals[rows, ranks], rtol=rtol, atol=0):
+        raise AssertionError(f"16c: {len(rows)} recommended ids differ "
+                             "beyond a near tie")
+    return int(diff.sum())
+
+
+def phase_sar(card) -> dict:
+    """16c: SAR at MovieLens-1M's shape: fit, transform, top 10 for every
+    user, cuda against cpu, the ranking split and evaluation, the sparse
+    path."""
+    t0 = time.perf_counter()
+    cols = movielens_shaped(seed=5)
+    ds = Dataset(dict(cols))
+    n = len(cols["rating"])
+    log(f"== phase 16c: SAR({SAR_PARAMS}) on {ML_USERS:,} users x "
+        f"{ML_ITEMS:,} items, {n:,} MovieLens-shaped ratings (data "
+        f"{time.perf_counter() - t0:.1f} s on the host)")
+    model, fit_s = timed(lambda: SAR(device="cuda", **SAR_PARAMS).fit(ds))
+    scored, tr_s = timed(lambda: model.transform(ds))
+    (ids, vals), rec_s = timed(lambda: recs_of(model, 10))
+    scores = scored.array("prediction")
+    cpu_model, cpu_s = timed(lambda: SAR(device="cpu", **SAR_PARAMS).fit(ds))
+    for a in ("itemSimilarity", "userAffinity", "seen"):
+        if not np.array_equal(getattr(cpu_model, a), getattr(model, a)):
+            raise AssertionError(f"16c: {a} differs from a cpu fit")
+    sub = {c: v[:SAR_CHECK_PAIRS] for c, v in cols.items()}
+    cpu_scores = cpu_model.transform(Dataset(sub)).array("prediction")
+    rel = float((np.abs(scores[:SAR_CHECK_PAIRS] - cpu_scores)
+                 / np.maximum(np.abs(cpu_scores), 1e-30)).max())
+    cids, cvals = recs_of(cpu_model, 10)
+    full = (torch.as_tensor(cpu_model.userAffinity)
+            @ torch.as_tensor(cpu_model.itemSimilarity))
+    full.masked_fill_(torch.as_tensor(cpu_model.seen), float("-inf"))
+    swaps = same_ranking(ids, vals, cids, cvals, full.numpy(),
+                         SAR_SCORE_RTOL)
+    zero_ties = int((cvals == 0).sum())
+    log(f"fit {fit_s:.3f} s (cpu {cpu_s:.3f}), transform {n / tr_s:,.0f} "
+        f"pairs/s ({tr_s:.3f} s), recommend_for_all_users(10) {rec_s:.3f} "
+        f"s; similarity, affinity and seen equal to cpu's; scores within "
+        f"{rel:.3g} relative on {SAR_CHECK_PAIRS:,} pairs; top 10 equal "
+        f"to cpu's but {swaps} near-tie swaps ({zero_ties} zero-score "
+        f"ties in the lists); {card}")
+    if not rel <= SAR_SCORE_RTOL:
+        raise AssertionError(f"16c: scores differ by {rel} relative")
+
+    split = RankingTrainValidationSplit(
+        estimator=RankingAdapter(SAR(device="cuda", **SAR_PARAMS), k=10),
+        trainRatio=0.75, minRatingsPerUser=2, seed=0)
+    fitted, split_s = timed(lambda: split.fit(ds))
+    evald = fitted.transform(split.validation)
+    ndcg = RankingEvaluator(metricName="ndcgAt", k=10).evaluate(evald)
+    mapk = RankingEvaluator(metricName="map", k=10).evaluate(evald)
+    rng = np.random.default_rng(6)
+    rand = Dataset({"recommendations": [rng.choice(ML_ITEMS, 10,
+                                                   replace=False)
+                                        for _ in range(len(evald))],
+                    "labels": list(evald["labels"])})
+    ndcg_rand = RankingEvaluator(metricName="ndcgAt", k=10).evaluate(rand)
+    log(f"RankingTrainValidationSplit(trainRatio=0.75) -> RankingAdapter"
+        f"(SAR) {split_s:.3f} s; validation NDCG@10 {ndcg:.5f} (floor "
+        f"{SAR_NDCG_FLOOR}; random {ndcg_rand:.5f}), MAP@10 {mapk:.5f}, "
+        f"validationMetrics {split.get_or_default('validationMetrics')}")
+    if not ndcg > SAR_NDCG_FLOOR:
+        raise AssertionError(f"16c: NDCG@10 {ndcg} <= {SAR_NDCG_FLOOR}")
+    if split.get_or_default("validationMetrics") != [ndcg]:
+        raise AssertionError("16c: validationMetrics differ from NDCG@10")
+
+    prev = sar_mod.DENSE_CELLS_MAX
+    sar_mod.DENSE_CELLS_MAX = 0
+    try:
+        sparse, sp_s = timed(lambda: SAR(device="cuda", **SAR_PARAMS).fit(ds))
+    finally:
+        sar_mod.DENSE_CELLS_MAX = prev
+    sim_diff = float(np.abs(sparse.itemSimilarity.toarray()
+                            - model.itemSimilarity).max())
+    sp_scores = sparse.transform(Dataset(sub)).array("prediction")
+    sp_rel = float((np.abs(sp_scores - scores[:SAR_CHECK_PAIRS])
+                    / np.maximum(np.abs(scores[:SAR_CHECK_PAIRS]),
+                                 1e-30)).max())
+    head = SARModel(itemSimilarity=sparse.itemSimilarity,
+                    userAffinity=sparse.userAffinity[:SAR_SPARSE_USERS],
+                    seen=sparse.seen[:SAR_SPARSE_USERS], device="cuda")
+    (sids, svals), sp_rec_s = timed(lambda: recs_of(head, 10))
+    sp_swaps = same_ranking(sids, svals, ids[:SAR_SPARSE_USERS],
+                            vals[:SAR_SPARSE_USERS],
+                            full.numpy()[:SAR_SPARSE_USERS], SAR_SCORE_RTOL)
+    log(f"sparse path (DENSE_CELLS_MAX=0): fit {sp_s:.3f} s, similarity "
+        f"{sim_diff:.3g} from the dense path's, scores {sp_rel:.3g} "
+        f"relative, top 10 of {SAR_SPARSE_USERS} users in "
+        f"{sp_rec_s:.3f} s equal but {sp_swaps} near-tie swaps")
+    if not (sim_diff <= 1e-6 and sp_rel <= SAR_SCORE_RTOL):
+        raise AssertionError(f"16c: sparse path differs: {sim_diff}, "
+                             f"{sp_rel}")
+    return {"fit_s": fit_s, "cpu_fit_s": cpu_s,
+            "transform_pairs_per_s": n / tr_s, "recommend_s": rec_s,
+            "score_rel": rel, "swaps": swaps, "zero_ties": zero_ties,
+            "ndcg10": ndcg, "map10": mapk, "ndcg10_random": ndcg_rand,
+            "split_s": split_s, "sparse_fit_s": sp_s,
+            "sparse_recommend_s": sp_rec_s, "sparse_swaps": sp_swaps}
+
+
+def access_scores(model, *sets):
+    return [model.transform(s).array("anomaly_score") for s in sets]
+
+
+def phase_access_anomaly(card) -> dict:
+    """16d: ``AccessAnomaly`` (implicit, rank 10, 25 sweeps) on about 1.1M
+    DataFactory access events; then implicit and explicit fits at one
+    department's size, cuda against cpu."""
+    t0 = time.perf_counter()
+    f = DataFactory(num_users=AA_USERS, num_resources=AA_RESOURCES, seed=42)
+    train = f.create_clustered_training_data(AA_RATIO)
+    intra = f.create_clustered_intra_test_data(train)
+    inter = f.create_clustered_inter_test_data()
+    log(f"== phase 16d: AccessAnomaly(rankParam=10, maxIter=25) on "
+        f"{len(train):,} access events of {sum(AA_USERS.values()):,} users "
+        f"and {sum(AA_RESOURCES.values()):,} resources (data "
+        f"{time.perf_counter() - t0:.1f} s on the host)")
+    calls = []
+
+    def recorded(*a, **kw):
+        out, s = timed(lambda: real_als(*a, **kw))
+        calls.append((a, kw, s, out))
+        return out
+
+    real_als = anomaly_mod.als_fit
+    anomaly_mod.als_fit = recorded
+    try:
+        model, fit_s = timed(lambda: AccessAnomaly(device="cuda").fit(train))
+    finally:
+        anomaly_mod.als_fit = real_als
+    (a, kw, als_s, (x, y)), = calls
+    # the card's scatter-add is the sorted one: a second run is bit-equal
+    # (the CPU's, on several threads, adds with atomics: checked on the
+    # card only)
+    x2, y2 = real_als(*a, **kw)
+    same = bool(np.array_equal(x, x2) and np.array_equal(y, y2)
+                or not torch.cuda.is_available())
+    (s_intra, s_inter), tr_s = timed(lambda: access_scores(model, intra,
+                                                           inter))
+    gap = float(np.nanmean(s_inter) - np.nanmean(s_intra))
+    rows = len(intra) + len(inter)
+    log(f"fit {fit_s:.3f} s, of it ALS {als_s:.3f} s ({als_s / 25:.4f} s a "
+        f"sweep, {len(a[0]):,} observations, {a[3]:,} x {a[4]:,}), "
+        f"bit-equal on a second run: {same}; transform {rows / tr_s:,.0f} "
+        f"rows/s; mean score inter {np.nanmean(s_inter):.4f} - intra "
+        f"{np.nanmean(s_intra):.4f} = {gap:.4f} (floor {AA_MARGIN}); {card}")
+    if not same:
+        raise AssertionError("16d: two ALS runs on the card differ")
+    if not gap > AA_MARGIN:
+        raise AssertionError(f"16d: inter - intra {gap} <= {AA_MARGIN}")
+    out = {"fit_s": fit_s, "als_s": als_s, "als_s_per_sweep": als_s / 25,
+           "transform_rows_per_s": rows / tr_s, "gap": gap,
+           "deterministic": same}
+
+    fs = DataFactory(num_users=AA_SMALL_USERS,
+                     num_resources=AA_SMALL_RESOURCES, seed=43)
+    small = fs.create_clustered_training_data(AA_RATIO)
+    probes = (small, fs.create_clustered_intra_test_data(small),
+              fs.create_clustered_inter_test_data())
+    moved = []
+    for first in (0, 1):
+        lik = small.array("likelihood").copy()
+        lik[first::2] *= 1 + 2.0 ** -22
+        moved.append(small.with_column("likelihood", lik))
+    threads = torch.get_num_threads()
+    for mode, kw in (("implicit", {}),
+                     ("explicit", dict(applyImplicitCf=False,
+                                       complementsetFactor=2))):
+        fits = {}
+        fits["card"], card_s = timed(
+            lambda: AccessAnomaly(device="cuda", **kw).fit(small))
+        # the CPU's scatter-add adds in index order on one thread (with
+        # atomics on several): one thread makes the reference and its
+        # spread repeatable
+        torch.set_num_threads(1)
+        try:
+            t0 = time.perf_counter()
+            fits["host"] = AccessAnomaly(device="cpu", **kw).fit(small)
+            host_s = time.perf_counter() - t0
+            for j, data in enumerate(moved):
+                fits[j] = AccessAnomaly(device="cpu", **kw).fit(data)
+        finally:
+            torch.set_num_threads(threads)
+        scores = {}
+        for k, m in fits.items():
+            m.preserve_history = False              # score training pairs
+            scores[k] = np.concatenate(access_scores(m, *probes))
+        got, want = scores["card"], scores["host"]
+        fin = np.isfinite(want)
+        spread = max(float(np.abs(scores[j] - want)[fin].max())
+                     for j in (0, 1))
+        diff = float(np.abs(got - want)[fin].max())
+        same_rest = bool(np.array_equal(got[~fin], want[~fin],
+                                        equal_nan=True))
+        fits["card"].preserve_history = True
+        _, s_in, s_out = access_scores(fits["card"], *probes)
+        gap_s = float(np.nanmean(s_out) - np.nanmean(s_in))
+        log(f"{mode} at {len(small):,} events: fit {card_s:.3f} s (cpu "
+            f"{host_s:.3f}, one thread); scores cuda vs cpu {diff:.3g} (two "
+            f"ulps on half the likelihoods move them {spread:.3g} on the "
+            f"cpu; hold {AA_SPREAD_FACTOR:g}x), inter - intra {gap_s:.4f}")
+        if not (same_rest and 0 < spread and diff <= AA_SPREAD_FACTOR
+                * spread):
+            raise AssertionError(f"16d {mode}: cuda vs cpu {diff} against "
+                                 f"spread {spread}")
+        if not gap_s > AA_MARGIN:
+            raise AssertionError(f"16d {mode}: inter - intra {gap_s}")
+        out[mode] = {"fit_s": card_s, "cpu_fit_s": host_s,
+                     "diff": diff, "spread": spread, "gap": gap_s}
+    return out
+
+
+def phase_estimators(card) -> dict:
+    """Phase 16: 16a-16d. No histogram kernel runs here (none of these
+    modules had Pallas code: their device work is torch ops); the counts
+    must stay at 0."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    out = {"16a": phase_isolation_forest(card), "16b": phase_knn(card),
+           "16c": phase_sar(card), "16d": phase_access_anomaly(card)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 16 launched a histogram kernel: "
+                             f"{counts}")
+    out["kernels"] = "none: phase 16's device work is torch ops"
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 16: {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -4297,6 +4881,7 @@ def main() -> int:
     p14 = phase_data_group(base, quantized, multiclass, data)
     del X, y, Xh, yh, data
     p15 = phase_vw_and_host_stages(card)
+    p16 = phase_estimators(card)
     fits["15e"] = p15.pop("15e")
     for k in ("bf16", "quantized"):
         fits[f"14a_{k}"] = p14["14a"].pop(k)
@@ -4308,7 +4893,7 @@ def main() -> int:
         + "; phase 11: " + json.dumps(p11) + "; phase 12: "
         + json.dumps(p12) + "; phase 13: " + json.dumps(p13)
         + "; phase 14: " + json.dumps(p14) + "; phase 15: "
-        + json.dumps(p15))
+        + json.dumps(p15) + "; phase 16: " + json.dumps(p16))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

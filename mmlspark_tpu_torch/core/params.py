@@ -303,3 +303,28 @@ class HasBatchSize(Params):
 class HasErrorCol(Params):
     errorCol = Param("errorCol", "Column to hold per-row errors", "errors",
                      TypeConverters.to_string)
+
+
+class HasDevice(Params):
+    """The port's ``device`` Param: None means the default, ``cuda``
+    (resolved by :func:`mmlspark_tpu_torch.device.resolve_device`, which
+    raises without a GPU); ``cpu`` only when asked."""
+
+    device = Param("device", "Device to fit and score on: 'cuda' (default) "
+                   "or 'cpu'", None, lambda v: None if v is None else str(v))
+
+    def _device(self):
+        from ..device import resolve_device
+        return resolve_device(self.get_or_default("device"))
+
+
+def set_known_params(stage: Params, params: Optional[Dict[str, Any]],
+                     device=None) -> Params:
+    """Set the values of ``params`` (a JAX stage's ``extract_param_map()``)
+    that ``stage``'s class has, then ``device``: the caller's, never the
+    JAX stage's, which has none."""
+    stage.set(**{k: v for k, v in (params or {}).items()
+                 if stage.has_param(k) and k != "device" and v is not None})
+    if device is not None:
+        stage.set(device=device)
+    return stage

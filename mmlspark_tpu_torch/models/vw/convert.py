@@ -14,22 +14,12 @@ from typing import Mapping, Optional
 
 import numpy as np
 
+from ...core.params import set_known_params
 from .api import VowpalWabbitClassificationModel, VowpalWabbitRegressionModel
 from .bandit import ContextualBanditMetrics, VowpalWabbitContextualBanditModel
 
 _LINEAR = {"classifier": VowpalWabbitClassificationModel,
            "regressor": VowpalWabbitRegressionModel}
-
-
-def _set_known(model, params: Optional[Mapping], device):
-    """Set the Param values this model class has (the port's ``device``
-    is the caller's, not the JAX model's)."""
-    known = {k: v for k, v in (params or {}).items()
-             if model.has_param(k) and k != "device" and v is not None}
-    model.set(**known)
-    if device is not None:
-        model.set(device=device)
-    return model
 
 
 def vw_model_from_jax(weights: np.ndarray, params: Optional[Mapping] = None,
@@ -45,7 +35,7 @@ def vw_model_from_jax(weights: np.ndarray, params: Optional[Mapping] = None,
         raise ValueError(f"weights must be one table of 2^numBits entries, "
                          f"got shape {w.shape}")
     model = _LINEAR[kind](w, dict(stats or {}))
-    _set_known(model, params, device)
+    set_known_params(model, params, device)
     bits = int(model.get_or_default("numBits"))
     if (1 << bits) != w.size:
         model.set(numBits=int(w.size).bit_length() - 1)
@@ -68,6 +58,6 @@ def bandit_model_from_jax(shared_weights: np.ndarray,
         interaction_weights=(None if interaction_weights is None else
                              np.asarray(interaction_weights, np.float32)),
         metrics=ContextualBanditMetrics(**dict(metrics or {})))
-    _set_known(model, {k: v for k, v in (params or {}).items()
-                       if k not in skip}, device)
+    set_known_params(model, {k: v for k, v in (params or {}).items()
+                             if k not in skip}, device)
     return model

@@ -25,11 +25,16 @@ from mmlspark_tpu_torch.core.fuzzing import (TestObject, discover_stages,
                                              experiment_fuzz,
                                              serialization_fuzz)
 from mmlspark_tpu_torch.core.pipeline import Lambda, Pipeline
+from mmlspark_tpu_torch.cyber import anomaly, complement
+from mmlspark_tpu_torch.cyber import feature as cfeat
 from mmlspark_tpu_torch.featurize import core as fcore
 from mmlspark_tpu_torch.featurize import text as ftext
+from mmlspark_tpu_torch.models import isolation_forest as iforest
 from mmlspark_tpu_torch.models.gbdt import api as gbdt
 from mmlspark_tpu_torch.models.vw import api as vw
 from mmlspark_tpu_torch.models.vw import bandit, featurizer
+from mmlspark_tpu_torch.nn import knn
+from mmlspark_tpu_torch.recommendation import ranking, sar
 from mmlspark_tpu_torch.stages import basic, batching
 from mmlspark_tpu_torch.train import core as train
 
@@ -122,6 +127,19 @@ GROUPED = Dataset({"features": _X, "label": _Y,
 SCORED = Dataset({"label": _Y, "prediction": (_X[:, 0] > 0).astype(float),
                   "probability": np.stack([1 - _Y * 0.8 - 0.1,
                                            _Y * 0.8 + 0.1], 1)})
+
+
+KNN_DS = Dataset({"features": _X, "values": list(range(_N)),
+                  "label": ["p" if v > 0 else "n" for v in _Y]})
+REC = Dataset({"user_idx": np.repeat(np.arange(6), 4),
+               "item_idx": np.tile(np.arange(4), 6),
+               "rating": np.ones(24),
+               "user": [f"u{i}" for i in np.repeat(np.arange(6), 4)],
+               "item": [f"i{i}" for i in np.tile(np.arange(4), 6)]})
+CYBER = Dataset({"tenant": ["t0"] * 12 + ["t1"] * 12,
+                 "user": [f"u{i % 4}" for i in range(24)],
+                 "res": [f"r{i % 3}" for i in range(24)],
+                 "likelihood": np.abs(_rng.normal(size=24)) + 1.0})
 
 
 def _double(v):
@@ -223,6 +241,46 @@ REGISTRY = [
     TestObject(batching.PadBatch(padToSize=5),
                batching.FixedMiniBatchTransformer(batchSize=5).transform(
                    TAB.select("num", "label"))),
+    TestObject(iforest.IsolationForest(numEstimators=10, device="cpu"),
+               TAB.select("features"),
+               produces=[iforest.IsolationForestModel]),
+    TestObject(knn.KNN(k=3, outputCol="matches", device="cpu"), KNN_DS,
+               trans_ds=KNN_DS.select("features"), produces=[knn.KNNModel]),
+    TestObject(knn.ConditionalKNN(k=3, device="cpu"), KNN_DS,
+               trans_ds=Dataset({"features": _X[:4],
+                                 "conditioner": [["p"]] * 4}),
+               produces=[knn.ConditionalKNNModel]),
+    TestObject(sar.SAR(supportThreshold=1, device="cpu"), REC,
+               produces=[sar.SARModel]),
+    TestObject(sar.RecommendationIndexer(), REC,
+               produces=[sar.RecommendationIndexerModel]),
+    TestObject(ranking.RankingAdapter(
+        recommender=sar.SAR(supportThreshold=1, device="cpu"), k=3), REC,
+        produces=[ranking.RankingAdapterModel]),
+    TestObject(ranking.RankingTrainValidationSplit(
+        estimator=sar.SAR(supportThreshold=1, device="cpu"), trainRatio=0.5,
+        seed=0), REC),
+    TestObject(ranking.RankingEvaluator(metricName="ndcgAt", k=3),
+               ranking.RankingAdapter(recommender=sar.SAR(
+                   supportThreshold=1, device="cpu"), k=3)
+               .fit(REC).transform(REC)),
+    TestObject(anomaly.AccessAnomaly(maxIter=3, rankParam=3, device="cpu"),
+               CYBER, produces=[anomaly.AccessAnomalyModel]),
+    TestObject(complement.ComplementAccessTransformer("tenant", ["u", "r"],
+                                                      1),
+               Dataset({"tenant": ["a"] * 6,
+                        "u": np.asarray([1, 1, 2, 2, 3, 3]),
+                        "r": np.asarray([1, 2, 1, 2, 1, 2])})),
+    TestObject(cfeat.IdIndexer("user", "tenant", "user_idx", False), CYBER,
+               produces=[cfeat.IdIndexerModel]),
+    TestObject(cfeat.MultiIndexer(indexers=[
+        cfeat.IdIndexer("user", "tenant", "user_idx", False)]), CYBER,
+        produces=[cfeat.MultiIndexerModel]),
+    TestObject(cfeat.StandardScalarScaler("likelihood", "tenant", "out"),
+               CYBER, produces=[cfeat.StandardScalarScalerModel]),
+    TestObject(cfeat.LinearScalarScaler("likelihood", "tenant", "out", 1.0,
+                                        2.0),
+               CYBER, produces=[cfeat.LinearScalarScalerModel]),
     TestObject(train.ComputeModelStatistics(), SCORED),
     TestObject(train.ComputePerInstanceStatistics(), SCORED),
     TestObject(train.TrainClassifier(model=gbdt.LightGBMClassifier(**GB),

@@ -7,8 +7,8 @@
     the port's tools (``tools/profile_torch_gbdt.py``,
     ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``,
     ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``,
-    ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``), imports
-    either.
+    ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``,
+    ``tools/chip_phase16.py``), imports either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -19,6 +19,10 @@
   * The VW learners' entry points (``VowpalWabbitClassifier.fit``,
     ``VowpalWabbitContextualBandit.fit``, ``predict_sgd``) default to
     ``cuda`` and raise without a GPU; they run with ``device="cpu"``.
+  * The estimators of slice 14 (``IsolationForest``, ``KNN``,
+    ``ConditionalKNN``, ``SAR``, ``AccessAnomaly``), their models and
+    ``als_fit`` default to ``cuda`` and raise without a GPU; they run with
+    ``device="cpu"``.
   * The port's test files lint clean under ``tools.graftlint``.
 """
 
@@ -111,6 +115,23 @@ SLICE_13_MODULES = (
 )
 
 
+#: isolation forest, exact KNN, SAR with the ranking tools, CyberML
+SLICE_14_MODULES = (
+    "mmlspark_tpu_torch.ops.topk",
+    "mmlspark_tpu_torch.models.isolation_forest",
+    "mmlspark_tpu_torch.nn",
+    "mmlspark_tpu_torch.nn.knn",
+    "mmlspark_tpu_torch.recommendation",
+    "mmlspark_tpu_torch.recommendation.sar",
+    "mmlspark_tpu_torch.recommendation.ranking",
+    "mmlspark_tpu_torch.cyber",
+    "mmlspark_tpu_torch.cyber.feature",
+    "mmlspark_tpu_torch.cyber.complement",
+    "mmlspark_tpu_torch.cyber.dataset",
+    "mmlspark_tpu_torch.cyber.anomaly",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
@@ -122,6 +143,7 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.utils.stopwatch"} <= set(mods)
     assert set(SERVING_MODULES) <= set(mods)
     assert set(SLICE_13_MODULES) <= set(mods)
+    assert set(SLICE_14_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -174,11 +196,12 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "rehearse_chip_smoke.py"),
              os.path.join(ROOT, "tools", "ab_predict.py"),
              os.path.join(ROOT, "tools", "multi_card_fit.py"),
-             os.path.join(ROOT, "tools", "chip_phase15.py")]
+             os.path.join(ROOT, "tools", "chip_phase15.py"),
+             os.path.join(ROOT, "tools", "chip_phase16.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:8])
+    assert all(os.path.isfile(p) for p in paths[:9])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):
@@ -194,7 +217,7 @@ def test_no_source_imports_jax_or_the_jax_package():
               os.path.join("parallel", "placement.py"),
               os.path.join("utils", "stopwatch.py")):
         assert os.path.join(PKG, f) in paths
-    for mod in SLICE_13_MODULES:
+    for mod in SLICE_13_MODULES + SLICE_14_MODULES:
         rel = mod.split(".", 1)[1].replace(".", os.sep)
         assert (os.path.join(PKG, rel + ".py") in paths
                 or os.path.join(PKG, rel, "__init__.py") in paths), mod
@@ -369,6 +392,37 @@ def test_vw_entry_points_default_to_cuda_and_raise(no_gpu):
     b = VowpalWabbitContextualBandit(device="cpu").fit(_bandit_rows())
     assert len(b.transform(_bandit_rows())["prediction"]) == 12
     assert predict_sgd(idx, val, m.weights, device="cpu").shape == (64,)
+
+
+def test_slice_14_entry_points_default_to_cuda_and_raise(no_gpu):
+    from mmlspark_tpu_torch.cyber import AccessAnomaly
+    from mmlspark_tpu_torch.cyber.anomaly import als_fit
+    from mmlspark_tpu_torch.models.isolation_forest import IsolationForest
+    from mmlspark_tpu_torch.nn.knn import ConditionalKNN, KNN
+    from mmlspark_tpu_torch.recommendation.sar import SAR
+    X = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    feats = Dataset({"features": X, "label": np.arange(40) % 2,
+                     "conditioner": [[0]] * 40})
+    inter = Dataset({"user_idx": np.arange(40) % 5,
+                     "item_idx": np.arange(40) % 7})
+    access = Dataset({"tenant": [0] * 40, "user": list(np.arange(40) % 5),
+                      "res": list(np.arange(40) % 7),
+                      "likelihood": np.ones(40)})
+    for est, ds in ((IsolationForest(numEstimators=3), feats),
+                    (KNN(k=2), feats), (ConditionalKNN(k=2), feats),
+                    (SAR(supportThreshold=1), inter),
+                    (AccessAnomaly(maxIter=2), access)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            est.fit(ds)
+        model = est.set(device="cpu").fit(ds)
+        if hasattr(model, "device"):
+            model.set(device=None)
+            with pytest.raises(RuntimeError, match="no CUDA GPU"):
+                (model.recommend_for_all_users(2) if isinstance(est, SAR)
+                 else model.transform(feats))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        als_fit(np.arange(4), np.arange(4), np.ones(4), 4, 4, 2, 1, 1.0,
+                True, 1.0)
 
 
 def test_murmur_raises_when_the_native_build_fails(monkeypatch):

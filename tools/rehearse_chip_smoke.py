@@ -7,6 +7,8 @@
     python tools/rehearse_chip_smoke.py p13 [--rows 40000 --higgs-rows 20000]
     python tools/rehearse_chip_smoke.py p14 [--rows 40000 --higgs-rows 40000]
     python tools/rehearse_chip_smoke.py p15 [--vw-rows 200000 --events 2000]
+    python tools/rehearse_chip_smoke.py p16 [--higgs-rows 200000
+        --sift-base 100000 --aa-scale 0.25]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -42,7 +44,12 @@ on ``--vw-rows`` Criteo-shaped rows, a fifth of that held out, its step
 costs and scatter-add; the small VW fits, streamed and resumed; L-BFGS on
 at most 200,000 of the rows; the bandit on ``--events`` events;
 TrainClassifier on the Adult-shaped rows and the text chain — every
-"cuda against cpu" check compares the CPU with itself here). The plain
+"cuda against cpu" check compares the CPU with itself here), ``p16``
+(phase 16: the isolation forest on ``--higgs-rows`` rows, KNN on
+``--sift-base`` sift-shaped rows and a hundredth of that as queries
+(at least 100), SAR at MovieLens-1M's full size, AccessAnomaly on
+departments scaled by ``--aa-scale``; the cuda-against-cpu checks again
+compare the CPU with itself). The plain
 versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
@@ -209,15 +216,32 @@ def phase_vw(mod, vw_rows: int, events: int) -> dict:
     return mod.phase_vw_and_host_stages("CPU rehearsal, no card")
 
 
+def phase_estimators(mod, higgs_rows: int, sift_base: int,
+                     aa_scale: float) -> dict:
+    """Phase 16 at ``higgs_rows`` isolation-forest rows, ``sift_base``
+    KNN index rows and AccessAnomaly's departments scaled by
+    ``aa_scale``."""
+    mod.HIGGS_ROWS = higgs_rows
+    mod.SIFT_BASE = sift_base
+    mod.SIFT_QUERIES = max(mod.KNN_CHECK_QUERIES, sift_base // 100)
+    mod.AA_USERS = {d: max(4, int(v * aa_scale))
+                    for d, v in mod.AA_USERS.items()}
+    mod.AA_RESOURCES = {d: max(4, int(v * aa_scale))
+                        for d, v in mod.AA_RESOURCES.items()}
+    return mod.phase_estimators("CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
-                             "p11", "p12", "p13", "p14", "p15"])
+                             "p11", "p12", "p13", "p14", "p15", "p16"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     ap.add_argument("--vw-rows", type=int, default=200_000)
     ap.add_argument("--events", type=int, default=2_000)
+    ap.add_argument("--sift-base", type=int, default=100_000)
+    ap.add_argument("--aa-scale", type=float, default=0.25)
     args = ap.parse_args()
     torch.set_num_threads(4)
     mod = load_on_cpu(args.rows, args.higgs_rows)
@@ -229,7 +253,9 @@ def main() -> int:
            "p12": lambda: phase_serving(mod),
            "p13": lambda: phase_plan(mod),
            "p14": lambda: phase_data_group(mod),
-           "p15": lambda: phase_vw(mod, args.vw_rows, args.events)}
+           "p15": lambda: phase_vw(mod, args.vw_rows, args.events),
+           "p16": lambda: phase_estimators(mod, args.higgs_rows,
+                                           args.sift_base, args.aa_scale)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
