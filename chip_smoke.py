@@ -341,6 +341,36 @@ Phases (any failure exits non-zero and prints no result line):
    against one-thread cpu within ``AA_SPREAD_FACTOR`` times the spread
    that two ulps on half the likelihoods make. ``tools/chip_phase16.py``
    runs this phase alone.
+17. DNN scoring, with cuDNN's TF32 at PyTorch's default (on) for the
+   phase: the port's f32 forward must turn it off itself. 17a: the catalog
+   materialized from ``builtin://`` (the port's seeded draws) under
+   ``build/chip_smoke_dnn``; ResNet-50's ``DNNModel`` (``miniBatchSize``
+   64) over 4,096 seeded 224x224x3 inputs in f32 and in bf16: warm
+   images/s, device ms a batch, peak memory; logits and ``pool`` on cuda
+   against cpu on 4 inputs within ``DNN_SPREAD_FACTOR`` times the spread
+   one ulp of input (a bf16 ulp for bf16) makes on the cpu; the same f32
+   forward outside the port's scope (TF32 on) printed beside it; the TF32
+   flag back on after each forward; ResNet-18/34/101/152 and AlexNet the
+   same way in f32. 17b: ``ImageFeaturizer`` (resize -> normalize ->
+   ResNet-50 ``pool``) on 5,120 seeded uint8 pictures at ImageNet's four
+   common sizes with 1% None rows, both lanes: rows/s, then the f32
+   lane's stages in turn (device resize, host normalize, forward; their
+   features equal to the featurizer's); ``dropNa=False`` keeps the None
+   rows in place, the other rows' features equal. 17c: the first 4,096
+   f32 features (F=2,048) into ``LightGBMClassifier`` (10 rounds, 31
+   leaves, 4 classes): kernel 1 must launch and no plain version run (the
+   counts reset before 17a, read after the fit), holdout accuracy over
+   ``DNN_ACCURACY_FLOOR``; kernel 1's root pass (n=4,096, W=1) and half
+   pass (n=2,048, W=8) at F=2,048 against the plain version, timed with
+   their bound and ``index_add_``. 17d: ``stream_transform`` over 3 shards
+   of 1,024 inputs in chunks of 300 and ``stream_featurize_images`` over
+   512 JPEG files and a corrupt one, each bit-equal to its in-memory run.
+   17e: ``ImageLIME`` over the ResNet-50 ``DNNModel`` at its defaults on 4
+   inputs: s an explanation, the model's share; coefficients cuda against
+   cpu on one input within ``LIME_COEF_RTOL``. 17f: the DigitsConvNet
+   fixture's pinned hash, its logits on 64 inputs of 32x32 as 17a. 17d-17f
+   launch no histogram kernel. ``tools/chip_phase17.py`` runs this phase
+   alone.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -394,6 +424,15 @@ from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
                                                        get_objective,
                                                        score_transform)
 from mmlspark_tpu_torch.nn.knn import KNN, BallTree, ConditionalKNN
+from mmlspark_tpu_torch.device import exact_f32
+from mmlspark_tpu_torch.explain.lime import ImageLIME
+from mmlspark_tpu_torch.image import (ImageTransformer, decode_image,
+                                      normalize_image)
+from mmlspark_tpu_torch.io.streaming import (stream_featurize_images,
+                                             stream_transform)
+from mmlspark_tpu_torch.models.dnn import (DNNModel, ImageFeaturizer,
+                                          ModelDownloader)
+from mmlspark_tpu_torch.models.dnn.cnn import apply_cnn
 from mmlspark_tpu_torch.observability import flight as obs_flight
 from mmlspark_tpu_torch.observability import metrics as obs_metrics
 from mmlspark_tpu_torch.observability import roofline
@@ -4821,6 +4860,504 @@ def phase_estimators(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: DNN scoring: the ResNet/AlexNet catalog, DNNModel and
+# ImageFeaturizer, the image ops, the model repository, streamed featurizing
+# and LIME. The device work is torch's convolutions, pools and resizes; the
+# one hand kernel it reaches is kernel 1, in 17c's GBDT head at F=2,048.
+# ---------------------------------------------------------------------------
+
+DNN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_dnn")
+DNN_BATCH = 64
+# 17a: preprocessed 224 x 224 images scored per lane, and the rows held
+# cuda against cpu
+DNN_LANE_IMAGES = 4096
+DNN_CHECK_IMAGES = 4
+DNN_OTHER_MODELS = ("ResNet18", "ResNet34", "ResNet101", "ResNet152",
+                    "AlexNet")
+# cuda against cpu: within this many times the spread that one ulp of
+# input (an f32 ulp; a bf16 ulp for the bf16 lane) makes on the CPU.
+# tools/dnn_tolerances.py (CPU, ResNet-50 at 224, 4 inputs) puts the CPU's
+# own f32 error against an f64 forward at 0.74-1.12 times that spread
+# (bf16: 0.54-1.11): two forwards of that accuracy differ by up to about
+# twice it
+DNN_SPREAD_FACTOR = 8.0
+# ImageNet's common sizes (500x375, 375x500, 500x333, 333x500), as (H, W)
+IMAGE_SHAPES = ((375, 500), (500, 375), (333, 500), (500, 333))
+DNN_CLASSES = 4
+# 17b-17c: images featurized (the first FEAT_TRAIN train the GBDT head, the
+# rest are its holdout), and the share of None rows among them; the bf16
+# lane and the f32 lane's stages in turn run on the first FEAT_SUBSET
+FEAT_TRAIN, FEAT_HOLDOUT = 4096, 1024
+FEAT_NONE_SHARE = 0.01
+FEAT_SUBSET = 2048
+# 17c's holdout accuracy floor (PERF.md §2, set from a CPU rehearsal at a
+# reduced count before the first chip run)
+DNN_ACCURACY_FLOOR = 0.95
+# the two passes of kernel 1 timed at F=2,048: the root pass of FEAT_TRAIN
+# rows and a half pass of half of them at the leaf batch
+DNN_HIST_ROWS = ((FEAT_TRAIN, 1), (FEAT_TRAIN // 2, 8))
+# 17d: rows streamed through stream_transform (chunks not a multiple of the
+# batch), encoded images streamed from a directory
+STREAM_ROWS, STREAM_CHUNK = 1024, 300
+STREAM_FILES, STREAM_BATCH_FILES = 512, 256
+# 17e: pictures explained at ImageLIME's defaults; the coefficients cuda
+# against cpu within this share of their largest magnitude: 17a's hold
+# lets the scores differ by 8 spreads, about 3e-6 of the largest logit,
+# and the lasso on 1,000 masks of 150-196 superpixels moves its
+# coefficients by 0.91-1.69 times a relative score change
+# (tools/dnn_tolerances.py)
+LIME_IMAGES = 4
+LIME_COEF_RTOL = 1e-3
+DIGITS_ROWS = 64
+
+
+def dnn_images(n, seed):
+    """``n`` uint8 pictures at ``IMAGE_SHAPES`` (one drawn per picture) and
+    their labels in ``[0, DNN_CLASSES)``: a class's stripes (its own angle
+    and frequency) and tint, shifted per picture, half-and-half with noise
+    cut from one seeded pool."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, DNN_CLASSES, n)
+    shapes = rng.integers(0, len(IMAGE_SHAPES), n)
+    pool = rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8)
+    patterns = {}
+    for c in range(DNN_CLASSES):
+        theta = np.pi * c / DNN_CLASSES
+        tint = np.array([1.0, 0.6, 0.3])[np.roll(np.arange(3), c)]
+        for s, (h, w) in enumerate(IMAGE_SHAPES):
+            yy, xx = np.mgrid[0:2 * h, 0:2 * w].astype(np.float32)
+            wave = np.sin(2 * np.pi * (6 + 3 * c) / 500.0
+                          * (xx * np.cos(theta) + yy * np.sin(theta)))
+            patterns[c, s] = np.clip(128 + 100 * wave[..., None] * tint,
+                                     0, 255).astype(np.uint8)
+    imgs = []
+    for c, s in zip(labels, shapes):
+        h, w = IMAGE_SHAPES[s]
+        dy, dx = rng.integers(0, h), rng.integers(0, w)
+        oy, ox = rng.integers(0, 1024 - h), rng.integers(0, 1024 - w)
+        imgs.append((patterns[c, s][dy:dy + h, dx:dx + w] >> 1)
+                    + (pool[oy:oy + h, ox:ox + w] >> 1))
+    return imgs, labels
+
+
+def preprocessed(n, seed) -> np.ndarray:
+    """``n`` normalized 224 x 224 x 3 f32 inputs in [-1, 1)."""
+    return np.random.default_rng(seed).uniform(
+        -1.0, 1.0, (n, 224, 224, 3)).astype(np.float32)
+
+
+def ulp_up(x: np.ndarray, lane: str) -> np.ndarray:
+    """``x`` moved up one ulp: of f32, or of the bf16 value the bf16 lane
+    casts it to."""
+    if lane == "f32":
+        return np.nextafter(x, np.float32(np.inf))
+    t = torch.from_numpy(x).to(torch.bfloat16).view(torch.int16)
+    return (t + 1).view(torch.bfloat16).float().numpy()
+
+
+def fetch_on(model, x, dev, nodes):
+    """``model``'s capture ``nodes`` of rows ``x`` on ``dev``: one pass
+    through ``fetchDict`` in one batch of ``len(x)`` rows (the same batch
+    shape on both devices, and no padded rows for the cpu to score)."""
+    m = model.cloned_with_shared_params().clear("outputNode").set(
+        inputCol="x", device=dev, fetchDict={n: n for n in nodes},
+        miniBatchSize=len(x))
+    out = m.transform(Dataset({"x": x}))
+    return {n: out[n] for n in nodes}
+
+
+def cuda_vs_cpu(model, x, lane, nodes, what) -> dict:
+    """The model's nodes on cuda against cpu, held within
+    ``DNN_SPREAD_FACTOR`` times the spread one ulp of input makes on the
+    cpu, node by node."""
+    got = fetch_on(model, x, "cuda", nodes)
+    want = fetch_on(model, x, "cpu", nodes)
+    moved = fetch_on(model, ulp_up(x, lane), "cpu", nodes)
+    out = {}
+    for n in nodes:
+        diff = float(np.abs(got[n] - want[n]).max())
+        spread = float(np.abs(moved[n] - want[n]).max())
+        scale = float(np.abs(want[n]).max())
+        log(f"{what} {n}: cuda vs cpu {diff:.4g}, one ulp of input "
+            f"{spread:.4g} on the cpu (x{diff / max(spread, 1e-30):.3f}), "
+            f"largest |value| {scale:.4g}")
+        if not (np.isfinite(got[n]).all() and spread > 0
+                and diff <= DNN_SPREAD_FACTOR * spread):
+            raise AssertionError(f"{what} {n}: cuda vs cpu {diff} against "
+                                 f"{DNN_SPREAD_FACTOR} x spread {spread}")
+        out[n] = {"diff": diff, "spread": spread, "scale": scale}
+    return out
+
+
+def phase_dnn_models(card, x) -> tuple:
+    """17a: ResNet-50 (``builtin://``, the port's draws) in f32 and bf16
+    over ``x``; the rest of the catalog cuda against cpu. Returns the
+    record and the two lanes' models."""
+    dl = ModelDownloader(DNN_DIR)
+    t0 = time.perf_counter()
+    for name in ("ResNet50",) + DNN_OTHER_MODELS:
+        dl.download_model(name)
+    mat_s = time.perf_counter() - t0
+    f32 = DNNModel.from_downloader(DNN_DIR, "ResNet50", device="cuda")
+    spec = dict(f32.apply_spec)
+    spec["config"] = dict(spec["config"], dtype="bfloat16")
+    models = {"f32": f32, "bf16": DNNModel(f32.params, apply_spec=spec,
+                                           device="cuda")}
+    log(f"== phase 17a: DNNModel(builtin://ResNet50) at {len(x):,} x 224 x "
+        f"224 x 3, miniBatchSize {DNN_BATCH}, f32 and bf16 (the catalog "
+        f"materialized in {mat_s:.2f} s)")
+    out = {"materialize_s": mat_s}
+    xc = x[:DNN_CHECK_IMAGES]
+    for lane, m in models.items():
+        m.set(inputCol="x", outputCol="feat", outputNode="pool",
+              miniBatchSize=DNN_BATCH)
+        m.transform(Dataset({"x": x[:2 * DNN_BATCH]}))       # warm
+        torch.cuda.reset_peak_memory_stats()
+        feats, s = timed(lambda: m.transform(Dataset({"x": x}))["feat"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if feats.shape != (len(x), 2048) or not np.isfinite(feats).all():
+            raise AssertionError(f"17a {lane}: features {feats.shape}, "
+                                 "not all finite")
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("17a: the forward left TF32 off")
+        dev = torch.device("cuda")
+        fwd, params = m._forward("pool"), m._params_on(dev)
+        xb = torch.from_numpy(x[:DNN_BATCH]).to(dev)
+
+        def batch():
+            with torch.inference_mode(), exact_f32(dev):
+                fwd(params, xb)
+        batch_ms = time_ms(batch, reps=10)
+        log(f"{lane}: {len(x) / s:,.0f} images/s warm ({s:.3f} s), "
+            f"{batch_ms:.3f} device ms a {DNN_BATCH}-image batch "
+            f"({DNN_BATCH / batch_ms * 1e3:,.0f} images/s), peak "
+            f"{peak:.3f} GiB; {card}")
+        check = cuda_vs_cpu(m, xc, lane, ("logits", "pool"),
+                            f"17a ResNet50 {lane}")
+        out[lane] = {"images_per_s": len(x) / s, "seconds": s,
+                     "batch_ms": batch_ms, "peak_gib": peak, "check": check}
+    # what the scope keeps out: the same forward with cuDNN's default TF32
+    with torch.inference_mode():
+        raw = apply_cnn(models["f32"]._params_on(torch.device("cuda")),
+                        torch.from_numpy(xc).cuda(),
+                        models["f32"].apply_fn.cfg)[0].float().cpu().numpy()
+    tf32 = float(np.abs(raw - fetch_on(models["f32"], xc, "cpu",
+                                       ("logits",))["logits"]).max())
+    log(f"the f32 forward outside exact_f32 (cuDNN's TF32 on): logits "
+        f"{tf32:.4g} from the cpu's; inside: {out['f32']['check']['logits']['diff']:.4g}")
+    out["tf32_logits_diff"] = tf32
+    for name in DNN_OTHER_MODELS:
+        m = DNNModel.from_downloader(DNN_DIR, name)
+        node = "fc7" if name == "AlexNet" else "pool"
+        out[name] = cuda_vs_cpu(m, xc, "f32", ("logits", node),
+                                f"17a {name}")
+    return out, models
+
+
+def with_nones(imgs, labels, seed):
+    """``imgs`` with ``FEAT_NONE_SHARE`` of None rows put among them (label
+    -1)."""
+    rng = np.random.default_rng(seed)
+    n_none = int(round(len(imgs) * FEAT_NONE_SHARE))
+    at = set(rng.choice(len(imgs) + n_none, n_none, replace=False).tolist())
+    col, lab, it = [], [], iter(zip(imgs, labels))
+    for i in range(len(imgs) + n_none):
+        if i in at:
+            col.append(None)
+            lab.append(-1)
+        else:
+            img, y = next(it)
+            col.append(img)
+            lab.append(y)
+    return col, np.asarray(lab)
+
+
+def phase_featurizer(card, models, imgs, labels) -> tuple:
+    """17b: ``ImageFeaturizer`` (resize -> normalize -> ResNet-50 pool) on
+    ragged uint8 pictures with 1% None rows, both lanes; the f32 lane's time
+    split into its stages. Returns the record and the f32 features."""
+    col, lab = with_nones(imgs, labels, seed=172)
+    log(f"== phase 17b: ImageFeaturizer(ResNet50) on {len(imgs):,} ragged "
+        f"uint8 pictures at {IMAGE_SHAPES} and {len(col) - len(imgs)} None "
+        f"rows (bf16 on the first {FEAT_SUBSET:,} pictures)")
+    out, feats = {}, {}
+    at = [i for i, v in enumerate(col) if v is not None]
+    for lane, m in models.items():
+        sub = len(imgs) if lane == "f32" else min(FEAT_SUBSET, len(imgs))
+        upto = at[sub - 1] + 1 if sub < len(imgs) else len(col)
+        ds = Dataset({"img": col[:upto], "label": lab[:upto]})
+        f = ImageFeaturizer(m, input_hw=(224, 224), device="cuda").set(
+            inputCol="img", outputCol="features", miniBatchSize=DNN_BATCH)
+        f.transform(Dataset({"img": imgs[:DNN_BATCH]}))       # warm
+        torch.cuda.reset_peak_memory_stats()
+        res, s = timed(lambda: f.transform(ds))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = res["features"]
+        if (len(res) != sub or got.shape != (sub, 2048)
+                or not np.isfinite(got).all()
+                or not np.array_equal(res["label"], labels[:sub])):
+            raise AssertionError(f"17b {lane}: dropNa kept {len(res)} rows "
+                                 f"of {sub}, features {got.shape}")
+        log(f"{lane}: {sub / s:,.0f} rows/s ({s:.3f} s for {sub:,}), peak "
+            f"{peak:.3f} GiB; {card}")
+        out[lane] = {"rows_per_s": sub / s, "seconds": s, "rows": sub,
+                     "peak_gib": peak}
+        feats[lane] = (f, got)
+    f, got = feats["f32"]
+    n = min(FEAT_SUBSET, len(imgs))
+    valid = Dataset({"img": imgs[:n]})
+    resized, resize_s = timed(lambda: ImageTransformer(device="cuda").set(
+        inputCol="img", outputCol="r").resize(224, 224).transform(valid)["r"])
+    t0 = time.perf_counter()
+    prepped = normalize_image(resized, f.norm_mean, f.norm_std)
+    host_s = time.perf_counter() - t0
+    inner = f._dnn_clone
+    fwd_out, fwd_s = timed(lambda: inner.transform(
+        Dataset({"_img_prepped": prepped}))["features"])
+    if not np.array_equal(fwd_out, got[:n]):
+        raise AssertionError("17b: the stages in turn differ from the "
+                             "featurizer's features")
+    log(f"f32 stages in turn on {n:,} pictures: resize on the device "
+        f"{resize_s:.3f} s ({n / resize_s:,.0f} rows/s, uploads and "
+        f"read-back included), normalize on the host {host_s:.3f} s "
+        f"({n / host_s:,.0f} rows/s), forward {fwd_s:.3f} s "
+        f"({n / fwd_s:,.0f} rows/s)")
+    out["f32"].update(split_rows=n, resize_s=resize_s,
+                      host_normalize_s=host_s, forward_s=fwd_s)
+    head = Dataset({"img": col[:512]})
+    kept = f.copy({}).set(dropNa=False).transform(head)["features"]
+    dropped = f.transform(head)["features"]
+    nones = [i for i, v in enumerate(col[:512]) if v is None]
+    if ([i for i, v in enumerate(kept) if v is None] != nones
+            or not np.array_equal(np.stack([v for v in kept
+                                            if v is not None]), dropped)):
+        raise AssertionError("17b: dropNa=False differs from dropNa=True")
+    log(f"dropNa: {len(col) - len(imgs)} None rows dropped; kept as None at "
+        f"{nones} of the first 512 with the other rows' features equal")
+    return out, got
+
+
+def phase_transfer(card, feats, labels) -> dict:
+    """17c: the pooled features into ``LightGBMClassifier`` (10 rounds, 31
+    leaves): kernel 1 at F=2,048, no plain version; then kernel 1's root
+    and half pass at that width against their plain version, bound and
+    ``index_add_``."""
+    Xtr, ytr = feats[:FEAT_TRAIN], labels[:FEAT_TRAIN].astype(np.float64)
+    Xte, yte = feats[FEAT_TRAIN:], labels[FEAT_TRAIN:]
+    log(f"== phase 17c: LightGBMClassifier on {len(Xtr):,} x "
+        f"{Xtr.shape[1]:,} pooled features, {DNN_CLASSES} classes, holdout "
+        f"{len(Xte):,}")
+    est = LightGBMClassifier(numIterations=10, numLeaves=31, device="cuda")
+    gbdt_api.clear_binned_dataset_cache()
+    torch.cuda.synchronize()
+    reset_counts()
+    model, fit_s = timed(lambda: est.fit(Dataset({"features": Xtr,
+                                                  "label": ytr})))
+    pred = model.transform(Dataset({"features": Xte})).array("prediction")
+    counts = read_counts()
+    acc = float((pred == yte).mean())
+    log(f"fit {fit_s:.3f} s, holdout accuracy {acc:.5f} (floor "
+        f"{DNN_ACCURACY_FLOOR}, majority "
+        f"{np.bincount(yte).max() / len(yte):.5f}); launches {counts}; "
+        f"{card}")
+    if counts["node_hist_bf16"] <= 0 or counts["plain"] != 0:
+        raise AssertionError(f"17c: kernel 1 must launch and no plain "
+                             f"version run: {counts}")
+    if not acc > DNN_ACCURACY_FLOOR:
+        raise AssertionError(f"17c: accuracy {acc} <= {DNN_ACCURACY_FLOOR}")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    F = feats.shape[1]
+    rows = {}
+    for n, W in DNN_HIST_ROWS:
+        b32, pos, base = hist_inputs(gen, n, F, W, 255)
+        binned = b32.to(torch.uint8)
+        want = node_hist_plain(binned, pos, base, W, 255)
+        got = hist_ops.node_histogram(binned, pos, base, W, 255)
+        torch.cuda.synchronize()
+        err = check_hist(got, want)
+        key = (n, W, 255, "uint8", F)
+        r = node_row(lambda: hist_ops.node_histogram(binned, pos, base, W,
+                                                     255),
+                     lambda: node_hist_plain(binned, pos, base, W, 255),
+                     binned, pos, base, W, 255, cold=True)
+        rows[f"n={n} W={W}"] = dict(r, max_abs_err=err)
+        log_row(f"node_hist F={F}", key, r, f"max_abs_err {err:.3g}")
+        del b32, binned, pos, base, want, got
+    return {"counts": counts, "fit_s": fit_s, "accuracy": acc,
+            "kernel_rows": rows}
+
+
+def write_jpegs(imgs, path) -> None:
+    from PIL import Image
+    os.makedirs(path, exist_ok=True)
+    for i, img in enumerate(imgs):
+        Image.fromarray(img).save(os.path.join(path, f"img{i:05d}.jpg"),
+                                  quality=90)
+    with open(os.path.join(path, "img99999.jpg"), "wb") as f:
+        f.write(b"not a picture")
+
+
+def phase_dnn_streaming(card, models, x, imgs) -> dict:
+    """17d: ``stream_transform`` over ``.npy`` shards and
+    ``stream_featurize_images`` over a directory of JPEG files (one
+    corrupt), each bit-equal to its in-memory run on the card."""
+    import PIL
+    log(f"== phase 17d: streamed scoring; PIL {PIL.__version__}")
+    root = os.path.join(DNN_DIR, "stream")
+    shutil.rmtree(root, ignore_errors=True)
+    m = models["f32"]
+    xs = x[:STREAM_ROWS]
+    write_shards([xs[:400], xs[400:401], xs[401:]], os.path.join(root, "x"))
+    want = m.transform(Dataset({"x": xs}))["feat"]
+    got, s = timed(lambda: stream_transform(m, os.path.join(root, "x"),
+                                            chunk_rows=STREAM_CHUNK))
+    if not np.array_equal(got, want):
+        raise AssertionError("17d: stream_transform differs from transform: "
+                             f"{float(np.abs(got - want).max())}")
+    log(f"stream_transform: {STREAM_ROWS:,} rows in chunks of "
+        f"{STREAM_CHUNK} over 3 shards, {STREAM_ROWS / s:,.0f} rows/s, "
+        "bit-equal to transform")
+    t0 = time.perf_counter()
+    write_jpegs(imgs[:STREAM_FILES], os.path.join(root, "imgs"))
+    enc_s = time.perf_counter() - t0
+    f = ImageFeaturizer(m, input_hw=(224, 224), device="cuda").set(
+        inputCol="img", outputCol="features", miniBatchSize=DNN_BATCH)
+    (paths, feats), s2 = timed(lambda: stream_featurize_images(
+        f, os.path.join(root, "imgs"), batch_files=STREAM_BATCH_FILES))
+    decoded = []
+    for p in paths:
+        with open(p, "rb") as fh:
+            decoded.append(decode_image(fh.read()))
+    mem = f.transform(Dataset({"img": decoded}))["features"]
+    if len(paths) != STREAM_FILES or not np.array_equal(feats, mem):
+        raise AssertionError(f"17d: {len(paths)} files featurized; streamed "
+                             "features differ from in-memory ones")
+    log(f"stream_featurize_images: {STREAM_FILES} JPEGs (encoded in "
+        f"{enc_s:.2f} s) and one corrupt file, batches of "
+        f"{STREAM_BATCH_FILES}: {STREAM_FILES / s2:,.0f} files/s, the corrupt "
+        "file skipped, features bit-equal to the in-memory featurizer's")
+    return {"stream_transform_rows_per_s": STREAM_ROWS / s,
+            "stream_featurize_files_per_s": STREAM_FILES / s2}
+
+
+def phase_lime(card, models, x) -> dict:
+    """17e: ``ImageLIME`` over the ResNet-50 ``DNNModel`` at its defaults
+    on 224 x 224 pictures: s per explanation (the inner model's transforms
+    timed apart), the coefficients cuda against cpu on one picture."""
+    def inner(dev):
+        m = models["f32"].cloned_with_shared_params().set(
+            inputCol="img", outputCol="probability", outputNode="logits",
+            miniBatchSize=DNN_BATCH, device=dev)
+        spent = [0.0]
+        scored = m.transform
+
+        def transform(ds):
+            out, s = timed(lambda: scored(ds))
+            spent[0] += s
+            return out
+        m.transform = transform
+        return m, spent
+
+    imgs = list(x[:LIME_IMAGES])
+    lime_cuda, dev_s = inner("cuda")
+    log(f"== phase 17e: ImageLIME(DNNModel ResNet50) at its defaults on "
+        f"{LIME_IMAGES} pictures of 224 x 224")
+    out, s = timed(lambda: ImageLIME(model=lime_cuda).set(
+        inputCol="img", outputCol="w").transform(Dataset({"img": imgs})))
+    per = s / LIME_IMAGES
+    dev_per = dev_s[0] / LIME_IMAGES
+    coefs = out["w"]
+    lime_cpu, _ = inner("cpu")
+    t0 = time.perf_counter()
+    want = ImageLIME(model=lime_cpu).set(inputCol="img", outputCol="w"
+                                         ).transform(
+        Dataset({"img": imgs[:1]}))["w"][0]
+    cpu_s = time.perf_counter() - t0
+    diff = float(np.abs(coefs[0] - want).max())
+    scale = float(np.abs(want).max())
+    log(f"{per:.3f} s an explanation: the DNNModel's transforms {dev_per:.3f}"
+        f" s (1,000 masked pictures, upload and read-back included), the "
+        f"host {per - dev_per:.3f} s (superpixels, masks, lasso); "
+        f"{len(coefs[0])} superpixels; coefficients cuda vs cpu {diff:.4g} "
+        f"of largest {scale:.4g} (the cpu's explanation {cpu_s:.1f} s); "
+        f"{card}")
+    if not (all(np.isfinite(c).all() for c in coefs) and scale > 0
+            and diff <= LIME_COEF_RTOL * scale):
+        raise AssertionError(f"17e: coefficients cuda vs cpu {diff} > "
+                             f"{LIME_COEF_RTOL} x {scale}")
+    return {"s_per_explanation": per, "device_s": dev_per,
+            "host_s": per - dev_per, "coef_diff": diff, "coef_scale": scale,
+            "cpu_explanation_s": cpu_s}
+
+
+def phase_digits(card) -> dict:
+    """17f: the DigitsConvNet fixture: pinned hash, then logits cuda
+    against cpu on 32 x 32 inputs."""
+    import hashlib
+    from mmlspark_tpu_torch.models.dnn.downloader import _TRAINED_FIXTURES
+    log("== phase 17f: the DigitsConvNet fixture")
+    shutil.rmtree(os.path.join(DNN_DIR, "DigitsConvNet"), ignore_errors=True)
+    schema = ModelDownloader(DNN_DIR).download_model("DigitsConvNet")
+    with open(os.path.join(DNN_DIR, "DigitsConvNet", "model.pkl"),
+              "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    pinned = _TRAINED_FIXTURES["DigitsConvNet"]["sha256"]
+    if not schema.sha256 == digest == pinned:
+        raise AssertionError(f"17f: fixture hash {digest} != {pinned}")
+    m = DNNModel.from_downloader(DNN_DIR, "DigitsConvNet")
+    x = np.random.default_rng(18).uniform(-1, 1, (DIGITS_ROWS, 32, 32, 3)
+                                          ).astype(np.float32)
+    check = cuda_vs_cpu(m, x, "f32", ("logits",), "17f DigitsConvNet")
+    return {"sha256": digest, "check": check}
+
+
+def phase_dnn(card) -> dict:
+    """Phase 17: 17a-17f, with cuDNN's TF32 at PyTorch's default (on): the
+    port's f32 forward must turn it off itself. The histogram counts are
+    reset before 17a and read after 17c's fit: kernel 1 only, no plain
+    version; 17d-17f launch none."""
+    t0 = time.perf_counter()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = preprocessed(DNN_LANE_IMAGES, seed=17)
+        imgs, labels = dnn_images(FEAT_TRAIN + FEAT_HOLDOUT, seed=171)
+        log(f"phase 17 data: {time.perf_counter() - t0:.1f} s on the host")
+        torch.cuda.synchronize()
+        reset_counts()
+        out = {"data_s": time.perf_counter() - t0, "sub_s": {}}
+
+        def sub(key, fn):
+            t1 = time.perf_counter()
+            res = fn()
+            out["sub_s"][key] = time.perf_counter() - t1
+            return res
+        out["17a"], models = sub("17a", lambda: phase_dnn_models(card, x))
+        out["17b"], feats = sub("17b", lambda: phase_featurizer(
+            card, models, imgs, labels))
+        out["17c"] = sub("17c", lambda: phase_transfer(card, feats, labels))
+        reset_counts()
+        out["17d"] = sub("17d", lambda: phase_dnn_streaming(card, models, x,
+                                                            imgs))
+        out["17e"] = sub("17e", lambda: phase_lime(card, models, x))
+        out["17f"] = sub("17f", lambda: phase_digits(card))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if any(counts.values()):
+            raise AssertionError(f"17d-17f launched a histogram kernel: "
+                                 f"{counts}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+        shutil.rmtree(DNN_DIR, ignore_errors=True)    # about 1 GB of payloads
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: {out['seconds']:.1f} s (data {out['data_s']:.1f} s, "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in out["sub_s"].items())
+        + f") on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -4882,6 +5419,8 @@ def main() -> int:
     del X, y, Xh, yh, data
     p15 = phase_vw_and_host_stages(card)
     p16 = phase_estimators(card)
+    p17 = phase_dnn(card)
+    fits["17c"] = p17["17c"]
     fits["15e"] = p15.pop("15e")
     for k in ("bf16", "quantized"):
         fits[f"14a_{k}"] = p14["14a"].pop(k)
@@ -4893,7 +5432,8 @@ def main() -> int:
         + "; phase 11: " + json.dumps(p11) + "; phase 12: "
         + json.dumps(p12) + "; phase 13: " + json.dumps(p13)
         + "; phase 14: " + json.dumps(p14) + "; phase 15: "
-        + json.dumps(p15) + "; phase 16: " + json.dumps(p16))
+        + json.dumps(p15) + "; phase 16: " + json.dumps(p16)
+        + "; phase 17: " + json.dumps(p17))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

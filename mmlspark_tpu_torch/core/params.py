@@ -161,13 +161,16 @@ class Params:
         return self
 
     def extract_param_map(self) -> Dict[str, Any]:
-        out = {p.name: p.default for p in self.params() if p.default is not None}
+        # through the class: a stage may hold an instance attribute named
+        # ``params`` (DNNModel's param tree)
+        out = {p.name: p.default for p in type(self).params()
+               if p.default is not None}
         out.update(self._paramMap)
         return out
 
     def explain_params(self) -> str:
         lines = []
-        for p in sorted(self.params(), key=lambda p: p.name):
+        for p in sorted(type(self).params(), key=lambda p: p.name):
             cur = self.get_or_default(p.name)
             lines.append(f"{p.name}: {p.doc} (default: {p.default!r}, current: {cur!r})")
         return "\n".join(lines)

@@ -61,6 +61,8 @@ setup(
         "mmlspark_tpu.models.dnn": ["fixtures/*.npz"],
         # the port's CUDA kernel sources, built with nvcc at first use
         "mmlspark_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        # the port's copy of the trained fixture (package:// repo)
+        "mmlspark_tpu_torch.models.dnn": ["fixtures/*.npz"],
     },
     cmdclass={"build_py": build_py_with_native},
 )

@@ -24,12 +24,15 @@ from mmlspark_tpu_torch.core.dataset import Dataset
 from mmlspark_tpu_torch.core.fuzzing import (TestObject, discover_stages,
                                              experiment_fuzz,
                                              serialization_fuzz)
-from mmlspark_tpu_torch.core.pipeline import Lambda, Pipeline
+from mmlspark_tpu_torch.core.pipeline import Lambda, Pipeline, Transformer
 from mmlspark_tpu_torch.cyber import anomaly, complement
 from mmlspark_tpu_torch.cyber import feature as cfeat
+from mmlspark_tpu_torch.explain import lime
 from mmlspark_tpu_torch.featurize import core as fcore
 from mmlspark_tpu_torch.featurize import text as ftext
+from mmlspark_tpu_torch.image import ops as image
 from mmlspark_tpu_torch.models import isolation_forest as iforest
+from mmlspark_tpu_torch.models.dnn import cnn, scoring
 from mmlspark_tpu_torch.models.gbdt import api as gbdt
 from mmlspark_tpu_torch.models.vw import api as vw
 from mmlspark_tpu_torch.models.vw import bandit, featurizer
@@ -140,6 +143,46 @@ CYBER = Dataset({"tenant": ["t0"] * 12 + ["t1"] * 12,
                  "user": [f"u{i % 4}" for i in range(24)],
                  "res": [f"r{i % 3}" for i in range(24)],
                  "likelihood": np.abs(_rng.normal(size=24)) + 1.0})
+
+
+IMG = Dataset({"img": [_rng.integers(0, 255, (16, 16, 3)).astype(np.uint8)
+                       for _ in range(4)],
+               "label": np.arange(4.0)})
+TEXT = Dataset({"text": ["a good movie", "a bad movie", "the plot was thin"]})
+
+
+def _png(arr):
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+class _ProbeModel(Transformer):
+    """An inner model for the LIME stages (module level, so picklable)."""
+
+    def transform(self, ds: Dataset) -> Dataset:
+        if "features" in ds:
+            score = np.asarray([float(np.sum(v)) for v in ds["features"]])
+        else:
+            score = np.asarray([float(len(str(t))) for t in ds["text"]])
+        return ds.with_column("probability", score)
+
+
+class _ImgProbeModel(Transformer):
+    def transform(self, ds: Dataset) -> Dataset:
+        return ds.with_column("probability", np.asarray(
+            [float(np.mean(np.asarray(v, np.float32))) for v in ds["img"]]))
+
+
+_CNN = cnn.CNNConfig(num_classes=3, stage_sizes=(1,), width=4,
+                     input_hw=(16, 16))
+_SPEC = {"kind": "cnn", "config": {"num_classes": 3, "stage_sizes": (1,),
+                                   "width": 4, "input_hw": (16, 16)}}
+DNN = scoring.DNNModel(cnn.init_cnn_params(_CNN,
+                                           torch.Generator().manual_seed(0)),
+                       apply_spec=_SPEC, device="cpu")
 
 
 def _double(v):
@@ -281,6 +324,31 @@ REGISTRY = [
     TestObject(cfeat.LinearScalarScaler("likelihood", "tenant", "out", 1.0,
                                         2.0),
                CYBER, produces=[cfeat.LinearScalarScalerModel]),
+    TestObject(lime.TabularLIME(model=_ProbeModel(), inputCol="features",
+                                outputCol="weights", nSamples=40), TAB,
+               trans_ds=TAB.head(2), produces=[lime.TabularLIMEModel]),
+    TestObject(lime.TextLIME(model=_ProbeModel(), inputCol="text",
+                             outputCol="weights", nSamples=30), TEXT.head(1)),
+    TestObject(lime.ImageLIME(model=_ImgProbeModel(), inputCol="img",
+                              outputCol="weights", nSamples=8, cellSize=8.0),
+               IMG.head(1)),
+    TestObject(lime.SuperpixelTransformer(inputCol="img", outputCol="sp",
+                                          cellSize=8.0), IMG),
+    TestObject(image.ImageTransformer(inputCol="img", outputCol="out",
+                                      device="cpu").resize(8, 8), IMG),
+    TestObject(image.ResizeImageTransformer(inputCol="img", outputCol="out",
+                                            height=8, width=8, device="cpu"),
+               IMG),
+    TestObject(image.UnrollImage(inputCol="img", outputCol="u"), IMG),
+    TestObject(image.ImageSetAugmenter(inputCol="img", outputCol="img"), IMG),
+    TestObject(image.DecodeImage(inputCol="bytes", outputCol="img"),
+               Dataset({"bytes": [_png(v) for v in IMG["img"]] + [b"bad"]})),
+    TestObject(DNN.copy({}).set(inputCol="x", outputCol="f",
+                                outputNode="pool", miniBatchSize=3),
+               Dataset({"x": _rng.normal(size=(5, 16, 16, 3)).astype(
+                   np.float32)})),
+    TestObject(scoring.ImageFeaturizer(DNN, input_hw=(16, 16), device="cpu")
+               .set(inputCol="img", outputCol="f", miniBatchSize=3), IMG),
     TestObject(train.ComputeModelStatistics(), SCORED),
     TestObject(train.ComputePerInstanceStatistics(), SCORED),
     TestObject(train.TrainClassifier(model=gbdt.LightGBMClassifier(**GB),

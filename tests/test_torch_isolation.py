@@ -8,7 +8,8 @@
     ``tools/ab_node_hist.py``, ``tools/node_hist_sweeps.py``,
     ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``,
     ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``,
-    ``tools/chip_phase16.py``), imports either.
+    ``tools/chip_phase16.py``, ``tools/chip_phase17.py``,
+    ``tools/dnn_tolerances.py``), imports either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -23,6 +24,10 @@
     ``ConditionalKNN``, ``SAR``, ``AccessAnomaly``), their models and
     ``als_fit`` default to ``cuda`` and raise without a GPU; they run with
     ``device="cpu"``.
+  * The stages of slice 15 with device work (``ImageTransformer``,
+    ``ResizeImageTransformer``, ``DNNModel``, ``ImageFeaturizer``) and
+    ``resize_image``/``blur_image`` default to ``cuda`` and raise without a
+    GPU; they run with ``device="cpu"``.
   * The port's test files lint clean under ``tools.graftlint``.
 """
 
@@ -132,6 +137,24 @@ SLICE_14_MODULES = (
 )
 
 
+#: the DNN scoring path: image ops, the CNN catalog, DNNModel and
+#: ImageFeaturizer, the model repository, binary files, streamed
+#: featurizing (in io.streaming) and LIME
+SLICE_15_MODULES = (
+    "mmlspark_tpu_torch.io.binary",
+    "mmlspark_tpu_torch.image",
+    "mmlspark_tpu_torch.image.ops",
+    "mmlspark_tpu_torch.models.dnn",
+    "mmlspark_tpu_torch.models.dnn.cnn",
+    "mmlspark_tpu_torch.models.dnn.convert",
+    "mmlspark_tpu_torch.models.dnn.digits_fixture",
+    "mmlspark_tpu_torch.models.dnn.downloader",
+    "mmlspark_tpu_torch.models.dnn.scoring",
+    "mmlspark_tpu_torch.explain",
+    "mmlspark_tpu_torch.explain.lime",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
@@ -144,6 +167,7 @@ def test_importing_the_port_loads_no_jax():
     assert set(SERVING_MODULES) <= set(mods)
     assert set(SLICE_13_MODULES) <= set(mods)
     assert set(SLICE_14_MODULES) <= set(mods)
+    assert set(SLICE_15_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -197,11 +221,13 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "ab_predict.py"),
              os.path.join(ROOT, "tools", "multi_card_fit.py"),
              os.path.join(ROOT, "tools", "chip_phase15.py"),
-             os.path.join(ROOT, "tools", "chip_phase16.py")]
+             os.path.join(ROOT, "tools", "chip_phase16.py"),
+             os.path.join(ROOT, "tools", "chip_phase17.py"),
+             os.path.join(ROOT, "tools", "dnn_tolerances.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:9])
+    assert all(os.path.isfile(p) for p in paths[:11])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):
@@ -217,7 +243,7 @@ def test_no_source_imports_jax_or_the_jax_package():
               os.path.join("parallel", "placement.py"),
               os.path.join("utils", "stopwatch.py")):
         assert os.path.join(PKG, f) in paths
-    for mod in SLICE_13_MODULES + SLICE_14_MODULES:
+    for mod in SLICE_13_MODULES + SLICE_14_MODULES + SLICE_15_MODULES:
         rel = mod.split(".", 1)[1].replace(".", os.sep)
         assert (os.path.join(PKG, rel + ".py") in paths
                 or os.path.join(PKG, rel, "__init__.py") in paths), mod
@@ -423,6 +449,38 @@ def test_slice_14_entry_points_default_to_cuda_and_raise(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         als_fit(np.arange(4), np.arange(4), np.ones(4), 4, 4, 2, 1, 1.0,
                 True, 1.0)
+
+
+def test_slice_15_entry_points_default_to_cuda_and_raise(no_gpu):
+    from mmlspark_tpu_torch.image import (ImageTransformer,
+                                          ResizeImageTransformer, blur_image,
+                                          resize_image)
+    from mmlspark_tpu_torch.models.dnn import (CNNConfig, DNNModel,
+                                              ImageFeaturizer,
+                                              init_cnn_params)
+    img = np.random.default_rng(0).integers(0, 256, (12, 10, 3)).astype(
+        np.uint8)
+    cfg = CNNConfig(num_classes=3, stage_sizes=(1,), width=4,
+                    input_hw=(8, 8))
+    spec = {"kind": "cnn", "config": {"num_classes": 3, "stage_sizes": (1,),
+                                      "width": 4, "input_hw": (8, 8)}}
+    dnn = DNNModel(init_cnn_params(cfg, torch.Generator().manual_seed(0)),
+                   apply_spec=spec).set(inputCol="x", outputNode="pool")
+    ds = Dataset({"img": [img], "x": np.zeros((1, 8, 8, 3), np.float32)})
+    stages = (ImageTransformer().set(inputCol="img").resize(8, 8),
+              ResizeImageTransformer().set(inputCol="img", outputCol="r",
+                                           height=8, width=8),
+              dnn,
+              ImageFeaturizer(dnn, input_hw=(8, 8)).set(inputCol="img"))
+    for stage in stages:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            stage.transform(ds)
+        assert len(stage.set(device="cpu").transform(ds)) == 1
+    for fn in (lambda: resize_image(img, 4, 4),
+               lambda: blur_image(img.astype(np.float32))):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            fn()
+    assert resize_image(img, 4, 4, device="cpu").shape == (4, 4, 3)
 
 
 def test_murmur_raises_when_the_native_build_fails(monkeypatch):

@@ -7,6 +7,12 @@ loader's exception reaches the consumer in order. ``predict_streamed`` and
 ``predict_contrib_streamed`` over ``.npy`` shards equal their in-memory
 calls bit for bit, and the scores equal the JAX package's streamed scores
 of the same forest (carried over with ``booster_from_jax_arrays``).
+``stream_transform`` of a ``DNNModel`` over ``.npy`` shards and
+``stream_featurize_images`` over a directory of PNG files (one of them
+corrupt, skipped) equal the in-memory ``transform`` bit for bit, and the
+JAX package's streamed features within the featurizer's tolerance (1e-4
+of their largest magnitude: the resize's 1e-3 on 0..255, scaled by the
+normalization, then the forward's f32 order).
 """
 
 import os
@@ -23,7 +29,17 @@ from mmlspark_tpu.models.gbdt.booster import train_booster as jtrain
 from mmlspark_tpu.models.gbdt.growth import GrowConfig as JGrowConfig
 from mmlspark_tpu.parallel.mesh import make_mesh
 from mmlspark_tpu_torch.io.prefetch import iter_prefetched, prefetch_enabled
-from mmlspark_tpu_torch.io.streaming import _ChunkAccumulator, stream_apply
+from mmlspark_tpu.io import streaming as jstreaming
+from mmlspark_tpu.models.dnn import cnn as Jcnn
+from mmlspark_tpu.models.dnn.scoring import DNNModel as JDNNModel
+from mmlspark_tpu.models.dnn.scoring import ImageFeaturizer as JFeaturizer
+from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.image.ops import decode_image
+from mmlspark_tpu_torch.io.streaming import (_ChunkAccumulator, stream_apply,
+                                             stream_featurize_images,
+                                             stream_transform)
+from mmlspark_tpu_torch.models.dnn.convert import dnn_model_from_jax
+from mmlspark_tpu_torch.models.dnn.scoring import ImageFeaturizer
 from mmlspark_tpu_torch.models.gbdt.convert import booster_from_jax_arrays
 from mmlspark_tpu_torch.models.gbdt.ingest import write_shards
 
@@ -162,3 +178,90 @@ def test_predict_contrib_streamed_checks_method_first(setup, tmp_path):
         tb.predict_contrib_streamed(str(d / "x"), method="lime",
                                     out_dir=str(out), device="cpu")
     assert os.listdir(out) == ["part-00000.npy"]
+
+
+FEATURE_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def dnn_pair():
+    cfg = Jcnn.CNNConfig(num_classes=4, stage_sizes=(1, 1), width=4,
+                         input_hw=(16, 16))
+    params = jax.tree_util.tree_map(
+        np.asarray, Jcnn.init_cnn_params(cfg, jax.random.PRNGKey(3)))
+    spec = {"kind": "cnn", "config": {
+        "num_classes": 4, "stage_sizes": (1, 1), "width": 4,
+        "block": "basic", "input_hw": (16, 16)}}
+    jm = JDNNModel(params, apply_spec=spec).set(
+        inputCol="x", outputCol="y", outputNode="pool", miniBatchSize=8)
+    return jm, dnn_model_from_jax(jm, device="cpu")
+
+
+def _close(got, want, rtol):
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rtol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("chunk_rows", [16, 13])
+def test_stream_transform_dnn_equals_in_memory(dnn_pair, tmp_path,
+                                               chunk_rows):
+    jm, tm = dnn_pair
+    x = np.random.default_rng(4).normal(size=(45, 16, 16, 3)).astype(
+        np.float32)
+    write_shards([x[:20], x[20:21], x[21:]], tmp_path / "x")
+    got = stream_transform(tm, str(tmp_path / "x"), chunk_rows=chunk_rows)
+    np.testing.assert_array_equal(got, tm.transform(Dataset({"x": x}))["y"])
+    paths = stream_transform(tm, str(tmp_path / "x"), chunk_rows=chunk_rows,
+                             out_dir=str(tmp_path / "out"))
+    np.testing.assert_array_equal(
+        np.concatenate([np.load(p) for p in paths]), got)
+    want = jstreaming.stream_transform(jm, str(tmp_path / "x"),
+                                       chunk_rows=chunk_rows)
+    _close(got, want, FEATURE_RTOL)
+
+
+def _png(arr):
+    from PIL import Image
+    import io as _io
+    buf = _io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("batch_files", [4, 64])
+def test_stream_featurize_images_equals_in_memory(dnn_pair, tmp_path,
+                                                  batch_files):
+    jm, tm = dnn_pair
+    rng = np.random.default_rng(5)
+    d = tmp_path / "imgs"
+    (d / "sub").mkdir(parents=True)
+    names = []
+    for i in range(11):
+        h, w = [(30, 24), (24, 30), (17, 19)][i % 3]
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        name = d / ("sub" if i % 4 == 0 else "") / f"im{i:02d}.png"
+        name.write_bytes(_png(img))
+        names.append(name)
+    (d / "im99.png").write_bytes(b"not a png")           # skipped
+    kw = dict(inputCol="img", outputCol="f", miniBatchSize=4)
+    tf = ImageFeaturizer(tm, input_hw=(16, 16), device="cpu").set(**kw)
+    paths, feats = stream_featurize_images(tf, str(d),
+                                           batch_files=batch_files)
+    assert len(paths) == 11 and not any(p.endswith("im99.png")
+                                        for p in paths)
+    imgs = [decode_image(open(p, "rb").read()) for p in paths]
+    want = tf.transform(Dataset({"img": imgs}))["f"]
+    np.testing.assert_array_equal(feats, want)
+    kept, shards = stream_featurize_images(tf, str(d),
+                                           batch_files=batch_files,
+                                           out_dir=str(tmp_path / "o"))
+    assert kept == paths
+    np.testing.assert_array_equal(
+        np.concatenate([np.load(p) for p in shards]), feats)
+    jf = JFeaturizer(jm, input_hw=(16, 16)).set(**kw)
+    jpaths, jfeats = jstreaming.stream_featurize_images(
+        jf, str(d), batch_files=batch_files)
+    assert list(jpaths) == list(paths)
+    _close(feats, jfeats, FEATURE_RTOL)
+    with pytest.raises(ValueError, match="batch_files"):
+        stream_featurize_images(tf, str(d), batch_files=0)

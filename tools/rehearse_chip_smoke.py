@@ -9,6 +9,8 @@
     python tools/rehearse_chip_smoke.py p15 [--vw-rows 200000 --events 2000]
     python tools/rehearse_chip_smoke.py p16 [--higgs-rows 200000
         --sift-base 100000 --aa-scale 0.25]
+    python tools/rehearse_chip_smoke.py p17 [--dnn-images 256
+        --feat-rows 1024 --lime-images 1]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -49,7 +51,13 @@ TrainClassifier on the Adult-shaped rows and the text chain — every
 ``--sift-base`` sift-shaped rows and a hundredth of that as queries
 (at least 100), SAR at MovieLens-1M's full size, AccessAnomaly on
 departments scaled by ``--aa-scale``; the cuda-against-cpu checks again
-compare the CPU with itself). The plain
+compare the CPU with itself), ``p17`` (phase 17: ResNet-50 over
+``--dnn-images`` preprocessed images per lane, the catalog, the
+featurizer over ``--feat-rows`` pictures, three quarters of them training
+the GBDT head, kernel 1's rows at that head's width, streamed scoring over
+a quarter of the images and 64 JPEG files, ImageLIME at its defaults on
+``--lime-images`` pictures, the DigitsConvNet fixture; the f32 lane's
+spread holds compare the CPU with itself). The plain
 versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
@@ -231,17 +239,36 @@ def phase_estimators(mod, higgs_rows: int, sift_base: int,
     return mod.phase_estimators("CPU rehearsal, no card")
 
 
+def phase_dnn(mod, dnn_images: int, feat_rows: int, lime_images: int
+              ) -> dict:
+    """Phase 17 at ``dnn_images`` images per lane, ``feat_rows`` featurized
+    pictures and ``lime_images`` explained pictures."""
+    mod.DNN_LANE_IMAGES = dnn_images
+    mod.FEAT_TRAIN = feat_rows * 3 // 4
+    mod.FEAT_HOLDOUT = feat_rows - mod.FEAT_TRAIN
+    mod.FEAT_SUBSET = feat_rows // 4
+    mod.DNN_HIST_ROWS = ((mod.FEAT_TRAIN, 1), (mod.FEAT_TRAIN // 2, 8))
+    mod.STREAM_ROWS, mod.STREAM_CHUNK = dnn_images // 4, 100
+    mod.STREAM_FILES, mod.STREAM_BATCH_FILES = 64, 32
+    mod.LIME_IMAGES = lime_images
+    return mod.phase_dnn("CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
-                             "p11", "p12", "p13", "p14", "p15", "p16"])
+                             "p11", "p12", "p13", "p14", "p15", "p16",
+                             "p17"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     ap.add_argument("--vw-rows", type=int, default=200_000)
     ap.add_argument("--events", type=int, default=2_000)
     ap.add_argument("--sift-base", type=int, default=100_000)
     ap.add_argument("--aa-scale", type=float, default=0.25)
+    ap.add_argument("--dnn-images", type=int, default=256)
+    ap.add_argument("--feat-rows", type=int, default=1024)
+    ap.add_argument("--lime-images", type=int, default=1)
     args = ap.parse_args()
     torch.set_num_threads(4)
     mod = load_on_cpu(args.rows, args.higgs_rows)
@@ -255,7 +282,9 @@ def main() -> int:
            "p14": lambda: phase_data_group(mod),
            "p15": lambda: phase_vw(mod, args.vw_rows, args.events),
            "p16": lambda: phase_estimators(mod, args.higgs_rows,
-                                           args.sift_base, args.aa_scale)}
+                                           args.sift_base, args.aa_scale),
+           "p17": lambda: phase_dnn(mod, args.dnn_images, args.feat_rows,
+                                    args.lime_images)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
