@@ -371,6 +371,26 @@ Phases (any failure exits non-zero and prints no result line):
    fixture's pinned hash, its logits on 64 inputs of 32x32 as 17a. 17d-17f
    launch no histogram kernel. ``tools/chip_phase17.py`` runs this phase
    alone.
+18. AutoML and the HTTP stages. 18a: ``TuneHyperparameters`` over the
+   JAX sweep test's grid (``learningRate`` x ``lambdaL2``, 8 trials), 2
+   folds of phase 4's rows, AUC, ``histSubtraction=False``, swept
+   (``parallelism=8``) and sequential: wall s, s a trial fit, the binned
+   cache's hits and misses, kernel 1's launches (counted into the
+   record); histories within ``HISTORY_RTOL`` (kernel 1's float atomics
+   may move the last bits); fold 0's swept trials byte-equal to their
+   sequential fits under ``MMLSPARK_TPU_HIST_BLOCKS=8``; the default
+   config falls back at this row count; the best model's holdout AUC
+   over ``AUC_FLOOR``. 18b: the tuning on ``TUNE_SMALL_ROWS`` rows,
+   cuda against cpu (identical trees, margins 1e-5, histories
+   ``HISTORY_RTOL``), then ``FindBestModel`` over phases 4's and 4b's
+   models and 18a's on phase 4's holdout. 18c: ``SimpleHTTPTransformer``
+   against a ``serving_main`` worker on phase 4b's booster over 20,000
+   holdout rows at concurrency 1 and 16 (replies within 1e-6 of
+   ``predict``; a row of the wrong width in ``errorCol``), through a
+   ``PortForwarder``, and a ``PowerBIWriter`` into a local stub. 18d:
+   the DigitsConvNet payload fetched by ``http://`` (hash pinned, a
+   tampered payload refused), scoring bit-equal to the ``file://`` route.
+   ``tools/chip_phase18.py`` runs this phase alone.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -396,6 +416,10 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch import native
+from mmlspark_tpu_torch.automl.core import (DiscreteHyperParam, FindBestModel,
+                                            GridSpace, TuneHyperparameters,
+                                            evaluate_metric)
+from mmlspark_tpu_torch.automl.sweep import swept_fit
 from mmlspark_tpu_torch.core.dataset import Dataset
 from mmlspark_tpu_torch.cyber import anomaly as anomaly_mod
 from mmlspark_tpu_torch.cyber.anomaly import AccessAnomaly
@@ -403,9 +427,13 @@ from mmlspark_tpu_torch.cyber.dataset import DataFactory
 from mmlspark_tpu_torch.featurize.text import TextFeaturizer
 from mmlspark_tpu_torch.io import serving as serving_mod
 from mmlspark_tpu_torch.io import serving_main
+from mmlspark_tpu_torch.io.http import SimpleHTTPTransformer
+from mmlspark_tpu_torch.io.port_forwarding import PortForwarder
+from mmlspark_tpu_torch.io.powerbi import PowerBIWriter
 from mmlspark_tpu_torch.io.aserve import SlotTable
 from mmlspark_tpu_torch.models.gbdt import api as gbdt_api
-from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassifier,
+from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassificationModel,
+                                                LightGBMClassifier,
                                                 LightGBMRanker,
                                                 LightGBMRegressor,
                                                 _pad_groups)
@@ -1776,7 +1804,7 @@ def phase_sampling(data, base: Booster) -> dict:
 
     # quantized (kernel 2's integer sums do not depend on the order of its
     # atomics): with bf16 stats two uninterrupted fits on the card differ
-    # past 1e-5 in the leaves of ROADMAP Queue 3 item 1, resumed or not
+    # past 1e-5 in the leaves of ROADMAP Queue 3 item 2, resumed or not
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     kw = dict(checkpointDir=CKPT_DIR, checkpointInterval=5,
               baggingFraction=0.8, baggingFreq=1, useQuantizedGrad=True,
@@ -5358,6 +5386,512 @@ def phase_dnn(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: AutoML, and the HTTP stages against the port's own serving
+# ---------------------------------------------------------------------------
+
+P18_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_p18")
+# the JAX package's sweep test grid (tests/test_classic_ml.py): 8 trials
+TUNE_GRID = {"learningRate": [0.05, 0.1, 0.2, 0.4], "lambdaL2": [0.0, 1.0]}
+TUNE_FOLDS = 2
+TUNE_PARAMS = dict(numIterations=10, numLeaves=31, maxBin=255)
+# 18b's rows: a fold trains on 2,000, inside the sweep's envelope (under
+# 8,192 rows). A fold's AUC over 2,000 rows moves 1e-6 when one pair of
+# near-equal margins swaps, and the margins' right-child cancellation
+# grows with the rows (PERF.md, PR 16)
+TUNE_SMALL_ROWS = 4_000
+TUNE_SMALL_LEAF = 100        # phase 5's rule: leaves of 100+ rows at small n
+HISTORY_RTOL = 1e-6
+HTTP_ROWS = 20_000
+HTTP_CONCURRENCY = (1, 16)
+HTTP_BAD_ROWS = 1_000        # the wrong-width check's rows
+HTTP_FORWARD_ROWS = 2_000
+HTTP_ATOL = 1e-6
+POWERBI_BATCH = 1_000
+DIGITS_HTTP_ROWS = 64
+
+
+def tune_space():
+    return GridSpace({k: DiscreteHyperParam(v) for k, v in TUNE_GRID.items()})
+
+
+def fold_train(ds, i=0):
+    """The training rows of ``TuneHyperparameters``' fold ``i``: its
+    split of ``ds``, every fold but ``i`` in order."""
+    folds = ds.split([1.0 / TUNE_FOLDS] * TUNE_FOLDS, seed=0)
+    train = None
+    for j, f in enumerate(folds):
+        if j != i:
+            train = f if train is None else train.union(f)
+    return train
+
+
+class FitClock:
+    """While installed, the wall seconds of every ``train_booster`` call
+    (the sweep's trials and the estimators' fits), each ended by a device
+    synchronize. Nothing else of a fit changes."""
+
+    def __enter__(self):
+        self.seconds = []
+        self._saved = (booster_mod.train_booster, gbdt_api.train_booster)
+        real = self._saved[0]
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            b = real(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return b
+        booster_mod.train_booster = gbdt_api.train_booster = timed
+        return self
+
+    def __exit__(self, *exc):
+        booster_mod.train_booster, gbdt_api.train_booster = self._saved
+
+
+def sweep_against_fits(est, maps, train) -> dict:
+    """Each trial of ``swept_fit`` against ``est.copy(pm).fit`` on the
+    same rows: how many boosters are byte-equal and how many trees have
+    the same structure, and the largest margin difference on the first
+    20,000 rows."""
+    swept = swept_fit(est, maps, train)
+    Xc = train.array("features", np.float32)[:20_000]
+    same_bytes = same_trees = 0
+    worst = 0.0
+    for pm, model in zip(maps, swept):
+        ref = est.copy(pm).fit(train)
+        a, b = model.booster, ref.booster
+        same_bytes += a.model_string() == b.model_string()
+        same_trees += all(np.array_equal(a.trees[f], b.trees[f]) for f in
+                          ("feat", "thr_bin", "left", "right", "is_leaf"))
+        worst = max(worst, margin_diff(a.predict_raw(Xc, device="cuda"),
+                                       b.predict_raw(Xc, device="cuda")))
+    return dict(trials=len(maps), byte_equal=same_bytes,
+                same_structure=same_trees, margin_diff=worst)
+
+
+def phase_tune(data) -> tuple:
+    """18a: ``TuneHyperparameters`` over the 8-trial grid, 2 folds of
+    phase 4's rows, AUC, both routes with ``histSubtraction=False``, on
+    kernel 1: histories within ``HISTORY_RTOL`` (kernel 1 sums with float
+    atomics, so two runs of one fit may differ in the last bits); kernel 1
+    launches and no plain version runs. Fold 0's swept trials against
+    their sequential fits: byte-equal under the deterministic mode
+    (``MMLSPARK_TPU_HIST_BLOCKS=8``), and on kernel 1 read as equal
+    bytes, equal structure and the largest margin difference. The default
+    config falls back at this row count; the best model is over
+    ``AUC_FLOOR`` on the holdout. Returns (readings, fits, the tuned
+    model)."""
+    X, y, Xh, yh = data
+    trials = len(list(tune_space().param_maps()))
+    log(f"== phase 18a: TuneHyperparameters, {trials} trials x "
+        f"{TUNE_FOLDS} folds of {len(y):,} x 28 rows (a fold's fit on "
+        f"{len(y) - len(y) // TUNE_FOLDS:,}; {shown(TUNE_PARAMS)}, "
+        "histSubtraction=False), swept and sequential")
+    est = LightGBMClassifier(histSubtraction=False, device="cuda",
+                             **TUNE_PARAMS)
+    train = Dataset({"features": X, "label": y})
+    out, fits, tuned = {}, {}, {}
+    for route, par in (("swept", trials), ("sequential", 1)):
+        gbdt_api.clear_binned_dataset_cache()
+        gbdt_api.binned_cache_stats(reset=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with FitClock() as clock:
+            tuned[route] = TuneHyperparameters(
+                models=[est], evaluationMetric="AUC", numFolds=TUNE_FOLDS,
+                paramSpace=tune_space(), parallelism=par).fit(train)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        cache = gbdt_api.binned_cache_stats()
+        # the last fit is the best params' refit on every row
+        trial_s = clock.seconds[:-1]
+        if len(trial_s) != trials * TUNE_FOLDS:
+            raise AssertionError(f"18a {route}: {len(trial_s)} trial fits, "
+                                 f"not {trials * TUNE_FOLDS}")
+        if counts["node_hist_bf16"] <= 0 or counts["plain"] != 0:
+            raise AssertionError(f"18a {route}: launches {counts}")
+        t = tuned[route]
+        out[route] = dict(
+            wall_s=wall, trial_fits=len(trial_s),
+            s_per_trial_fit=float(np.mean(trial_s)),
+            trial_fit_s_min=float(np.min(trial_s)),
+            trial_fit_s_max=float(np.max(trial_s)),
+            refit_s=clock.seconds[-1], cache=cache,
+            cv_auc=t.get_or_default("bestMetric"),
+            best_params=t.get_or_default("bestParams"))
+        fits[f"18a_{route}"] = dict(counts=counts, fit_s=wall)
+        log(f"18a {route}: {wall:.3f} s, {len(trial_s)} trial fits "
+            f"{np.mean(trial_s):.3f} s each ({np.min(trial_s):.3f}-"
+            f"{np.max(trial_s):.3f}), refit {clock.seconds[-1]:.3f} s; "
+            f"binned cache {cache}; launches {counts}; CV AUC "
+            f"{t.get_or_default('bestMetric'):.6f} at "
+            f"{t.get_or_default('bestParams')}")
+    hs = tuned["swept"].get_or_default("history")
+    hq = tuned["sequential"].get_or_default("history")
+    rel = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(hs, hq))
+    out["history_rel"] = rel
+    out["history_bit_equal"] = sum(a[2] == b[2] for a, b in zip(hs, hq))
+    if [a[:2] for a in hs] != [b[:2] for b in hq] or rel > HISTORY_RTOL:
+        raise AssertionError(f"18a: the routes' histories differ (rel "
+                             f"{rel}): {hs} != {hq}")
+    # fold 0's swept trials against their sequential fits
+    train0 = fold_train(train)
+    maps = list(tune_space().param_maps())
+    out["kernel1_fold0"] = sweep_against_fits(est, maps, train0)
+    os.environ["MMLSPARK_TPU_HIST_BLOCKS"] = str(HIST_BLOCKS)
+    try:
+        reset_counts()
+        det = sweep_against_fits(est, maps, train0)
+        det["counts"] = read_counts()
+    finally:
+        del os.environ["MMLSPARK_TPU_HIST_BLOCKS"]
+    out["det_fold0"] = det
+    fits["18a_det_fold0"] = dict(counts=det["counts"])
+    if (det["byte_equal"] != len(maps) or det["counts"]["node_hist_det"] <= 0
+            or det["counts"]["node_hist_bf16"] or det["counts"]["plain"]):
+        raise AssertionError(f"18a: under the deterministic mode {det}")
+    default = LightGBMClassifier(device="cuda", **TUNE_PARAMS)
+    if swept_fit(default, maps, train0) is not None:
+        raise AssertionError("18a: the default config swept at "
+                             f"{len(train0):,} rows (subtraction engages)")
+    best = tuned["swept"]
+    probs = best.transform(Dataset({"features": Xh, "label": yh})
+                           ).array("probability")
+    out["holdout_auc"] = auc_of(probs[:, 1], yh)
+    if not out["holdout_auc"] > AUC_FLOOR:
+        raise AssertionError(f"18a: holdout AUC {out['holdout_auc']} <= "
+                             f"{AUC_FLOOR}")
+    k1 = out["kernel1_fold0"]
+    log(f"18a: histories {out['history_bit_equal']} of {len(hs)} bit-equal,"
+        f" within {rel:.3g} relative; fold 0 on kernel 1: {k1['byte_equal']}"
+        f" of {len(maps)} swept trials byte-equal to their sequential fits, "
+        f"{k1['same_structure']} the same structure, margins within "
+        f"{k1['margin_diff']:.3g}; under MMLSPARK_TPU_HIST_BLOCKS="
+        f"{HIST_BLOCKS}: {det['byte_equal']} of {len(maps)} byte-equal "
+        f"({det['counts']['node_hist_det']} node_hist_det launches); the "
+        f"default config falls back at {len(train0):,} rows; holdout AUC "
+        f"{out['holdout_auc']:.5f} (floor {AUC_FLOOR})")
+    return out, fits, best
+
+
+def phase_tune_small(base, quantized, best, Xh, yh) -> dict:
+    """18b: the same tuning on a few thousand rows at the default config
+    (the sweep's envelope), cuda against cpu: trees identical, margins
+    within 1e-5, histories within ``HISTORY_RTOL``; then
+    ``FindBestModel`` over phases 4's and 4b's models and 18a's on phase
+    4's holdout."""
+    log(f"== phase 18b: the tuning on {TUNE_SMALL_ROWS:,} rows cuda vs cpu;"
+        " FindBestModel over three models")
+    X, y = higgs_shaped(TUNE_SMALL_ROWS, seed=18)
+    ds = Dataset({"features": X, "label": y})
+    train0 = fold_train(ds)
+    maps = list(tune_space().param_maps())
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        est = LightGBMClassifier(minDataInLeaf=TUNE_SMALL_LEAF, device=dev,
+                                 **TUNE_PARAMS)
+        tuned = TuneHyperparameters(
+            models=[est], evaluationMetric="AUC", numFolds=TUNE_FOLDS,
+            paramSpace=tune_space(), parallelism=len(maps)).fit(ds)
+        models = swept_fit(est, maps, train0)
+        if models is None:
+            raise AssertionError(f"18b: no sweep at {len(train0):,} rows")
+        runs[dev] = (tuned.get_or_default("history"), models)
+    (hc, mc), (hp, mp) = runs["cuda"], runs["cpu"]
+    worst = 0.0
+    for a, b in zip(mc, mp):
+        ta, tb = a.booster.trees, b.booster.trees
+        for f in ("feat", "thr_bin", "left", "right", "is_leaf"):
+            if not np.array_equal(ta[f], tb[f]):
+                raise AssertionError(f"18b: trees differ in {f}")
+        worst = max(worst, margin_diff(
+            a.booster.predict_raw(X, device="cuda"),
+            b.booster.predict_raw(X, device="cpu")))
+    if not worst <= 1e-5:
+        raise AssertionError(f"18b: margins cuda vs cpu differ by {worst}")
+    rel = max(abs(a[2] - b[2]) / max(abs(b[2]), 1e-12)
+              for a, b in zip(hc, hp))
+    if [a[:2] for a in hc] != [b[:2] for b in hp] or rel > HISTORY_RTOL:
+        raise AssertionError(f"18b: histories differ (rel {rel})")
+    hold = Dataset({"features": Xh, "label": yh})
+    candidates = [LightGBMClassificationModel(b, numClasses=2, device="cuda")
+                  for b in (base, quantized)] + [best]
+    fb = FindBestModel(models=candidates, evaluationMetric="AUC").fit(hold)
+    each = [evaluate_metric(m.transform(hold), "AUC") for m in candidates]
+    table = [float(v) for v in fb.get_evaluation_results().array("AUC")]
+    pick = int(np.argmax(each))
+    if (table != each or fb.get_or_default("bestMetric") != each[pick]
+            or fb.get_or_default("bestModel") is not candidates[pick]):
+        raise AssertionError(f"18b: FindBestModel table {table}, best "
+                             f"{fb.get_or_default('bestMetric')}; each "
+                             f"{each}")
+    log(f"18b: {len(mc)} trials' trees identical, margins within "
+        f"{worst:.3g}, histories within {rel:.3g} relative; FindBestModel "
+        f"AUCs {each}, picked {pick}")
+    return dict(margin_diff=worst, history_rel=rel, find_best_auc=each,
+                find_best_pick=pick)
+
+
+class _Collector:
+    """A local stub of the Power BI push endpoint: keeps every POSTed
+    body."""
+
+    def __init__(self):
+        import http.server
+        bodies = self.bodies = []
+        lock = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n)
+                with lock:
+                    bodies.append(body)
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("localhost", 0),
+                                                     Handler)
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://localhost:{self.httpd.server_address[1]}/rows"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def http_replies(out, want, what) -> float:
+    """The largest |reply - predict| over rows that succeeded; every row
+    must have."""
+    err = list(out["err"])
+    bad = [i for i, e in enumerate(err) if e is not None]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} rows failed, first "
+                             f"{err[bad[0]]}")
+    got = np.asarray([r["prediction"] for r in out["reply"]], np.float64)
+    return float(np.abs(got - want.reshape(got.shape)).max())
+
+
+def start_http_worker(quantized) -> Proc:
+    """18c's ``serving_main worker`` on phase 4b's booster saved as
+    ``.npz``, started before 18a so that its interpreter comes up while
+    the card tunes."""
+    shutil.rmtree(P18_DIR, ignore_errors=True)
+    os.makedirs(P18_DIR)
+    path = os.path.join(P18_DIR, "higgs_4b.npz")
+    quantized.save(path)
+    return Proc(["-m", "mmlspark_tpu_torch.io.serving_main", "worker",
+                 "--model", path, "--registry",
+                 os.path.join(P18_DIR, "registry"), "--engine", "async",
+                 "--host", "localhost", "--port", "0", "--api-name",
+                 "higgs", "--max-batch", str(SERVE_MAX_BATCH),
+                 "--device", "cuda"])
+
+
+def phase_http(quantized, Xh, worker, card) -> dict:
+    """18c: the worker of :func:`start_http_worker`, driven by
+    ``SimpleHTTPTransformer`` (JSON parsers) over ``HTTP_ROWS`` holdout
+    rows at each of ``HTTP_CONCURRENCY``: replies within ``HTTP_ATOL`` of
+    ``predict`` on cuda; a row of the wrong width in ``errorCol``; the
+    same through a ``PortForwarder``; a ``PowerBIWriter`` delivering every
+    row once to a local stub."""
+    log(f"== phase 18c: SimpleHTTPTransformer against a serving_main worker"
+        f" on phase 4b's booster, {HTTP_ROWS:,} rows")
+    collector = _Collector()
+    out = {"rows_per_s": {}}
+    try:
+        port = int(worker.wait_line(r"serving on [^:\s]+:(\d+)").group(1))
+        url = f"http://localhost:{port}/higgs"
+        rows = Xh[:HTTP_ROWS]
+        want = quantized.predict(rows, device="cuda")
+        ds = Dataset({"value": [{"features": [float(v) for v in r]}
+                                for r in rows]})
+
+        def client(u, conc):
+            return SimpleHTTPTransformer().set(
+                inputCol="value", outputCol="reply", errorCol="err",
+                url=u, concurrency=conc, backoffs=[])
+
+        replies = {}
+        for conc in HTTP_CONCURRENCY:
+            t0 = time.perf_counter()
+            res = client(url, conc).transform(ds)
+            secs = time.perf_counter() - t0
+            out["rows_per_s"][conc] = len(rows) / secs
+            d = http_replies(res, want, f"18c concurrency {conc}")
+            if not d <= HTTP_ATOL:
+                raise AssertionError(f"18c concurrency {conc}: replies "
+                                     f"{d} from predict")
+            replies[conc] = list(res["reply"])
+            log(f"18c concurrency {conc}: {len(rows) / secs:,.1f} rows/s, "
+                f"replies within {d:.3g} of predict")
+        if replies[HTTP_CONCURRENCY[0]] != replies[HTTP_CONCURRENCY[-1]]:
+            raise AssertionError("18c: replies differ by concurrency")
+        bad_vals = list(ds["value"][:HTTP_BAD_ROWS])
+        bad_vals[13] = {"features": [1.0, 2.0]}
+        res = client(url, HTTP_CONCURRENCY[-1]).transform(
+            Dataset({"value": bad_vals}))
+        err = list(res["err"])
+        if (err[13] is None or not 400 <= err[13]["statusCode"] < 500
+                or res["reply"][13] is not None):
+            raise AssertionError(f"18c: the wrong-width row gave {err[13]}")
+        if any(e is not None for i, e in enumerate(err) if i != 13) or (
+                [r for i, r in enumerate(res["reply"]) if i != 13]
+                != [r for i, r in enumerate(replies[HTTP_CONCURRENCY[-1]]
+                                            [:HTTP_BAD_ROWS]) if i != 13]):
+            raise AssertionError("18c: rows beside the wrong-width one "
+                                 "failed or changed")
+        with PortForwarder("localhost", port) as fwd:
+            res = client(f"http://localhost:{fwd.local_port}/higgs",
+                         HTTP_CONCURRENCY[-1]).transform(
+                Dataset({"value": ds["value"][:HTTP_FORWARD_ROWS]}))
+        if (list(res["reply"]) != replies[HTTP_CONCURRENCY[-1]]
+                [:HTTP_FORWARD_ROWS] or any(e is not None
+                                            for e in res["err"])):
+            raise AssertionError("18c: replies through the forwarder "
+                                 "differ")
+        t0 = time.perf_counter()
+        writer = PowerBIWriter(collector.url, batch_size=POWERBI_BATCH)
+        writer.write(Dataset({"id": np.arange(len(rows)),
+                              "prediction": want.reshape(len(rows), -1)[:, 0]
+                              .astype(np.float64)}))
+        writer.flush()
+        pbi_s = time.perf_counter() - t0
+        got = [r for b in collector.bodies for r in json.loads(b)]
+        ids = sorted(r["id"] for r in got)
+        if ids != list(range(len(rows))):
+            raise AssertionError(f"18c: Power BI got {len(ids)} rows, "
+                                 f"{len(set(ids))} distinct")
+        out.update(powerbi_batches=len(collector.bodies),
+                   powerbi_rows_per_s=len(rows) / pbi_s,
+                   forwarded_rows=HTTP_FORWARD_ROWS)
+        log(f"18c: wrong-width row in errorCol ({err[13]['statusCode']}), "
+            f"the rest served; {HTTP_FORWARD_ROWS:,} rows through the "
+            f"forwarder equal; Power BI {len(collector.bodies)} batches, "
+            f"every row once, {len(rows) / pbi_s:,.0f} rows/s; {card}")
+    finally:
+        collector.close()
+    return out
+
+
+def phase_model_http() -> dict:
+    """18d: the DigitsConvNet payload served by a local ``http.server``:
+    ``download_model`` fetches it by ``http://`` with its pinned hash, a
+    tampered payload is refused, and the model scores bit-equal on the
+    card to the one downloaded by ``file://``."""
+    import hashlib
+    import http.server
+    from mmlspark_tpu_torch.models.dnn.downloader import (
+        _TRAINED_FIXTURES, ModelSchema, deserialize_payload,
+        serialize_payload)
+    log("== phase 18d: ModelDownloader over http://")
+    src = os.path.join(P18_DIR, "src")
+    ModelDownloader(src).download_model("DigitsConvNet")
+    payload = os.path.join(src, "DigitsConvNet", "model.pkl")
+    with open(payload, "rb") as f:
+        data = f.read()
+    pinned = _TRAINED_FIXTURES["DigitsConvNet"]["sha256"]
+    d = deserialize_payload(data, allow_pickle=False)
+    leaf = d["params"]
+    while isinstance(leaf, dict):
+        leaf = leaf[sorted(leaf)[0]]
+    leaf.flat[0] += 1.0
+    bodies = {"/digits.npz": data,
+              "/tampered.npz": serialize_payload(d["params"], d["config"])}
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = bodies.get(self.path, b"")
+            self.send_response(200 if self.path in bodies else 404)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("localhost", 0), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://localhost:{httpd.server_address[1]}"
+    try:
+        repos = {k: os.path.join(P18_DIR, k) for k in ("file", "http",
+                                                       "tampered")}
+        t0 = time.perf_counter()
+        got = ModelDownloader(repos["http"]).download_model(ModelSchema(
+            name="digits", uri=f"{base}/digits.npz", sha256=pinned))
+        fetch_s = time.perf_counter() - t0
+        ModelDownloader(repos["file"]).download_model(ModelSchema(
+            name="digits", uri=f"file://{payload}", sha256=pinned))
+        if got.sha256 != pinned:
+            raise AssertionError(f"18d: fetched hash {got.sha256}")
+        try:
+            ModelDownloader(repos["tampered"]).download_model(ModelSchema(
+                name="digits", uri=f"{base}/tampered.npz", sha256=pinned))
+        except IOError as e:
+            if "hash mismatch" not in str(e):
+                raise
+        else:
+            raise AssertionError("18d: a tampered payload was accepted")
+        if os.path.exists(os.path.join(repos["tampered"], "digits",
+                                       "model.pkl")):
+            raise AssertionError("18d: the tampered payload was written")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    x = np.random.default_rng(181).uniform(
+        -1, 1, (DIGITS_HTTP_ROWS, 32, 32, 3)).astype(np.float32)
+    scores = [fetch_on(DNNModel.from_downloader(repos[k], "digits"), x,
+                       "cuda", ("logits",))["logits"] for k in ("http",
+                                                                "file")]
+    if not np.array_equal(np.asarray(scores[0]), np.asarray(scores[1])):
+        raise AssertionError("18d: http:// and file:// models score apart")
+    digest = hashlib.sha256(data).hexdigest()
+    log(f"18d: fetched {len(data):,} bytes by http:// in {fetch_s:.3f} s, "
+        f"sha256 {digest[:12]}... pinned; tampered payload refused; "
+        f"logits of {len(x)} inputs bit-equal to the file:// model's")
+    return dict(payload_bytes=len(data), fetch_s=fetch_s)
+
+
+def phase_automl_and_http(data, base, quantized, card) -> dict:
+    """Phase 18: 18a-18d. Returns the readings, with 18a's fits (their
+    kernel counts) under ``fits``."""
+    t0 = time.perf_counter()
+    out = {"sub_s": {}}
+
+    def sub(key, fn):
+        t1 = time.perf_counter()
+        res = fn()
+        out["sub_s"][key] = time.perf_counter() - t1
+        return res
+    X, y, Xh, yh = data
+    worker = start_http_worker(quantized)
+    try:
+        out["18a"], out["fits"], best = sub("18a", lambda: phase_tune(data))
+        out["18b"] = sub("18b", lambda: phase_tune_small(
+            base, quantized, best, Xh, yh))
+        out["18c"] = sub("18c", lambda: phase_http(quantized, Xh, worker,
+                                                   card))
+        out["18d"] = sub("18d", phase_model_http)
+    finally:
+        worker.stop()
+        shutil.rmtree(P18_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18: {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in out["sub_s"].items())
+        + f") on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -5420,6 +5954,11 @@ def main() -> int:
     p15 = phase_vw_and_host_stages(card)
     p16 = phase_estimators(card)
     p17 = phase_dnn(card)
+    X, y = higgs_shaped(HIGGS_ROWS, seed=0)
+    Xh, yh = higgs_shaped(HIGGS_HOLDOUT, seed=1)
+    p18 = phase_automl_and_http((X, y, Xh, yh), base, quantized, card)
+    del X, y, Xh, yh
+    fits.update(p18.pop("fits"))
     fits["17c"] = p17["17c"]
     fits["15e"] = p15.pop("15e")
     for k in ("bf16", "quantized"):
@@ -5433,7 +5972,8 @@ def main() -> int:
         + json.dumps(p12) + "; phase 13: " + json.dumps(p13)
         + "; phase 14: " + json.dumps(p14) + "; phase 15: "
         + json.dumps(p15) + "; phase 16: " + json.dumps(p16)
-        + "; phase 17: " + json.dumps(p17))
+        + "; phase 17: " + json.dumps(p17) + "; phase 18: "
+        + json.dumps(p18))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

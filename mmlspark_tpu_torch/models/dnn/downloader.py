@@ -5,7 +5,9 @@ downloader/ModelDownloader.scala:37-276 — fetch CNTK models from the Azure
 blob repo with sha-hash verification and FaultToleranceUtils
 retry-with-timeout; downloader/Schema.scala:30 ``ModelSchema`` with
 layerNames). A model is a param tree + an architecture config; sources are
-``file://`` paths, ``package://`` fixtures shipped with the port, and a
+``file://`` paths, ``http(s)://`` URLs (fetched through the port's
+``io/http.py`` ``advanced_handling``; the bytes must be npz), ``package://``
+fixtures shipped with the port, and a
 *builtin* registry of seeded architectures, so the framework is usable with
 zero egress — materialising a builtin is the "download" and lands in the
 same local repository with the same hash bookkeeping.
@@ -14,14 +16,11 @@ The repository format is the JAX package's, byte for byte: an ``.npz``
 payload of the flattened param tree in the JAX layout (convolutions ``[kh,
 kw, in, out]``; ``convert.py``), a ``config_json`` entry, ``schema.json``
 and sha256 bookkeeping, so a repository written by either package loads in
-the other. Two differences, both on purpose:
-
-- a builtin is drawn from a ``torch.Generator`` seeded from the same name
-  hash the JAX package seeds ``jax.random.PRNGKey`` from, so a fresh
-  builtin has other (equally random) weights than the JAX package's; a
-  payload already in a repository loads to the same weights in both;
-- ``http(s)://`` URIs need ``io/http.py``'s ``advanced_handling``, which the
-  port has not ported yet: they raise.
+the other. One difference, on purpose: a builtin is drawn from a
+``torch.Generator`` seeded from the same name hash the JAX package seeds
+``jax.random.PRNGKey`` from, so a fresh builtin has other (equally random)
+weights than the JAX package's; a payload already in a repository loads to
+the same weights in both.
 
 Genuinely pretrained weights enter via ``import_torch_resnet``
 (torchvision-format state_dict -> folded-BN tree -> repository payload) or
@@ -246,14 +245,12 @@ class ModelDownloader:
         payload = os.path.join(target, "model.pkl")
         if os.path.exists(payload) and self._hash_ok(payload, schema.sha256):
             return self._read_schema(schema.name)
-        if schema.uri.startswith(("http://", "https://")):
-            raise NotImplementedError(
-                f"cannot fetch {schema.uri!r}: http(s) model URIs need "
-                "io/http.py's advanced_handling, which the PyTorch port has "
-                "not ported yet; download the payload and use a file:// "
-                "URI")
         os.makedirs(target, exist_ok=True)
         data = retry_with_timeout(lambda: self._fetch(schema))
+        if schema.uri.startswith(("http://", "https://")):
+            # validate BEFORE persisting: remote bytes must be npz (a local
+            # pickle file would otherwise execute on the next load_model)
+            deserialize_payload(data, allow_pickle=False)
         digest = hashlib.sha256(data).hexdigest()
         if schema.sha256 and digest != schema.sha256:
             raise IOError(f"hash mismatch for {schema.name}: "
@@ -358,6 +355,12 @@ class ModelDownloader:
         if uri.startswith("file://"):
             with open(uri[len("file://"):], "rb") as f:
                 return f.read()
+        if uri.startswith(("http://", "https://")):
+            from ...io.http import HTTPRequestData, advanced_handling
+            resp = advanced_handling(HTTPRequestData(url=uri), timeout=120.0)
+            if not (200 <= resp.status_code < 300):
+                raise IOError(f"fetch failed: {resp.status_code} {resp.reason}")
+            return resp.entity or b""
         raise ValueError(f"unsupported model uri {uri!r}")
 
     def _materialize_builtin(self, name: str) -> bytes:

@@ -71,6 +71,18 @@ from .growth import GrowConfig, resolve_growth_backend
 # one ingest. Two entries bound the device memory they hold.
 _BINNED_CACHE: "OrderedDict" = OrderedDict()
 _BINNED_CACHE_MAX = 2
+# lookups of the cache since the process started (or the last reset)
+_BINNED_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def binned_cache_stats(reset: bool = False) -> dict:
+    """``{"hits": h, "misses": m}``: the binned-dataset cache's lookups
+    since the process started or the last ``reset=True`` (which zeroes
+    them after reading)."""
+    out = dict(_BINNED_CACHE_STATS)
+    if reset:
+        _BINNED_CACHE_STATS.update(hits=0, misses=0)
+    return out
 
 
 def _dataset_nbytes(ds) -> float:
@@ -93,11 +105,12 @@ def _cache_enabled() -> bool:
 
 def _binned_cache_key(X, y, w, *, max_bin, bin_sample_count, seed,
                       categorical_features, bin_dtype, max_bin_by_feature,
-                      device) -> tuple:
+                      device, mesh=None) -> tuple:
     """The cache key: a scipy sparse ``X`` is fingerprinted by its CSR
-    buffers (a hit never densifies); the data group's ranks and the device
-    (``None`` read as the default, ``cuda``) stand in the JAX package's
-    mesh, so a cpu fit never receives a cuda dataset."""
+    buffers (a hit never densifies); the data group's ranks (``mesh``, else
+    the default) and the device (``None`` read as the default, ``cuda``)
+    stand in the JAX package's mesh, so a cpu fit never receives a cuda
+    dataset."""
     if _is_sparse(X):
         X = X.tocsr()
         fp = data_fingerprint(X.data, X.indices, X.indptr,
@@ -108,42 +121,37 @@ def _binned_cache_key(X, y, w, *, max_bin, bin_sample_count, seed,
             tuple(int(i) for i in categorical_features), str(bin_dtype),
             None if max_bin_by_feature is None
             else tuple(int(b) for b in max_bin_by_feature),
-            meshlib.get_default_mesh().ranks,
+            (mesh or meshlib.get_default_mesh()).ranks,
             str(torch.device(DEFAULT_DEVICE if device is None else device)))
 
 
 def _cached_binned_dataset(X, y, w, *, max_bin, bin_sample_count, seed,
                            categorical_features, bin_dtype="int32",
                            max_bin_by_feature=None,
-                           device=None) -> LightGBMDataset:
-    """The binned dataset of these rows and params on ``device``, built on
-    a miss (the least recently used of :data:`_BINNED_CACHE_MAX` entries
-    goes). With ``MMLSPARK_TPU_BINNED_CACHE=0`` every call builds one and
-    nothing is kept (nor fingerprinted)."""
+                           device=None, mesh=None) -> LightGBMDataset:
+    """The binned dataset of these rows and params on ``device`` over the
+    data group ``mesh`` (default: the default mesh), built on a miss (the
+    least recently used of :data:`_BINNED_CACHE_MAX` entries goes). With
+    ``MMLSPARK_TPU_BINNED_CACHE=0`` every call builds one and nothing is
+    kept (nor fingerprinted)."""
+    build = dict(max_bin=max_bin, bin_sample_count=bin_sample_count,
+                 seed=seed, categorical_features=categorical_features,
+                 bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
+                 device=device)
     if not _cache_enabled():
-        return LightGBMDataset.construct(
-            X, y, w, max_bin=max_bin, bin_sample_count=bin_sample_count,
-            seed=seed, categorical_features=categorical_features,
-            bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
-            device=device)
-    key = _binned_cache_key(
-        X, y, w, max_bin=max_bin, bin_sample_count=bin_sample_count,
-        seed=seed, categorical_features=categorical_features,
-        bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
-        device=device)
+        return LightGBMDataset.construct(X, y, w, mesh=mesh, **build)
+    key = _binned_cache_key(X, y, w, mesh=mesh, **build)
     ds = _BINNED_CACHE.get(key)
     if ds is None:
-        ds = LightGBMDataset.construct(
-            X, y, w, max_bin=max_bin, bin_sample_count=bin_sample_count,
-            seed=seed, categorical_features=categorical_features,
-            bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
-            device=device)
+        _BINNED_CACHE_STATS["misses"] += 1
+        ds = LightGBMDataset.construct(X, y, w, mesh=mesh, **build)
         _BINNED_CACHE[key] = ds
         _hbm.claim("binned_cache", _dataset_nbytes(ds))
         while len(_BINNED_CACHE) > _BINNED_CACHE_MAX:
             _k, old = _BINNED_CACHE.popitem(last=False)
             _hbm.release("binned_cache", _dataset_nbytes(old))
     else:
+        _BINNED_CACHE_STATS["hits"] += 1
         _BINNED_CACHE.move_to_end(key)
     return ds
 
@@ -443,25 +451,13 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
         self._publish_booster_telemetry(booster)
         return booster
 
-    def _fit_booster_impl(self, dataset: Dataset, objective: str,
-                          num_class: int,
-                          objective_kwargs: Optional[dict] = None
-                          ) -> Booster:
-        """Fit through ``train_booster`` as the JAX estimators do: a
-        ``modelString`` warm start; ``numBatches`` sequential batches, each
-        binned from its own rows and warm-started from the previous one
-        (reference: LightGBMBase.scala:28-50); without ``checkpointDir``, a
-        cached binned dataset."""
-        train_ds, valid_ds = self._split_validation(dataset)
-        X, y, w = self._extract_arrays(train_ds)
-        valid_set = None
-        if valid_ds is not None and len(valid_ds) > 0:
-            valid_set = self._extract_arrays(valid_ds)
-        init_booster = None
-        ms = self.get_or_default("modelString")
-        if ms:
-            init_booster = Booster.from_string(ms)
-        common = dict(
+    def _train_kwargs(self, objective: str, num_class: int,
+                      objective_kwargs: Optional[dict] = None) -> dict:
+        """The keyword arguments of ``train_booster`` that this estimator's
+        params set (all but the rows, ``num_iterations``, the validation
+        set and the warm start): one place for ``fit`` and the automl
+        sweep's trials."""
+        return dict(
             checkpoint_dir=self.get_or_default("checkpointDir"),
             checkpoint_period=self.get_or_default("checkpointInterval"),
             objective=objective, num_class=num_class,
@@ -495,6 +491,27 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
             eval_metric_name=self.get_or_default("metric"),
             device=self.get_or_default("device"),
             iteration_callback=self._round_callback())
+
+    def _fit_booster_impl(self, dataset: Dataset, objective: str,
+                          num_class: int,
+                          objective_kwargs: Optional[dict] = None
+                          ) -> Booster:
+        """Fit through ``train_booster`` as the JAX estimators do: a
+        ``modelString`` warm start; ``numBatches`` sequential batches, each
+        binned from its own rows and warm-started from the previous one
+        (reference: LightGBMBase.scala:28-50); without ``checkpointDir``, a
+        cached binned dataset."""
+        train_ds, valid_ds = self._split_validation(dataset)
+        X, y, w = self._extract_arrays(train_ds)
+        valid_set = None
+        if valid_ds is not None and len(valid_ds) > 0:
+            valid_set = self._extract_arrays(valid_ds)
+        init_booster = None
+        ms = self.get_or_default("modelString")
+        if ms:
+            init_booster = Booster.from_string(ms)
+        common = self._train_kwargs(objective, num_class,
+                                    objective_kwargs)
         num_iterations = self.get_or_default("numIterations")
         num_batches = self.get_or_default("numBatches")
         if num_batches and num_batches > 1:

@@ -27,7 +27,7 @@ the block it is computed in, or on the device.
 Same math as the host engines, in f64 as theirs: the JAX package's
 device engine runs f32 (the TPU has no f64), which is held against this
 one at 1e-4. f64 keeps the contributions of models with leaves near 1e4
-(ROADMAP Queue 3 item 1) exact, where f32 Shapley weights drift by about
+(ROADMAP Queue 3 item 2) exact, where f32 Shapley weights drift by about
 1e-6 of the margin.
 """
 

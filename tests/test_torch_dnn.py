@@ -19,7 +19,8 @@ the JAX package's, on the CPU, at small widths.
   ways, NaN and empty images as missing.
 * ``ModelDownloader``: builtins (catalog, cache hit, hash bookkeeping),
   ``file://`` with its hash check, the ``package://`` DigitsConvNet fixture
-  (pinned hash, a tampered fixture refused), ``http(s)://`` refused;
+  (pinned hash, a tampered fixture refused), ``http://`` fetched from a
+  local server (hash checked, other or corrupt payloads refused);
   repositories written by either package load in the other and score
   equal; the payload's keys and config bytes are the JAX package's.
 * Stage directories saved by either package load in the other and score
@@ -525,10 +526,67 @@ def test_downloader_file_uri_and_hash_check(tmp_path):
 
 
 def test_downloader_refuses_http(tmp_path):
-    d = tdl.ModelDownloader(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="advanced_handling"):
-        d.download_model(tdl.ModelSchema(name="web",
-                                         uri="https://localhost/m.npz"))
+    """``http://`` payloads are fetched through the port's
+    ``advanced_handling``: the hash is checked, a tampered payload and a
+    non-npz one are refused, and the schema written equals the JAX
+    ``ModelDownloader``'s from the same server."""
+    import threading
+    import zipfile
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    fixture = os.path.join(tdl.FIXTURES_DIR, "digits_convnet.npz")
+    with open(fixture, "rb") as f:
+        data = f.read()
+    mid = len(data) // 2
+    other = tdl.serialize_payload(
+        {"w": np.zeros((2, 2), np.float32)}, {"arch": "none"})
+    bodies = {"/m.npz": data,
+              "/flipped.npz": data[:mid] + bytes([data[mid] ^ 1])
+              + data[mid + 1:],
+              "/other.npz": other,
+              "/m.pkl": b"\x80\x04K\x01."}
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = bodies.get(self.path)
+            self.send_response(200 if body is not None else 404)
+            self.send_header("Content-Length", str(len(body or b"")))
+            self.end_headers()
+            self.wfile.write(body or b"")
+
+        def log_message(self, *a):
+            pass
+
+    httpd = ThreadingHTTPServer(("localhost", 0), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://localhost:{httpd.server_address[1]}"
+    sha = hashlib.sha256(data).hexdigest()
+    try:
+        got = {}
+        for name, mod in (("port", tdl), ("jax", jdl)):
+            schema = mod.ModelDownloader(str(tmp_path / name)).download_model(
+                mod.ModelSchema(name="web", uri=f"{base}/m.npz", sha256=sha))
+            assert (tmp_path / name / "web" / "model.pkl").read_bytes() \
+                == data
+            got[name] = json.loads(schema.to_json())
+        assert got["port"] == got["jax"]
+        d = tdl.ModelDownloader(str(tmp_path / "r2"))
+        # a payload other than the pinned one, and the pinned one with a
+        # byte flipped (its zip no longer reads), are refused unwritten
+        with pytest.raises(IOError, match="hash mismatch"):
+            d.download_model(tdl.ModelSchema(
+                name="t", uri=f"{base}/other.npz", sha256=sha))
+        with pytest.raises(zipfile.BadZipFile):
+            d.download_model(tdl.ModelSchema(
+                name="t", uri=f"{base}/flipped.npz", sha256=sha))
+        assert not (tmp_path / "r2" / "t" / "model.pkl").exists()
+        with pytest.raises(IOError, match="npz"):
+            d.download_model(tdl.ModelSchema(name="p", uri=f"{base}/m.pkl"))
+        with pytest.raises(IOError, match="404"):
+            d._fetch(tdl.ModelSchema(name="x", uri=f"{base}/missing"))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 def test_package_fixture_hash_and_tampering(tmp_path, monkeypatch):

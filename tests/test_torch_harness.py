@@ -20,11 +20,13 @@ from mmlspark_tpu.core import benchmarks as jbench
 from mmlspark_tpu.core import datagen as jgen
 from mmlspark_tpu_torch.core import benchmarks as tbench
 from mmlspark_tpu_torch.core import datagen as tgen
+from mmlspark_tpu_torch.automl import core as automl
 from mmlspark_tpu_torch.core.dataset import Dataset
 from mmlspark_tpu_torch.core.fuzzing import (TestObject, discover_stages,
                                              experiment_fuzz,
                                              serialization_fuzz)
-from mmlspark_tpu_torch.core.pipeline import Lambda, Pipeline, Transformer
+from mmlspark_tpu_torch.core.pipeline import (Lambda, Pipeline,
+                                              PipelineStage, Transformer)
 from mmlspark_tpu_torch.cyber import anomaly, complement
 from mmlspark_tpu_torch.cyber import feature as cfeat
 from mmlspark_tpu_torch.explain import lime
@@ -357,13 +359,64 @@ REGISTRY = [
     TestObject(train.TrainRegressor(model=gbdt.LightGBMRegressor(**GB),
                                     numFeatures=8), TAB.drop("lists"),
                produces=[train.TrainedRegressorModel]),
+    # the JAX package's automl entries (tests/test_fuzzing.py)
+    TestObject(automl.TuneHyperparameters(
+        models=[gbdt.LightGBMClassifier(minDataInLeaf=2, device="cpu")],
+        evaluationMetric="accuracy", numFolds=2, numRuns=1,
+        paramSpace=automl.RandomSpace(
+            automl.HyperparamBuilder().add_hyperparam(
+                "numIterations", automl.DiscreteHyperParam([2])).build(),
+            seed=0)), TAB, produces=[automl.TuneHyperparametersModel]),
+    TestObject(automl.FindBestModel(models=[
+        gbdt.LightGBMClassifier(numIterations=2, minDataInLeaf=2,
+                                device="cpu"),
+        gbdt.LightGBMClassifier(numIterations=3, minDataInLeaf=2,
+                                device="cpu")],
+        evaluationMetric="accuracy"), TAB, produces=[automl.BestModel]),
 ]
 
+# Stages that need a live external service: a save/load round trip of
+# their params only (the JAX package's PARAM_ONLY set; their behaviour is
+# held against the JAX stages on local mock servers in
+# test_torch_cognitive.py)
+PARAM_ONLY = {
+    f"mmlspark_tpu_torch.cognitive.services.{n}" for n in (
+        "AddDocuments", "AnalyzeImage", "BingImageSearch", "DescribeImage",
+        "DetectAnomalies", "DetectFace", "DetectLastAnomaly",
+        "EntityDetector", "EntityDetectorV2", "FindSimilarFace",
+        "GenerateThumbnails", "GroupFaces", "IdentifyFaces",
+        "KeyPhraseExtractor", "KeyPhraseExtractorV2", "LanguageDetector",
+        "LanguageDetectorV2", "NER", "NERV2", "OCR",
+        "RecognizeDomainSpecificContent", "RecognizeText",
+        "SimpleDetectAnomalies", "SpeechToText", "TagImage",
+        "TextSentiment", "TextSentimentV2", "VerifyFaces")} | {
+    # streaming SDK stage: transform needs a speech endpoint
+    "mmlspark_tpu_torch.cognitive.speech_sdk.SpeechToTextSDK"}
+
+_HTTP = "mmlspark_tpu_torch.io.http."
 EXEMPT = {
     "mmlspark_tpu_torch.core.pipeline.PipelineModel":
         "produced by the Pipeline entry",
     "mmlspark_tpu_torch.core.pipeline.UnaryTransformer":
         "abstract base of single-column transformers",
+    "mmlspark_tpu_torch.cognitive.base.CognitiveServicesBase":
+        "abstract base for cognitive transformers",
+    "mmlspark_tpu_torch.cognitive.base.PollingCognitiveService":
+        "abstract base (async polling services)",
+    _HTTP + "HTTPTransformer": "needs a live endpoint; covered in "
+                               "test_torch_http with a local server",
+    _HTTP + "SimpleHTTPTransformer": "needs a live endpoint; covered in "
+                                     "test_torch_http",
+    _HTTP + "JSONInputParser": "http plumbing; covered in test_torch_http",
+    _HTTP + "JSONOutputParser": "http plumbing; covered in test_torch_http",
+    _HTTP + "StringOutputParser": "http plumbing; covered in "
+                                  "test_torch_http",
+    _HTTP + "CustomInputParser": "http plumbing (closure params); covered "
+                                 "in test_torch_http",
+    _HTTP + "CustomOutputParser": "http plumbing (closure params); covered "
+                                  "in test_torch_http",
+    _HTTP + "PartitionConsolidator": "host-service holder; covered in "
+                                     "test_torch_http",
 }
 
 
@@ -378,7 +431,7 @@ def test_discover_stages_defaults_to_the_port():
 
 
 def test_every_port_stage_is_covered():
-    covered = set(EXEMPT)
+    covered = set(EXEMPT) | PARAM_ONLY
     for obj in REGISTRY:
         covered.add(_name(type(obj.stage)))
         covered.update(_name(c) for c in obj.produces)
@@ -396,3 +449,29 @@ def test_experiment_fuzz(obj):
                          ids=[type(o.stage).__name__ for o in REGISTRY])
 def test_serialization_fuzz(obj, tmp_path):
     serialization_fuzz(obj, str(tmp_path))
+
+
+def _probe_instance(cls):
+    """A stage of ``cls`` with every param set (to its default, else a
+    probe string), so the round trip carries a full param map."""
+    stage = cls.__new__(cls)
+    PipelineStage.__init__(stage)
+    for param in stage.params():
+        value = param.default
+        if value is None:
+            value = f"{param.name}_probe"
+        try:
+            stage.set(**{param.name: value})
+        except Exception:
+            pass
+    return stage
+
+
+@pytest.mark.parametrize("name", sorted(PARAM_ONLY))
+def test_param_roundtrip_fuzz(name, tmp_path):
+    stage = _probe_instance(discover_stages()[name])
+    assert stage._paramMap, f"{name}: no params were set"
+    stage.save(str(tmp_path / "s"))
+    loaded = PipelineStage.load(str(tmp_path / "s"))
+    assert type(loaded) is type(stage)
+    assert loaded._paramMap == stage._paramMap

@@ -9,7 +9,8 @@
     ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``,
     ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``,
     ``tools/chip_phase16.py``, ``tools/chip_phase17.py``,
-    ``tools/dnn_tolerances.py``), imports either.
+    ``tools/chip_phase18.py``, ``tools/dnn_tolerances.py``), imports
+    either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -28,6 +29,9 @@
     ``ResizeImageTransformer``, ``DNNModel``, ``ImageFeaturizer``) and
     ``resize_image``/``blur_image`` default to ``cuda`` and raise without a
     GPU; they run with ``device="cpu"``.
+  * The automl entry points (``TuneHyperparameters``, ``FindBestModel``
+    and the sweep) fit on their estimators' device: ``cuda`` by default,
+    raising without a GPU; they run with ``device="cpu"``.
   * The port's test files lint clean under ``tools.graftlint``.
 """
 
@@ -155,6 +159,21 @@ SLICE_15_MODULES = (
 )
 
 
+#: AutoML, and the HTTP, Power BI, port-forwarding and cognitive-service
+#: stages (the rest of io.http is in SERVING_MODULES)
+SLICE_16_MODULES = (
+    "mmlspark_tpu_torch.automl",
+    "mmlspark_tpu_torch.automl.core",
+    "mmlspark_tpu_torch.automl.sweep",
+    "mmlspark_tpu_torch.io.powerbi",
+    "mmlspark_tpu_torch.io.port_forwarding",
+    "mmlspark_tpu_torch.cognitive",
+    "mmlspark_tpu_torch.cognitive.base",
+    "mmlspark_tpu_torch.cognitive.services",
+    "mmlspark_tpu_torch.cognitive.speech_sdk",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
@@ -168,6 +187,7 @@ def test_importing_the_port_loads_no_jax():
     assert set(SLICE_13_MODULES) <= set(mods)
     assert set(SLICE_14_MODULES) <= set(mods)
     assert set(SLICE_15_MODULES) <= set(mods)
+    assert set(SLICE_16_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -223,11 +243,12 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "chip_phase15.py"),
              os.path.join(ROOT, "tools", "chip_phase16.py"),
              os.path.join(ROOT, "tools", "chip_phase17.py"),
+             os.path.join(ROOT, "tools", "chip_phase18.py"),
              os.path.join(ROOT, "tools", "dnn_tolerances.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:11])
+    assert all(os.path.isfile(p) for p in paths[:12])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):
@@ -243,7 +264,8 @@ def test_no_source_imports_jax_or_the_jax_package():
               os.path.join("parallel", "placement.py"),
               os.path.join("utils", "stopwatch.py")):
         assert os.path.join(PKG, f) in paths
-    for mod in SLICE_13_MODULES + SLICE_14_MODULES + SLICE_15_MODULES:
+    for mod in (SLICE_13_MODULES + SLICE_14_MODULES + SLICE_15_MODULES
+                + SLICE_16_MODULES):
         rel = mod.split(".", 1)[1].replace(".", os.sep)
         assert (os.path.join(PKG, rel + ".py") in paths
                 or os.path.join(PKG, rel, "__init__.py") in paths), mod
@@ -494,3 +516,29 @@ def test_murmur_raises_when_the_native_build_fails(monkeypatch):
         murmur.murmur3_32("abc", 0)
     with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
         murmur.murmur3_batch(["abc"], [0])
+
+
+def test_automl_entry_points_default_to_cuda_and_raise(no_gpu):
+    from mmlspark_tpu_torch.automl.core import (DiscreteHyperParam,
+                                                FindBestModel, GridSpace,
+                                                TuneHyperparameters)
+    from mmlspark_tpu_torch.automl.sweep import swept_fit
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 3)).astype(np.float32)
+    ds = Dataset({"features": X, "label": (X[:, 0] > 0).astype(np.float64)})
+    space = GridSpace({"learningRate": DiscreteHyperParam([0.1, 0.3])})
+    maps = list(space.param_maps())
+    for dev in (None, "cpu"):
+        est = LightGBMClassifier(numIterations=1, minDataInLeaf=2,
+                                 device=dev)
+        calls = [lambda p=p: TuneHyperparameters(
+                     models=[est], numFolds=2, paramSpace=space,
+                     parallelism=p).fit(ds) for p in (1, 2)]
+        calls += [lambda: FindBestModel(models=[est]).fit(ds),
+                  lambda: swept_fit(est, maps, ds)]
+        for call in calls:
+            if dev is None:
+                with pytest.raises(RuntimeError, match="no CUDA GPU"):
+                    call()
+            else:
+                assert call() is not None

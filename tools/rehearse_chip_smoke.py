@@ -11,6 +11,8 @@
         --sift-base 100000 --aa-scale 0.25]
     python tools/rehearse_chip_smoke.py p17 [--dnn-images 256
         --feat-rows 1024 --lime-images 1]
+    python tools/rehearse_chip_smoke.py p18 [--higgs-rows 100000
+        --http-rows 2000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -57,7 +59,12 @@ featurizer over ``--feat-rows`` pictures, three quarters of them training
 the GBDT head, kernel 1's rows at that head's width, streamed scoring over
 a quarter of the images and 64 JPEG files, ImageLIME at its defaults on
 ``--lime-images`` pictures, the DigitsConvNet fixture; the f32 lane's
-spread holds compare the CPU with itself). The plain
+spread holds compare the CPU with itself), ``p18`` (phases 4 and 4b for
+their models, then phase 18: the tuning's two routes on ``--higgs-rows``
+rows, the small tuning and ``FindBestModel``, the HTTP stages over
+``--http-rows`` rows against a ``serving_main`` worker subprocess on the
+CPU, the model fetched by ``http://``; "cuda against cpu" compares the CPU
+with itself). The plain
 versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
@@ -254,12 +261,28 @@ def phase_dnn(mod, dnn_images: int, feat_rows: int, lime_images: int
     return mod.phase_dnn("CPU rehearsal, no card")
 
 
+def phase_automl(mod, http_rows: int) -> dict:
+    """The fits phase 18 reads its models from, then phase 18 with
+    ``http_rows`` rows through the HTTP stages."""
+    data = (*mod.higgs_shaped(mod.HIGGS_ROWS, seed=0),
+            *mod.higgs_shaped(mod.HIGGS_HOLDOUT, seed=1))
+    _, base = mod.phase_end_to_end("4", ["node_hist_bf16"], data)
+    _, quantized = mod.phase_end_to_end("4b", ["node_hist_int8"], data,
+                                        useQuantizedGrad=True,
+                                        quantWarmupIters=0)
+    mod.HTTP_ROWS = http_rows
+    mod.HTTP_BAD_ROWS = min(mod.HTTP_BAD_ROWS, http_rows)
+    mod.HTTP_FORWARD_ROWS = min(mod.HTTP_FORWARD_ROWS, http_rows)
+    return mod.phase_automl_and_http(data, base, quantized,
+                                     "CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
                              "p11", "p12", "p13", "p14", "p15", "p16",
-                             "p17"])
+                             "p17", "p18"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     ap.add_argument("--vw-rows", type=int, default=200_000)
@@ -269,6 +292,7 @@ def main() -> int:
     ap.add_argument("--dnn-images", type=int, default=256)
     ap.add_argument("--feat-rows", type=int, default=1024)
     ap.add_argument("--lime-images", type=int, default=1)
+    ap.add_argument("--http-rows", type=int, default=2_000)
     args = ap.parse_args()
     torch.set_num_threads(4)
     mod = load_on_cpu(args.rows, args.higgs_rows)
@@ -284,7 +308,8 @@ def main() -> int:
            "p16": lambda: phase_estimators(mod, args.higgs_rows,
                                            args.sift_base, args.aa_scale),
            "p17": lambda: phase_dnn(mod, args.dnn_images, args.feat_rows,
-                                    args.lime_images)}
+                                    args.lime_images),
+           "p18": lambda: phase_automl(mod, args.http_rows)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
