@@ -384,13 +384,32 @@ Phases (any failure exits non-zero and prints no result line):
    cuda against cpu (identical trees, margins 1e-5, histories
    ``HISTORY_RTOL``), then ``FindBestModel`` over phases 4's and 4b's
    models and 18a's on phase 4's holdout. 18c: ``SimpleHTTPTransformer``
-   against a ``serving_main`` worker on phase 4b's booster over 20,000
+   against a ``serving_main`` worker on phase 4b's booster over 5,000
    holdout rows at concurrency 1 and 16 (replies within 1e-6 of
    ``predict``; a row of the wrong width in ``errorCol``), through a
    ``PortForwarder``, and a ``PowerBIWriter`` into a local stub. 18d:
    the DigitsConvNet payload fetched by ``http://`` (hash pinned, a
    tampered payload refused), scoring bit-equal to the ``file://`` route.
    ``tools/chip_phase18.py`` runs this phase alone.
+
+19. The SPMD transformer's train step: ``TransformerConfig()``'s full
+   width (vocab 32,000, d_model 512, 8 heads x 64, 4 layers, d_ff 2,048,
+   bf16), no histogram kernel (the counts are reset before and must read
+   0 after). 19a: each strategy (``ring``, ``ring_zigzag``, ``ulysses``) at
+   world size 1 on the card, 8 x 2,048 seeded tokens, 5 AdamW steps on
+   the same batch: every loss finite and the last below the first, the
+   three first losses within ``TF_FIRST_LOSS_ATOL``; ms per step, tokens/s,
+   peak device memory, one profiled step's device ms and the attention's
+   share of it (the attention alone, forward and backward, profiled on
+   one layer's q, k, v, times the layers), beside its bound. Then a narrow
+   f32 config, each strategy on cuda and on ``device="cpu"``: the losses
+   of 3 steps within ``TF_CPU_ATOL``. 19b: four processes on the one card
+   joined by gloo through a file rendezvous under ``build/``, a
+   ``{"data": 1, "seq": 2, "model": 2}`` mesh, full width with one layer,
+   S=512, f32: each strategy's 3 losses within ``TF_RANK_ATOL`` of the
+   same steps at world size 1 on the card; the calls and bytes each
+   collective of rank 0 sent. ``tools/chip_phase19.py`` runs this phase
+   alone.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -460,6 +479,7 @@ from mmlspark_tpu_torch.io.streaming import (stream_featurize_images,
                                              stream_transform)
 from mmlspark_tpu_torch.models.dnn import (DNNModel, ImageFeaturizer,
                                           ModelDownloader)
+from mmlspark_tpu_torch.models.dnn import transformer as tfm
 from mmlspark_tpu_torch.models.dnn.cnn import apply_cnn
 from mmlspark_tpu_torch.observability import flight as obs_flight
 from mmlspark_tpu_torch.observability import metrics as obs_metrics
@@ -476,6 +496,8 @@ from mmlspark_tpu_torch.models.vw.bandit import VowpalWabbitContextualBandit
 from mmlspark_tpu_torch.models.vw.featurizer import VowpalWabbitFeaturizer
 from mmlspark_tpu_torch.ops.murmur import hash_feature, hash_namespace
 from mmlspark_tpu_torch.ops.topk import top_k
+from mmlspark_tpu_torch.parallel import ring_attention, ulysses
+from mmlspark_tpu_torch.parallel.mesh import make_mesh as make_tf_mesh
 from mmlspark_tpu_torch.ops.histogram_scatter import (blocks_as_nodes,
                                                       hist_plain,
                                                       node_hist_blocked_plain,
@@ -5403,7 +5425,7 @@ TUNE_PARAMS = dict(numIterations=10, numLeaves=31, maxBin=255)
 TUNE_SMALL_ROWS = 4_000
 TUNE_SMALL_LEAF = 100        # phase 5's rule: leaves of 100+ rows at small n
 HISTORY_RTOL = 1e-6
-HTTP_ROWS = 20_000
+HTTP_ROWS = 5_000
 HTTP_CONCURRENCY = (1, 16)
 HTTP_BAD_ROWS = 1_000        # the wrong-width check's rows
 HTTP_FORWARD_ROWS = 2_000
@@ -5892,6 +5914,385 @@ def phase_automl_and_http(data, base, quantized, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the SPMD transformer's train step (sequence and tensor
+# parallelism). No TPU kernel was on this path (the JAX attention and
+# projections are XLA einsums), so its device work is torch ops: no
+# histogram kernel may launch.
+# ---------------------------------------------------------------------------
+
+P19_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_p19")
+TF_SEED = 19
+TF_CONFIG = tfm.TransformerConfig()       # the repo's full width, bf16
+TF_BATCH = 8
+TF_SEQ = 2048                   # TransformerConfig().max_len
+TF_STEPS = 5
+TF_LR = 1e-3
+TF_STRATEGIES = ("ring", "ring_zigzag", "ulysses")
+TF_PROFILE_REPS = 3              # the attention's profiled runs, median
+# the three strategies' first losses (same params, same tokens, exact
+# attention each) within a quarter of a bf16 ulp at the loss's magnitude
+# (losses in [8, 16): ulp 2^-4): they differ only in the order of f32 sums
+# and where bf16 rounding lands (tests/test_torch_transformer.py)
+TF_FIRST_LOSS_ATOL = 2.0 ** -6
+# 19a's narrow f32 config, cuda against cpu
+TF_NARROW = dict(vocab_size=512, d_model=64, n_heads=4, d_head=16,
+                 n_layers=2, d_ff=256, max_len=256, dtype=torch.float32)
+TF_NARROW_BATCH, TF_NARROW_SEQ, TF_NARROW_STEPS = 2, 128, 3
+TF_CPU_ATOL = 1e-5
+# 19b: four gloo ranks on the one card, TF_CONFIG cut to one layer, f32
+TF_RANK_SHAPE = {"data": 1, "seq": 2, "model": 2}
+TF_RANK_CONFIG = TF_CONFIG._replace(n_layers=1, dtype=torch.float32)
+TF_RANK_BATCH = 4
+TF_RANK_SEQ = 512
+TF_RANK_STEPS = 3
+TF_RANK_ATOL = 1e-4
+TF_RANK_TIMEOUT = 300
+
+
+def tf_tokens(batch, seq, vocab, seed):
+    """Seeded ids and their next-token targets, ``[batch, seq]`` int64."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (batch, seq)).astype(np.int64)
+    return toks, np.roll(toks, -1, axis=1)
+
+
+def tf_run(cfg, mesh, params, toks, tgts, steps, device) -> tuple:
+    """``steps`` train steps from ``params``: the losses, each step's wall
+    ms (the loss's read waits for the step), the last params and optimizer
+    state, and the step function."""
+    step = tfm.make_train_step(cfg, mesh, lr=TF_LR, device=device)
+    opt = tfm.adamw_init(params)
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, toks, tgts)
+        losses.append(float(loss))          # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, params, opt, step
+
+
+def attention_pairs(mode, S, block=512) -> int:
+    """Query-key pairs one (batch, head) computes at world size 1."""
+    if mode == "ring":
+        return S * S                        # no skip on the plain ring
+    if mode == "ring_zigzag":
+        return 3 * (S // 2) ** 2            # 3 of its 4 chunk pairs
+    nb = -(-S // block)
+    return nb * (nb + 1) // 2 * block * block
+
+
+def attention_profile(cfg, mode, B, S) -> dict:
+    """The attention alone, forward and backward, on one layer's q, k, v:
+    the median device ms of ``TF_PROFILE_REPS`` profiled runs
+    (``torch.profiler``) and of as many runs between two CUDA events, and
+    its bound: 12 f32 operations a (query, key, head dim) of the pairs
+    computed, at the f32 rate, or the bytes of q, k, v, the output and
+    their gradients, whichever is longer."""
+    from torch.profiler import ProfilerActivity, profile
+    mesh = make_tf_mesh({"data": 1, "seq": 1, "model": 1})
+    fn = {"ring": ring_attention.ring_attention,
+          "ring_zigzag": ring_attention.zigzag_ring_attention,
+          "ulysses": ulysses.ulysses_attention}[mode]
+    gen = torch.Generator(device="cuda").manual_seed(TF_SEED)
+    shape = (B, cfg.n_heads, S, cfg.d_head)
+    qkv = [torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
+           .requires_grad_() for _ in range(3)]
+    dout = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
+
+    def run():
+        out = fn(*qkv, mesh, "seq", causal=True)
+        torch.autograd.grad(out, qkv, dout)
+
+    run()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    prof_ms, event_ms = [], []
+    for _ in range(TF_PROFILE_REPS):
+        with profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        prof_ms.append(device_ms(prof))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+        event_ms.append(e0.elapsed_time(e1))
+    ops = 12.0 * B * cfg.n_heads * attention_pairs(mode, S) * cfg.d_head
+    nbytes = 8 * B * cfg.n_heads * S * cfg.d_head * qkv[0].element_size()
+    # the matmuls run in f32 (no TF32), as the JAX package's do
+    b_ms, by = bound_ms(nbytes, ops, PEAK_F32_OPS_PER_S)
+    return dict(ms=float(np.median(prof_ms)), prof_ms=prof_ms,
+                event_ms=float(np.median(event_ms)), events_ms=event_ms,
+                bound_ms=b_ms, bound_by=by, ops=ops)
+
+
+def phase_transformer_full_width(card) -> dict:
+    """19a: each strategy at ``TransformerConfig()``'s full width, world
+    size 1, ``TF_STEPS`` steps on the same seeded batch; then the narrow
+    f32 config on cuda against cpu."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg0 = TF_CONFIG
+    mesh = make_tf_mesh({"data": 1, "seq": 1, "model": 1})
+    toks, tgts = tf_tokens(TF_BATCH, TF_SEQ, cfg0.vocab_size, TF_SEED)
+    out = {"config": {k: str(v) for k, v in cfg0._asdict().items()},
+           "batch": TF_BATCH, "seq": TF_SEQ}
+    first = {}
+    for mode in TF_STRATEGIES:
+        cfg = cfg0._replace(seq_attention=mode)
+        params = tfm.init_params(cfg, TF_SEED, device="cuda")
+        n_params = sum(t.numel() for t in tfm.tree_leaves(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, params, opt, step = tf_run(
+            cfg, mesh, params, toks, tgts, TF_STEPS, "cuda")
+        peak = torch.cuda.max_memory_allocated()
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"19a {mode}: losses {losses} not finite "
+                                 "and falling")
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            params, opt, loss = step(params, opt, toks, tgts)
+            torch.cuda.synchronize()
+        step_dev = device_ms(prof)
+        del params, opt, step, prof
+        att = attention_profile(cfg, mode, TF_BATCH, TF_SEQ)
+        warm = ms[1:]
+        rec = dict(losses=losses, step_ms=ms, warm_ms=float(np.mean(warm)),
+                   tokens_per_s=TF_BATCH * TF_SEQ / (np.mean(warm) / 1e3),
+                   peak_bytes=peak, params=n_params, step_device_ms=step_dev,
+                   attention_ms=att["ms"] * cfg.n_layers,
+                   attention_share=att["ms"] * cfg.n_layers / step_dev,
+                   attention_runs_ms=att["prof_ms"],
+                   attention_event_ms=att["event_ms"] * cfg.n_layers,
+                   attention_event_runs_ms=att["events_ms"],
+                   attention_bound_ms=att["bound_ms"] * cfg.n_layers,
+                   attention_bound_by=att["bound_by"])
+        first[mode] = losses[0]
+        out[mode] = rec
+        log(f"19a {mode}: {n_params:,} params, B={TF_BATCH} S={TF_SEQ}: "
+            f"losses {[round(x, 5) for x in losses]}; step ms "
+            f"{[round(x, 2) for x in ms]} (warm mean {rec['warm_ms']:.2f}, "
+            f"{rec['tokens_per_s']:,.0f} tokens/s); peak "
+            f"{peak / 2**30:.2f} GiB; profiled step {step_dev:.2f} device "
+            f"ms, attention {rec['attention_ms']:.2f} ms "
+            f"({100 * rec['attention_share']:.1f}%; events "
+            f"{rec['attention_event_ms']:.2f} ms, "
+            f"{100 * rec['attention_event_ms'] / rec['warm_ms']:.1f}% of "
+            f"the warm step; per layer "
+            f"{[round(x, 2) for x in att['prof_ms']]} profiled, "
+            f"{[round(x, 2) for x in att['events_ms']]} events; bound "
+            f"{rec['attention_bound_ms']:.2f} ms by {att['bound_by']}) on "
+            f"{card}")
+        torch.cuda.empty_cache()
+    spread = max(first.values()) - min(first.values())
+    if spread > TF_FIRST_LOSS_ATOL:
+        raise AssertionError(f"19a: first losses {first} spread {spread} > "
+                             f"{TF_FIRST_LOSS_ATOL}")
+    out["first_loss_spread"] = spread
+    narrow = {}
+    for mode in TF_STRATEGIES:
+        cfg = tfm.TransformerConfig(seq_attention=mode, **TF_NARROW)
+        toks_n, tgts_n = tf_tokens(TF_NARROW_BATCH, TF_NARROW_SEQ,
+                                   cfg.vocab_size, TF_SEED)
+        got = {dev: tf_run(cfg, mesh, tfm.init_params(cfg, TF_SEED,
+                                                      device=dev),
+                           toks_n, tgts_n, TF_NARROW_STEPS, dev)[0]
+               for dev in ("cuda", "cpu")}
+        diff = float(np.max(np.abs(np.subtract(got["cuda"], got["cpu"]))))
+        if diff > TF_CPU_ATOL:
+            raise AssertionError(f"19a narrow {mode}: cuda {got['cuda']} "
+                                 f"vs cpu {got['cpu']}")
+        narrow[mode] = dict(losses=got["cuda"], max_abs_diff=diff)
+    out["narrow_cuda_vs_cpu"] = narrow
+    log(f"19a: first losses {first} (spread {spread:.3g} <= "
+        f"{TF_FIRST_LOSS_ATOL}); narrow f32 cuda vs cpu over "
+        f"{TF_NARROW_STEPS} steps: "
+        + ", ".join(f"{m} {r['max_abs_diff']:.3g}" for m, r in
+                    narrow.items()))
+    return out
+
+
+# a rank of 19b: joins gloo through a file rendezvous, builds the data x
+# seq x model mesh, and runs each strategy's steps on its shards of the
+# seeded params on the card; writes its losses and the bytes each of its
+# collectives sent
+TF_RANK_SRC = r"""
+import json, sys, time
+root, rank, world, init, spec, out = sys.argv[1:7]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from chip_smoke import tf_tokens
+from mmlspark_tpu_torch.models.dnn import transformer as tfm
+from mmlspark_tpu_torch.parallel import collectives, distributed
+from mmlspark_tpu_torch.parallel.mesh import make_mesh
+from mmlspark_tpu_torch.parallel.ring_attention import zigzag_permute
+distributed.initialize(init, world, rank, backend="gloo", device="cuda")
+mesh = make_mesh(spec["shape"])
+res = {"axes": {a: mesh.axis_index(a) for a in spec["shape"]}}
+for mode in spec["strategies"]:
+    cfg = tfm.TransformerConfig(**spec["cfg"], dtype=torch.float32,
+                                seq_attention=mode)
+    toks, tgts = tf_tokens(spec["batch"], spec["seq"], cfg.vocab_size,
+                           spec["seed"])
+    if mode == "ring_zigzag":
+        n = spec["shape"]["seq"]
+        toks, tgts = (zigzag_permute(a, n, axis=1) for a in (toks, tgts))
+    params = tfm.shard_params(tfm.init_params(cfg, spec["seed"],
+                                              device="cpu"),
+                              cfg, mesh, device="cuda")
+    opt = tfm.adamw_init(params)
+    step = tfm.make_train_step(cfg, mesh, lr=spec["lr"], device="cuda")
+    collectives.reset_stats()
+    losses, t0 = [], time.perf_counter()
+    for _ in range(spec["steps"]):
+        params, opt, loss = step(params, opt, toks, tgts)
+        losses.append(float(loss))
+    res[mode] = {"losses": losses, "s": time.perf_counter() - t0,
+                 "collectives": collectives.stats()}
+with open(out, "w") as f:
+    json.dump(res, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def run_tf_ranks(world: int) -> list:
+    """19b's ``world`` processes of ``TF_RANK_SRC`` joined through a file
+    rendezvous under ``P19_DIR``. Returns each rank's record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    os.makedirs(P19_DIR)
+    init = f"file://{P19_DIR}/rendezvous"
+    env = dict(os.environ, PYTHONPATH=root)
+    cfg = {k: v for k, v in TF_RANK_CONFIG._asdict().items()
+           if k not in ("dtype", "seq_attention")}
+    spec = json.dumps(dict(shape=TF_RANK_SHAPE, strategies=TF_STRATEGIES,
+                           cfg=cfg, batch=TF_RANK_BATCH, seq=TF_RANK_SEQ,
+                           steps=TF_RANK_STEPS, seed=TF_SEED, lr=TF_LR))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TF_RANK_SRC, root, str(r), str(world), init,
+         spec, os.path.join(P19_DIR, f"rank{r}.json")],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    failed = []
+    for r, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=TF_RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise AssertionError(f"19b rank {r} of {world} timed out")
+        if p.returncode != 0:
+            failed.append(f"rank {r}: rc {p.returncode}\n{out[-3000:]}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    recs = []
+    for r in range(world):
+        with open(os.path.join(P19_DIR, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def tf_losses_with_factor(cfg, params, toks, tgts, steps, factor) -> list:
+    """World-size-1 steps whose gradients are multiplied by ``factor``
+    before AdamW: the reference's tensor-parallel step on one rank (its
+    gradients carry the ``model`` shard count; ROADMAP Queue 3)."""
+    mesh = make_tf_mesh({"data": 1, "seq": 1, "model": 1})
+    tok = tfm.local_block(toks, mesh, "cuda")
+    tgt = tfm.local_block(tgts, mesh, "cuda")
+    opt = tfm.adamw_init(params)
+    losses = []
+    for _ in range(steps):
+        with exact_f32("cuda"):
+            loss, grads = tfm.loss_and_grads(params, tok, tgt, cfg, mesh)
+        with torch.no_grad():
+            grads = tfm.tree_map(lambda g: g * factor, grads)
+            params, opt = tfm.adamw_update(grads, opt, params, lr=TF_LR)
+        losses.append(float(loss))
+    return losses
+
+
+def phase_transformer_ranks(card) -> dict:
+    """19b: the four-rank mesh of ``TF_RANK_SHAPE`` (gloo, one card) at
+    ``TF_RANK_CONFIG`` (full width, one layer, f32), S=``TF_RANK_SEQ``: each
+    strategy's losses within ``TF_RANK_ATOL`` of world size 1 on the card
+    with the reference's gradient factor. With 2 model shards every
+    gradient is twice the true one (ROADMAP Queue 3); AdamW's step is
+    invariant to that but for its epsilon, which at 32,000 vocab columns
+    (most of the head's gradients near 1e-7) moves the later losses, so the
+    world-size-1 run multiplies its gradients by the shard count too. The
+    plain world-size-1 losses print beside them, not held."""
+    world = int(np.prod(list(TF_RANK_SHAPE.values())))
+    t0 = time.perf_counter()
+    ranks = run_tf_ranks(world)
+    spawn_s = time.perf_counter() - t0
+    mesh = make_tf_mesh({"data": 1, "seq": 1, "model": 1})
+    out = {"shape": TF_RANK_SHAPE, "ranks_s": spawn_s}
+    for mode in TF_STRATEGIES:
+        cfg = TF_RANK_CONFIG._replace(seq_attention=mode)
+        toks, tgts = tf_tokens(TF_RANK_BATCH, TF_RANK_SEQ, cfg.vocab_size,
+                               TF_SEED)
+        want = tf_losses_with_factor(
+            cfg, tfm.init_params(cfg, TF_SEED, device="cuda"), toks, tgts,
+            TF_RANK_STEPS, TF_RANK_SHAPE["model"])
+        plain = tf_run(cfg, mesh, tfm.init_params(cfg, TF_SEED,
+                                                  device="cuda"),
+                       toks, tgts, TF_RANK_STEPS, "cuda")[0]
+        diff = max(float(np.max(np.abs(np.subtract(r[mode]["losses"],
+                                                   want))))
+                   for r in ranks)
+        plain_diff = float(np.max(np.abs(np.subtract(
+            ranks[0][mode]["losses"], plain))))
+        if diff > TF_RANK_ATOL or not np.isfinite(want).all():
+            raise AssertionError(
+                f"19b {mode}: ranks {[r[mode]['losses'] for r in ranks]} "
+                f"vs world size 1 {want}")
+        out[mode] = dict(losses=ranks[0][mode]["losses"], world1=want,
+                         max_abs_diff=diff, world1_plain=plain,
+                         plain_max_abs_diff=plain_diff,
+                         s=[r[mode]["s"] for r in ranks],
+                         collectives=ranks[0][mode]["collectives"])
+        log(f"19b {mode}: {TF_RANK_STEPS} steps at {TF_RANK_SHAPE} "
+            f"(B={TF_RANK_BATCH}, S={TF_RANK_SEQ}, "
+            f"{TF_RANK_CONFIG.n_layers} layer, f32): losses "
+            f"{ranks[0][mode]['losses']} vs world size 1 with the factor "
+            f"{want} (max diff {diff:.3g}; without it {plain}, "
+            f"{plain_diff:.3g}); "
+            f"{max(out[mode]['s']):.2f} s; rank 0 sent "
+            + ", ".join(f"{k} {v['calls']} calls {v['bytes']:,} B"
+                        for k, v in sorted(out[mode]["collectives"].items()))
+            + f" on {card}")
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    return out
+
+
+def phase_transformer(card) -> dict:
+    """Phase 19: 19a and 19b; no histogram kernel may launch."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    out = {"19a": phase_transformer_full_width(card)}
+    t1 = time.perf_counter()
+    out["19b"] = phase_transformer_ranks(card)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 19 launched a histogram kernel: "
+                             f"{counts}")
+    out["kernels"] = "none: phase 19's device work is torch ops"
+    out["sub_s"] = {"19a": t1 - t0, "19b": time.perf_counter() - t1}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19: {out['seconds']:.1f} s (19a {out['sub_s']['19a']:.1f} "
+        f"s, 19b {out['sub_s']['19b']:.1f} s) on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -5958,6 +6359,7 @@ def main() -> int:
     Xh, yh = higgs_shaped(HIGGS_HOLDOUT, seed=1)
     p18 = phase_automl_and_http((X, y, Xh, yh), base, quantized, card)
     del X, y, Xh, yh
+    p19 = phase_transformer(card)
     fits.update(p18.pop("fits"))
     fits["17c"] = p17["17c"]
     fits["15e"] = p15.pop("15e")
@@ -5973,7 +6375,7 @@ def main() -> int:
         + "; phase 14: " + json.dumps(p14) + "; phase 15: "
         + json.dumps(p15) + "; phase 16: " + json.dumps(p16)
         + "; phase 17: " + json.dumps(p17) + "; phase 18: "
-        + json.dumps(p18))
+        + json.dumps(p18) + "; phase 19: " + json.dumps(p19))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

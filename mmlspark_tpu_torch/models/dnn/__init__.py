@@ -1,11 +1,12 @@
-"""DNN scoring path (counterpart of ``mmlspark_tpu/models/dnn``; reference:
+"""DNN path (counterpart of ``mmlspark_tpu/models/dnn``; reference:
 cntk/ + image featurization).
 
 ``cnn``: torch convnets for featurization; ``scoring``:
 DNNModel/ImageFeaturizer pipeline stages (CNTKModel parity); ``downloader``:
-pretrained-model repository; ``convert``: param trees and models between
-the JAX package and the port. The JAX package's ``transformer`` (a
-training path over ring attention) is not ported here.
+pretrained-model repository; ``transformer``: the SPMD transformer's train
+step over a data x seq x model mesh (ring, zig-zag ring or Ulysses
+attention); ``convert``: param trees and models between the JAX package
+and the port.
 """
 
 from .cnn import (AlexNetConfig, CNNConfig, alexnet_feature_dim,

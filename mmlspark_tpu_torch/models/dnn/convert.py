@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ...core.params import set_known_params
-from ...device import DeviceLike
+from ...device import DeviceLike, resolve_device
 
 
 def params_from_jax(tree: Any) -> Any:
@@ -76,3 +76,38 @@ def dnn_model_from_jax(jax_dnn_model, device: DeviceLike = None):
     # the set Params as they are: the JAX DNNModel's ``params`` attribute
     # shadows ``Params.params()``, so its ``extract_param_map`` raises
     return set_known_params(model, dict(jax_dnn_model._paramMap), device)
+
+
+def transformer_params_from_jax(tree: Any, cfg, mesh=None,
+                                device: DeviceLike = None) -> Any:
+    """The JAX transformer's param tree (``init_params(cfg, key)``, numpy
+    or JAX array leaves) as the port's: the same layout leaf for leaf, f32
+    tensors on ``device``. With ``mesh``, this rank's ``model`` shards
+    (:func:`.transformer.shard_params`); without, the full tree. Unlike
+    :func:`params_from_jax`, no 4-D leaf is permuted: ``wqkv``'s
+    ``[L, E, H, 3*Dh]`` is the same in both packages."""
+    from . import transformer
+
+    full = transformer.tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)), tree)
+    if mesh is not None:
+        return transformer.shard_params(full, cfg, mesh, device=device)
+    dev = resolve_device(device)
+    return transformer.tree_map(lambda t: t.to(dev), full)
+
+
+def transformer_params_to_jax(tree: Any, cfg, mesh=None) -> Any:
+    """The port's transformer params as the JAX layout's numpy tree, keys
+    sorted. With ``mesh``, ``tree`` is this rank's shards and the ``model``
+    dims are gathered first (every rank of the axis must call it)."""
+    from . import transformer
+
+    if mesh is not None:
+        tree = transformer.gather_params(tree, cfg, mesh)
+
+    def to_numpy(t):
+        if isinstance(t, dict):
+            return {k: to_numpy(t[k]) for k in sorted(t)}
+        return np.ascontiguousarray(t.detach().cpu().float().numpy())
+
+    return to_numpy(tree)

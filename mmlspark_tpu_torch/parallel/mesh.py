@@ -1,29 +1,36 @@
-"""The data group: the ranks rows are sharded over, and their collectives.
+"""The mesh: a grid of ``torch.distributed`` ranks with named axes.
 
 Counterpart of ``mmlspark_tpu/parallel/mesh.py``. The JAX package's mesh is
 a grid of devices with named axes; its GBDT trainer shards rows over the
-``data`` axis and sums histograms with ``psum``. Here the ``data`` axis is
-a :class:`Mesh` over a ``torch.distributed`` process group — the default
-group, or one process when none is initialised — with one rank per
-process, each on the device its ``device=`` argument names (several ranks
-may share one card). Every rank passes the same global rows; each keeps
-the slice its rank selects (:func:`..placement.shard_rows`).
+``data`` axis and sums histograms with ``psum``, and its transformer adds
+``seq`` and ``model``. Here a :class:`Mesh` is a grid of ranks of a
+``torch.distributed`` process group — the default group, or one process
+when none is initialised — with one rank per process, each on the device
+its ``device=`` argument names (several ranks may share one card). Ranks
+are laid out row-major over the axes in the order given, as the JAX
+package reshapes its device list. Each axis has one process group per line
+of the grid along it; :meth:`Mesh.axis_index` and :meth:`Mesh.axis_size`
+place this process on each axis, and :mod:`.collectives` runs the
+differentiable collectives over one axis.
 
-The collectives the trainer needs are methods of the mesh, in rank order:
-:meth:`Mesh.all_reduce` (``SUM`` or ``MAX``) and :meth:`Mesh.all_gather`.
-On one process they are the identity. With the ``gloo`` backend a CUDA
-tensor goes through a host copy (gloo's collectives on CUDA tensors are
-partial), so a two-rank check on one card can run where ``nccl`` refuses
-two ranks on one GPU.
+The data axis keeps its own surface, which the GBDT, VW and ALS trainers
+read: ``size``, ``rank``, ``ranks``, ``group``, and the collectives
+:meth:`Mesh.all_reduce` (``SUM`` or ``MAX``) and :meth:`Mesh.all_gather`,
+in rank order. Every rank passes the same global rows; each keeps the
+slice its data rank selects (:func:`..placement.shard_rows`). On one
+process every axis has size 1 and the collectives are the identity. With
+the ``gloo`` backend a CUDA tensor goes through a host copy (gloo's
+collectives on CUDA tensors are partial), so a check of several ranks on
+one card can run where ``nccl`` refuses two ranks on one GPU.
 
-Canonical axis name: ``data``. The ``model`` and ``seq`` axes of the JAX
-package are not ported yet.
+Canonical axis names: ``data`` (rows, batch), ``seq`` (sequence shards)
+and ``model`` (tensor-parallel shards).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,19 +39,40 @@ import torch.distributed as dist
 from ..observability.env_registry import env_int
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+
+
+def host_copy(t: torch.Tensor, group=None) -> bool:
+    """Whether a collective over ``group`` takes ``t`` through the host:
+    a CUDA tensor under ``gloo``."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
 class Mesh:
-    """The data group of this process: ``ranks`` (global ranks, in order;
-    position ``i`` holds row shard ``i``), the process group over them
-    (None: the default group, or no group on one process) and this
-    process's position in it."""
+    """This process's place in a grid of ranks.
 
-    def __init__(self, ranks: Sequence[int] = (0,), group=None):
-        self.ranks = tuple(int(r) for r in ranks)
-        self.group = group
-        me = dist.get_rank() if dist.is_initialized() else 0
+    ``ranks``/``group``: the data axis (global ranks in order, position
+    ``i`` holds row shard ``i``; the process group over them, None for the
+    default group or no group on one process). ``axes``: for a mesh of
+    more axes, ``{name: (ranks, group)}`` in the mesh's order, each the
+    line of the grid through this process along that axis (the data axis
+    included)."""
+
+    def __init__(self, ranks: Sequence[int] = (0,), group=None,
+                 axes: Optional[Dict[str, Tuple[Sequence[int], Any]]] = None):
+        if axes is None:
+            axes = {DATA_AXIS: (ranks, group)}
+        self.axes = {name: (tuple(int(r) for r in rs), g)
+                     for name, (rs, g) in axes.items()}
+        data = self.axes.get(DATA_AXIS, ((self._me(),), None))
+        self.ranks, self.group = data
+        me = self._me()
         self.rank = self.ranks.index(me) if me in self.ranks else -1
+
+    @staticmethod
+    def _me() -> int:
+        return dist.get_rank() if dist.is_initialized() else 0
 
     @property
     def size(self) -> int:
@@ -52,21 +80,49 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.size}
+        return {name: len(rs) for name, (rs, _) in self.axes.items()}
 
     @property
     def member(self) -> bool:
         return self.rank >= 0
 
+    def axis_size(self, axis: str) -> int:
+        """The size of ``axis``; 1 for an axis the mesh does not have."""
+        return len(self.axes[axis][0]) if axis in self.axes else 1
+
+    def axis_index(self, axis: str) -> int:
+        """This process's position along ``axis`` (0 for an axis the mesh
+        does not have; -1 outside the mesh)."""
+        if axis == DATA_AXIS:
+            return self.rank
+        if axis not in self.axes:
+            return 0
+        rs = self.axes[axis][0]
+        me = self._me()
+        return rs.index(me) if me in rs else -1
+
+    def axis_ranks(self, axis: str) -> Tuple[int, ...]:
+        """The global ranks of this process's line along ``axis``."""
+        return self.axes[axis][0] if axis in self.axes else (self._me(),)
+
+    def axis_group(self, axis: str):
+        return self.axes[axis][1] if axis in self.axes else None
+
     def __repr__(self) -> str:
-        return f"Mesh(data={self.size}, ranks={self.ranks}, rank={self.rank})"
+        if list(self.axes) == [DATA_AXIS]:
+            return (f"Mesh(data={self.size}, ranks={self.ranks}, "
+                    f"rank={self.rank})")
+        where = ", ".join(f"{a}={self.axis_index(a)}/{self.axis_size(a)}"
+                          for a in self.axes)
+        return f"Mesh({where})"
 
     def _host_copy(self, t: torch.Tensor) -> bool:
-        return t.is_cuda and dist.get_backend(self.group) == "gloo"
+        return host_copy(t, self.group)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over the group (``op``: ``sum`` or ``max``); every
-        rank gets the same bits. Returns a new tensor on ``t``'s device."""
+        """``t`` reduced over the data group (``op``: ``sum`` or ``max``);
+        every rank gets the same bits. Returns a new tensor on ``t``'s
+        device."""
         if self.size == 1:
             return t
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -76,8 +132,8 @@ class Mesh:
         return buf.to(t.device)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along axis 0 in rank order (the
-        JAX package's ``all_gather(..., tiled=True)``)."""
+        """Every data rank's ``t`` concatenated along axis 0 in rank order
+        (the JAX package's ``all_gather(..., tiled=True)``)."""
         if self.size == 1:
             return t
         src = t.detach().cpu() if self._host_copy(t) else t.detach()
@@ -97,23 +153,61 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def _grid_mesh(shape: Dict[str, int], ranks: Tuple[int, ...],
+               world: int) -> Mesh:
+    """The mesh of ``shape`` over ``ranks``, row-major. Every rank of the
+    world creates every line's group, axis by axis, line by line, in the
+    same order; an axis of size 1 (or a one-process world) needs none."""
+    sizes = [int(s) for s in shape.values()]
+    grid = np.array(ranks, dtype=np.int64).reshape(sizes)
+    me = Mesh._me()
+    axes = {}
+    for i, name in enumerate(shape):
+        lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
+        mine = None
+        for line in lines:
+            line = tuple(int(r) for r in line)
+            group = None
+            if sizes[i] > 1 and world > 1 and line != tuple(range(world)):
+                group = dist.new_group(list(line))
+            if me in line:
+                mine = (line, group)
+        # a process outside the grid keeps the first line (it is no
+        # member: its axis indices read -1)
+        axes[name] = mine if mine is not None else (
+            tuple(int(r) for r in lines[0]), None)
+    return Mesh(axes=axes)
+
+
 def make_mesh(shape: Optional[Dict[str, int]] = None,
               ranks: Optional[Sequence[int]] = None) -> Mesh:
-    """The data group over the first ``shape["data"]`` ranks, ``ranks``, or
-    (by default) every rank of the initialised world — one process when
-    ``torch.distributed`` is not initialised. ``MMLSPARK_TPU_MESH_DEVICES``
-    caps the default group to its first N ranks; an explicit ``shape`` or
-    ``ranks`` is honored as given. A group smaller than the world is a
-    ``new_group``, which every rank of the world must create together."""
+    """A mesh over the first ``prod(shape)`` ranks, ``ranks``, or (by
+    default) every rank of the initialised world on the ``data`` axis —
+    one process when ``torch.distributed`` is not initialised.
+
+    ``shape`` maps axis name -> size, in order (``data``, ``seq``,
+    ``model``); ranks are laid out row-major over it. A data-only shape
+    keeps the data group of before: ``MMLSPARK_TPU_MESH_DEVICES`` caps the
+    default group to its first N ranks, an explicit ``shape`` or ``ranks``
+    is honored as given, and a group smaller than the world is a
+    ``new_group``. A shape of more axes builds one group per line of the
+    grid along each axis; every rank of the world must call this
+    together."""
     world = _world()
+    if shape is not None and set(shape) - {DATA_AXIS}:
+        total = int(np.prod([int(s) for s in shape.values()]))
+        ranks = tuple(range(total)) if ranks is None else tuple(
+            int(r) for r in ranks)
+        if len(ranks) != total:
+            raise ValueError(f"mesh shape {shape} needs {total} ranks, "
+                             f"given {len(ranks)}")
+        if not ranks or max(ranks) >= world or min(ranks) < 0:
+            raise ValueError(f"mesh shape {shape} needs {total} ranks, "
+                             f"have a world of {world}")
+        return _grid_mesh(dict(shape), ranks, world)
     if ranks is None:
         n = world
         if shape is not None:
-            extra = set(shape) - {DATA_AXIS}
-            if extra:
-                raise NotImplementedError(
-                    f"mesh axes {sorted(extra)} are not ported: the data "
-                    "axis is the only one")
             n = int(shape.get(DATA_AXIS, world))
         else:
             cap = env_int("MMLSPARK_TPU_MESH_DEVICES", 0)
@@ -153,7 +247,7 @@ def default_mesh(mesh: Mesh):
 
 def num_shards(mesh: Optional[Mesh] = None, axis: str = DATA_AXIS) -> int:
     mesh = mesh or get_default_mesh()
-    return mesh.size if axis == DATA_AXIS else 1
+    return mesh.axis_size(axis)
 
 
 def pad_rows(arr: np.ndarray, multiple: int, fill=0) -> Tuple[np.ndarray, int]:

@@ -9,8 +9,8 @@
     ``tools/rehearse_chip_smoke.py``, ``tools/ab_predict.py``,
     ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``,
     ``tools/chip_phase16.py``, ``tools/chip_phase17.py``,
-    ``tools/chip_phase18.py``, ``tools/dnn_tolerances.py``), imports
-    either.
+    ``tools/chip_phase18.py``, ``tools/chip_phase19.py``,
+    ``tools/dnn_tolerances.py``), imports either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -32,6 +32,11 @@
   * The automl entry points (``TuneHyperparameters``, ``FindBestModel``
     and the sweep) fit on their estimators' device: ``cuda`` by default,
     raising without a GPU; they run with ``device="cpu"``.
+  * The transformer's entry points (``init_params``, ``shard_params``,
+    ``shard_opt_state``, ``make_train_step``, ``make_forward``,
+    ``transformer_params_from_jax``) default to ``cuda`` and raise without
+    a GPU; they run with ``device="cpu"``. So does a stage fitted through
+    the port's generated ``mmlspark`` namespace, until ``setDevice("cpu")``.
   * The port's test files lint clean under ``tools.graftlint``.
 """
 
@@ -174,6 +179,18 @@ SLICE_16_MODULES = (
 )
 
 
+#: sequence parallelism (the named-axis mesh's collectives, ring and
+#: Ulysses attention), the SPMD transformer and codegen
+SLICE_17_MODULES = (
+    "mmlspark_tpu_torch.parallel.collectives",
+    "mmlspark_tpu_torch.parallel.ring_attention",
+    "mmlspark_tpu_torch.parallel.ulysses",
+    "mmlspark_tpu_torch.models.dnn.transformer",
+    "mmlspark_tpu_torch.codegen",
+    "mmlspark_tpu_torch.codegen.__main__",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
@@ -188,6 +205,7 @@ def test_importing_the_port_loads_no_jax():
     assert set(SLICE_14_MODULES) <= set(mods)
     assert set(SLICE_15_MODULES) <= set(mods)
     assert set(SLICE_16_MODULES) <= set(mods)
+    assert set(SLICE_17_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -244,11 +262,12 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "chip_phase16.py"),
              os.path.join(ROOT, "tools", "chip_phase17.py"),
              os.path.join(ROOT, "tools", "chip_phase18.py"),
+             os.path.join(ROOT, "tools", "chip_phase19.py"),
              os.path.join(ROOT, "tools", "dnn_tolerances.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:12])
+    assert all(os.path.isfile(p) for p in paths[:13])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):
@@ -265,7 +284,7 @@ def test_no_source_imports_jax_or_the_jax_package():
               os.path.join("utils", "stopwatch.py")):
         assert os.path.join(PKG, f) in paths
     for mod in (SLICE_13_MODULES + SLICE_14_MODULES + SLICE_15_MODULES
-                + SLICE_16_MODULES):
+                + SLICE_16_MODULES + SLICE_17_MODULES):
         rel = mod.split(".", 1)[1].replace(".", os.sep)
         assert (os.path.join(PKG, rel + ".py") in paths
                 or os.path.join(PKG, rel, "__init__.py") in paths), mod
@@ -542,3 +561,58 @@ def test_automl_entry_points_default_to_cuda_and_raise(no_gpu):
                     call()
             else:
                 assert call() is not None
+
+
+def test_transformer_entry_points_default_to_cuda_and_raise(no_gpu):
+    from mmlspark_tpu_torch.models.dnn import transformer as T
+    from mmlspark_tpu_torch.models.dnn.convert import (
+        transformer_params_from_jax)
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+    cfg = T.TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                              d_head=8, n_layers=1, d_ff=32, max_len=16,
+                              dtype=torch.float32)
+    mesh = make_mesh({"data": 1, "seq": 1, "model": 1})
+    params = T.init_params(cfg, 0, device="cpu")
+    tree = {k: (v.numpy() if not isinstance(v, dict) else
+                {n: t.numpy() for n, t in v.items()})
+            for k, v in params.items()}
+    toks = np.zeros((1, 8), np.int64)
+    calls = [lambda: T.init_params(cfg, 0),
+             lambda: T.shard_params(params, cfg, mesh),
+             lambda: T.shard_opt_state(T.adamw_init(params), cfg, mesh),
+             lambda: T.make_train_step(cfg, mesh),
+             lambda: T.make_forward(cfg, mesh),
+             lambda: transformer_params_from_jax(tree, cfg)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
+    step = T.make_train_step(cfg, mesh, device="cpu")
+    _, _, loss = step(params, T.adamw_init(params), toks, toks)
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
+    logits = T.make_forward(cfg, mesh, device="cpu")(params, toks)
+    assert logits.shape == (1, 8, 32)
+
+
+def test_generated_namespace_stages_default_to_cuda_and_raise(no_gpu,
+                                                              tmp_path):
+    from mmlspark_tpu_torch.codegen import generate_compat_namespace
+    generate_compat_namespace(str(tmp_path))
+    for mod in [m for m in sys.modules if m == "mmlspark"
+                or m.startswith("mmlspark.")]:
+        del sys.modules[mod]
+    sys.path.insert(0, str(tmp_path))
+    try:
+        from mmlspark.lightgbm import LightGBMClassifier as Generated
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(64, 3)).astype(np.float32)
+        ds = Dataset({"features": X,
+                      "label": (X[:, 0] > 0).astype(np.float64)})
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            Generated().setNumIterations(1).setMinDataInLeaf(2).fit(ds)
+        assert Generated().setNumIterations(1).setMinDataInLeaf(2) \
+            .setDevice("cpu").fit(ds) is not None
+    finally:
+        sys.path.remove(str(tmp_path))
+        for mod in [m for m in sys.modules if m == "mmlspark"
+                    or m.startswith("mmlspark.")]:
+            del sys.modules[mod]

@@ -5,7 +5,9 @@
     degrades with a ``placement`` flight event, an explicit invalid count
     raises with the JAX messages.
   * The mesh helpers (``pad_rows``, ``validity_mask``, ``num_shards``) equal
-    the JAX ones; ``shard_rows`` keeps each rank's padded slice;
+    the JAX ones; ``make_mesh`` takes the named axes (``model``, ``seq``:
+    size 1 on one process, and a grid larger than the world refused);
+    ``shard_rows`` keeps each rank's padded slice;
     ``plan_for`` decides and records as the JAX one does.
   * ``initialize`` with no argument and no environment is a no-op; an
     explicit request that fails raises.
@@ -85,8 +87,14 @@ def test_one_process_mesh_and_num_shards():
     with tmesh.default_mesh(tmesh.Mesh(range(4))) as m4:
         assert tmesh.get_default_mesh() is m4 and tmesh.num_shards() == 4
     assert tmesh.get_default_mesh().size == 1
-    with pytest.raises(NotImplementedError, match="model"):
-        tmesh.make_mesh({"data": 1, "model": 1})
+    named = tmesh.make_mesh({"data": 1, "model": 1})
+    assert named.shape == {"data": 1, "model": 1}
+    assert (named.size, named.rank, named.axis_size("model"),
+            named.axis_index("model"), named.axis_size("seq")) == (1, 0, 1,
+                                                                   0, 1)
+    assert named.all_reduce(t) is t and tmesh.num_shards(named, "model") == 1
+    with pytest.raises(ValueError, match="world of 1"):
+        tmesh.make_mesh({"seq": 2})
     with pytest.raises(ValueError, match="world of 1"):
         tmesh.make_mesh(ranks=[0, 1])
 

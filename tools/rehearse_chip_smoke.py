@@ -13,6 +13,7 @@
         --feat-rows 1024 --lime-images 1]
     python tools/rehearse_chip_smoke.py p18 [--higgs-rows 100000
         --http-rows 2000]
+    python tools/rehearse_chip_smoke.py p19 [--tf-width 64 --tf-seq 256]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -64,7 +65,9 @@ their models, then phase 18: the tuning's two routes on ``--higgs-rows``
 rows, the small tuning and ``FindBestModel``, the HTTP stages over
 ``--http-rows`` rows against a ``serving_main`` worker subprocess on the
 CPU, the model fetched by ``http://``; "cuda against cpu" compares the CPU
-with itself). The plain
+with itself), ``p19`` (phase 19: the transformer's three strategies at
+``d_model=--tf-width`` over 2 x ``--tf-seq`` tokens, the narrow config
+"cuda against cpu", and 19b's four gloo ranks as CPU processes). The plain
 versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
@@ -277,12 +280,29 @@ def phase_automl(mod, http_rows: int) -> dict:
                                      "CPU rehearsal, no card")
 
 
+def phase_transformer(mod, width: int, seq: int) -> dict:
+    """Phase 19 with every config cut to ``d_model=width`` (4 heads, 2
+    layers, vocab 1,024, ``max_len=seq``) and 19a's batch to 2 x ``seq``
+    tokens; 19b's four gloo ranks on the CPU at ``seq // 2`` tokens. The
+    profiler reads no device time here: the attention's share prints 1."""
+    small = dict(vocab_size=1024, d_model=width, n_heads=4,
+                 d_head=width // 4, n_layers=2, d_ff=4 * width,
+                 max_len=seq)
+    mod.TF_CONFIG = mod.tfm.TransformerConfig(**small)
+    mod.TF_RANK_CONFIG = mod.TF_CONFIG._replace(n_layers=1,
+                                                dtype=torch.float32)
+    mod.TF_BATCH, mod.TF_SEQ = 2, seq
+    mod.TF_RANK_SEQ = seq // 2
+    mod.device_ms = lambda prof: 1.0
+    return mod.phase_transformer("CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
                              "p11", "p12", "p13", "p14", "p15", "p16",
-                             "p17", "p18"])
+                             "p17", "p18", "p19"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     ap.add_argument("--vw-rows", type=int, default=200_000)
@@ -293,6 +313,8 @@ def main() -> int:
     ap.add_argument("--feat-rows", type=int, default=1024)
     ap.add_argument("--lime-images", type=int, default=1)
     ap.add_argument("--http-rows", type=int, default=2_000)
+    ap.add_argument("--tf-width", type=int, default=64)
+    ap.add_argument("--tf-seq", type=int, default=256)
     args = ap.parse_args()
     torch.set_num_threads(4)
     mod = load_on_cpu(args.rows, args.higgs_rows)
@@ -309,7 +331,9 @@ def main() -> int:
                                            args.sift_base, args.aa_scale),
            "p17": lambda: phase_dnn(mod, args.dnn_images, args.feat_rows,
                                     args.lime_images),
-           "p18": lambda: phase_automl(mod, args.http_rows)}
+           "p18": lambda: phase_automl(mod, args.http_rows),
+           "p19": lambda: phase_transformer(mod, args.tf_width,
+                                            args.tf_seq)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
