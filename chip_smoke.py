@@ -411,6 +411,28 @@ Phases (any failure exits non-zero and prints no result line):
    collective of rank 0 sent. ``tools/chip_phase19.py`` runs this phase
    alone.
 
+20. Checkpoint/resume and out-of-core ingest over a data group: two
+   processes on the one card joined by gloo through a file rendezvous
+   under ``build/`` (three stages of ``P20_SRC``, each a new pair), phase
+   4's rows and 15a's VW at their full widths. 20a: phase 4's fit under
+   ``MMLSPARK_TPU_HIST_BLOCKS=8`` with a checkpoint every 2 rounds,
+   killed on both ranks by ``gbdt.round:exit@7``, resumed on two ranks
+   and on one (this process): both byte-equal to an uninterrupted
+   two-rank fit, the resumes growing the last rounds only (the
+   deterministic mode's launches); a checkpoint's seconds and bytes. 20b:
+   phase 11c's four shards built out of core over the two ranks: each
+   rank's bins, labels, weights and mask bit-equal to its slice of the
+   in-memory two-rank construct, its file reads inside its row range
+   (rank 0 also the binner's sample); quantized (kernel 2) and bf16
+   (kernel 1) fits on both datasets with identical trees, margins within
+   1e-5; ingest seconds a rank against one rank's in this process. 20c:
+   ``VowpalWabbitClassifier(numBits=24, numPasses=2)`` on 15a's 1,000,000
+   Criteo-shaped rows with ``checkpointDir``, the processes killed as
+   pass 2 starts, resumed: weights bit-equal to an uninterrupted two-rank
+   fit, the resume running pass 2 alone. Rank 1 names checkpoint
+   directories of its own, which must never be created.
+   ``tools/chip_phase20.py`` runs this phase alone.
+
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
 ``index_add_`` ms; the deterministic mode's at 14a's W=16 pass, launches
@@ -420,6 +442,8 @@ from 14a's fit), the card's name and power limit, and
 
 from __future__ import annotations
 
+import glob
+import hashlib
 import http.client
 import json
 import os
@@ -6293,6 +6317,464 @@ def phase_transformer(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: checkpoint/resume and out-of-core ingest over a data group of
+# two ranks (GBDT and VW)
+# ---------------------------------------------------------------------------
+
+# P20_DIR holds the phase's shards, rows, checkpoints and rank records
+# (ignored build directory); its two ranks share the card through gloo
+P20_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_p20")
+P20_WORLD = 2
+P20_CKPT_INTERVAL = 2
+# every rank dies at the top of round 7 (the 7th evaluation of the site,
+# iteration 6), after the checkpoint of rounds 0-5: a preempted job
+P20_KILL = "gbdt.round:exit@7"
+P20_EXIT = 17                   # the failpoint's exit status
+P20_VW_ROWS = 1_000_000         # 15a's Criteo-shaped rows, nothing cut
+P20_CHILD_TIMEOUT = 300
+
+# a rank of phase 20, in three stages, each its own pair of processes
+# joined by gloo through a file rendezvous: "a" builds phase 4's rows out
+# of core and in memory over the group and fits both (20b), fits phase 4's
+# fit under MMLSPARK_TPU_HIST_BLOCKS=8 uninterrupted, then again with a
+# checkpoint every 2 rounds until P20_KILL ends the process (20a); "b"
+# resumes that fit, fits 15a's VW uninterrupted, then checkpointed until
+# the process dies as pass 2 starts (20c); "c" resumes the VW fit. Rank 1
+# names checkpoint directories of its own, which must never be created
+P20_SRC = r"""
+import hashlib, json, os, sys, time
+root, rank, world, init, stage, d, n, device, out = sys.argv[1:10]
+rank, world, n = int(rank), int(world), int(n)
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from chip_smoke import (P20_CKPT_INTERVAL, P20_EXIT, P20_KILL, VW_BITS,
+                        higgs_shaped, read_counts, reset_counts)
+from mmlspark_tpu_torch.core.dataset import Dataset
+from mmlspark_tpu_torch.models.gbdt import booster as booster_mod
+from mmlspark_tpu_torch.models.gbdt import ingest
+from mmlspark_tpu_torch.models.gbdt.api import LightGBMClassifier
+from mmlspark_tpu_torch.models.gbdt.booster import (LightGBMDataset,
+                                                    train_booster)
+from mmlspark_tpu_torch.models.gbdt.growth import GrowConfig
+from mmlspark_tpu_torch.models.vw import sgd
+from mmlspark_tpu_torch.models.vw.api import VowpalWabbitClassifier
+from mmlspark_tpu_torch.parallel import distributed
+from mmlspark_tpu_torch.robustness import failpoints
+distributed.initialize(init, world, rank, backend="gloo", device=device)
+res = {}
+
+
+def sync():
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+# the process's CUDA context, before anything is timed
+torch.zeros(1, device=device)
+sync()
+
+
+def record():
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def own(name):
+    return os.path.join(d, name + ("" if rank == 0 else "_rank1"))
+
+
+def clock(name, fn, **extra):
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = fn()
+    sync()
+    res[name] = dict(s=time.perf_counter() - t0, counts=read_counts(),
+                     **extra)
+    return got
+
+
+# each checkpoint's seconds on this rank: the gathers, the state check
+# and, on rank 0, the write
+saves = res.setdefault("saves", [])
+real_save = booster_mod._save_checkpoint
+
+
+def timed_save(*a, **k):
+    sync()
+    t0 = time.perf_counter()
+    real_save(*a, **k)
+    saves.append(time.perf_counter() - t0)
+    record()
+
+
+booster_mod._save_checkpoint = timed_save
+
+
+def gbdt(name, ckpt):
+    kw = {} if ckpt is None else dict(checkpointDir=own(ckpt),
+                                      checkpointInterval=P20_CKPT_INTERVAL)
+    est = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
+                             device=device, **kw)
+    b = clock(name, lambda: est.fit(Dataset({"features": X,
+                                             "label": y})).booster)
+    res[name]["model"] = hashlib.sha256(
+        b.model_string().encode()).hexdigest()
+
+
+def vw(name, ckpt):
+    kw = {} if ckpt is None else dict(checkpointDir=own(ckpt))
+    est = VowpalWabbitClassifier(numBits=VW_BITS, numPasses=2,
+                                 batchSize=128, device=device, **kw)
+    m = clock(name, lambda: est.fit(vw_rows))
+    res[name]["weights"] = hashlib.sha256(
+        np.asarray(m.weights, np.float32).tobytes()).hexdigest()
+
+
+def load_vw():
+    return Dataset({"features_indices": np.load(d + "/vw_idx.npy"),
+                    "features_values": np.load(d + "/vw_val.npy"),
+                    "label": np.load(d + "/vw_y.npy")})
+
+
+passes = []
+real_train_sgd = sgd.train_sgd
+
+
+def one_pass(*a, **k):
+    # the checkpointed VW fit runs one call a pass; this process dies as
+    # the pass after its first checkpoint starts where DIE_AT is set
+    passes.append(1)
+    if len(passes) == DIE_AT:
+        os._exit(P20_EXIT)
+    return real_train_sgd(*a, **k)
+
+
+DIE_AT = 0
+sgd.train_sgd = one_pass
+if stage == "a":
+    reads = []
+    src = ingest.ShardedMatrixSource
+    real_read, real_gather = src.read_into, src.gather
+
+    def read_into(self, o, a, b):
+        reads.append([os.path.basename(os.path.dirname(self.paths[0])),
+                      int(a), int(min(b, self.n))])
+        return real_read(self, o, a, b)
+
+    def gather(self, idx):
+        reads.append(["sample", int(len(idx))])
+        return real_gather(self, idx)
+
+    src.read_into, src.gather = read_into, gather
+    ooc = clock("ingest", lambda: LightGBMDataset.construct(
+        path=d + "/x", label_path=d + "/y", device=device))
+    src.read_into, src.gather = real_read, real_gather
+    res["reads"] = reads
+    X, y = higgs_shaped(n, seed=0)
+    mem = LightGBMDataset.construct(X, y, bin_dtype="uint8", device=device)
+    res["same"] = {k: bool(torch.equal(getattr(ooc, k), getattr(mem, k)))
+                   for k in ("Xbt", "y", "w", "vmask")}
+    res["same"]["bounds"] = bool(np.array_equal(ooc.binner.upper_bounds,
+                                                mem.binner.upper_bounds))
+    res["layout"] = [ooc.n, ooc.n_pad, ooc.n_local, str(ooc.Xbt.dtype)]
+    for name, cfg in (("quantized", GrowConfig(
+            num_leaves=31, quantized_grad=True, quant_warmup_iters=0)),
+            ("bf16", GrowConfig(num_leaves=31))):
+        for kind, ds in (("ooc", ooc), ("mem", mem)):
+            b = clock(f"{name}_{kind}", lambda: train_booster(
+                dataset=ds, objective="binary", num_iterations=10, cfg=cfg))
+            res[f"{name}_{kind}"]["model"] = b.model_string()
+    del ooc, mem
+    os.environ["MMLSPARK_TPU_HIST_BLOCKS"] = "8"
+    gbdt("full", None)
+    saves.clear()
+    record()
+    failpoints.configure(P20_KILL)
+    gbdt("killed", "gbdt_ck")
+    raise SystemExit("20a: the fit ran past its failpoint")
+if stage == "b":
+    os.environ["MMLSPARK_TPU_HIST_BLOCKS"] = "8"
+    X, y = higgs_shaped(n, seed=0)
+    gbdt("resumed", "gbdt_ck")
+    res["resumed"]["saves"] = list(saves)
+    del X, y
+    vw_rows = load_vw()
+    vw("vw_full", None)
+    record()
+    DIE_AT = 2
+    vw("vw_killed", "vw_ck")
+    raise SystemExit("20c: the VW fit ran past its second pass")
+vw_rows = load_vw()
+vw("vw_resumed", "vw_ck")
+res["vw_resumed"]["passes"] = len(passes)
+record()
+torch.distributed.destroy_process_group()
+"""
+
+
+def run_p20(stage: str, rc: int) -> list:
+    """Stage ``stage`` of ``P20_SRC`` on ``P20_WORLD`` processes; each must
+    exit with ``rc``. Returns each rank's record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    init = f"file://{P20_DIR}/rendezvous_{stage}"
+    env = dict(os.environ, PYTHONPATH=root)
+    for k in ("MMLSPARK_TPU_BINNED_CACHE", "MMLSPARK_TPU_HIST_BLOCKS",
+              "MMLSPARK_TPU_FAILPOINTS"):
+        env.pop(k, None)
+    outs = [os.path.join(P20_DIR, f"{stage}_rank{r}.json")
+            for r in range(P20_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", P20_SRC, root, str(r), str(P20_WORLD), init,
+         stage, P20_DIR, str(HIGGS_ROWS), "cuda", outs[r]],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(P20_WORLD)]
+    failed = []
+    for r, p in enumerate(procs):
+        try:
+            text, _ = p.communicate(timeout=P20_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"phase 20 stage {stage}: rank {r} timed "
+                                 "out")
+        if p.returncode != rc:
+            failed.append(f"rank {r}: rc {p.returncode}, not {rc}\n"
+                          f"{text[-3000:]}")
+    if failed:
+        raise AssertionError(f"phase 20 stage {stage}:\n" + "\n".join(failed))
+    recs = []
+    for path in outs:
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def summed_counts(recs, name) -> dict:
+    """``name``'s launch counts summed over the ranks."""
+    return {k: sum(r[name]["counts"][k] for r in recs)
+            for k in recs[0][name]["counts"]}
+
+
+def check_launches(counts, needs, what) -> None:
+    """``needs`` launched and no plain version ran (on a card: the CPU's
+    rank processes run the plain versions, which they do not count)."""
+    if not torch.cuda.is_available():
+        return
+    if counts["plain"] or any(counts[k] <= 0 for k in needs):
+        raise AssertionError(f"{what}: launches {counts}, needs {needs}")
+
+
+def same_on_ranks(recs, name, key) -> str:
+    values = {r[name][key] for r in recs}
+    if len(values) != 1:
+        raise AssertionError(f"{name}: the ranks' {key} differ")
+    return values.pop()
+
+
+def check_reads(recs, n, sample_rows=200_000) -> None:
+    """20b: every file read of a rank lies in its padded row range and
+    together they cover it once per source; rank 0 alone reads the
+    binner's sample (``construct``'s ``bin_sample_count``: a gather of
+    that many rows, or one read of every row where there are no more)."""
+    per = -(-n // len(recs))
+    for r, rec in enumerate(recs):
+        lo, hi = r * per, min((r + 1) * per, n)
+        reads = list(rec["reads"])
+        sample = [g for g in reads if g[0] == "sample"]
+        if n <= sample_rows and r == 0:
+            reads.remove(["x", 0, n])
+            sample = [["sample", n]]
+        if sample != ([["sample", min(n, sample_rows)]] if r == 0 else []):
+            raise AssertionError(f"20b rank {r}: sample reads {sample}")
+        for src in ("x", "y"):
+            spans = sorted((g[1], g[2]) for g in reads if g[0] == src)
+            if not (spans and all(lo <= a < b <= hi for a, b in spans)
+                    and sum(b - a for a, b in spans) == hi - lo):
+                raise AssertionError(f"20b rank {r}: {src} reads {spans} "
+                                     f"outside or short of [{lo}, {hi})")
+
+
+def phase_ooc_group(recs, Xh, s_one) -> dict:
+    """20b's holds on stage a's records."""
+    for r, rec in enumerate(recs):
+        if not all(rec["same"].values()):
+            raise AssertionError(f"20b rank {r}: the out-of-core slice "
+                                 f"differs from the in-memory one: "
+                                 f"{rec['same']}")
+        if rec["layout"] != [HIGGS_ROWS, HIGGS_ROWS,
+                             HIGGS_ROWS // P20_WORLD, "torch.uint8"]:
+            raise AssertionError(f"20b rank {r}: layout {rec['layout']}")
+    check_reads(recs, HIGGS_ROWS)
+    out = {"ingest_s": [rec["ingest"]["s"] for rec in recs],
+           "one_rank_ingest_s": s_one}
+    for name, needs in (("quantized", "node_hist_int8"),
+                        ("bf16", "node_hist_bf16")):
+        models = {}
+        for kind in ("ooc", "mem"):
+            key = f"{name}_{kind}"
+            same_on_ranks(recs, key, "model")
+            check_launches(summed_counts(recs, key), [needs], f"20b {key}")
+            models[kind] = Booster.from_string(recs[0][key]["model"])
+            out[key] = dict(fit_s=[rec[key]["s"] for rec in recs],
+                            counts=summed_counts(recs, key))
+        for f in ("feat", "thr_bin", "left", "right", "is_leaf",
+                  "cat_bitset"):
+            if not np.array_equal(models["ooc"].trees[f],
+                                  models["mem"].trees[f]):
+                raise AssertionError(f"20b {name}: tree field {f} differs")
+        diff = margin_diff(models["ooc"].predict_raw(Xh, device="cuda"),
+                           models["mem"].predict_raw(Xh, device="cuda"))
+        if not diff <= 1e-5:
+            raise AssertionError(f"20b {name}: margins differ by {diff}")
+        out[name + "_byte_equal"] = (recs[0][f"{name}_ooc"]["model"]
+                                     == recs[0][f"{name}_mem"]["model"])
+        log(f"20b {name}: fits out of core {out[name + '_ooc']['fit_s']} s, "
+            f"in memory {out[name + '_mem']['fit_s']} s a rank; identical "
+            f"trees, margins within {diff:.3g} (byte-equal "
+            f"{out[name + '_byte_equal']}); launches "
+            f"{out[name + '_ooc']['counts']}")
+    log(f"20b: each rank read only its {HIGGS_ROWS // P20_WORLD:,} rows "
+        f"(rank 0 also the binner's sample); its bins, labels, weights and mask "
+        f"bit-equal to its slice of the in-memory construct; ingest "
+        f"{out['ingest_s'][0]:.3f} / {out['ingest_s'][1]:.3f} s on ranks 0 "
+        f"/ 1 against {s_one:.3f} s on one rank")
+    return out
+
+
+def phase_group_resume(card) -> dict:
+    """Phase 20: 20a-20c over two ranks sharing the card."""
+    t0 = time.perf_counter()
+    log(f"== phase 20: checkpoint/resume and out-of-core ingest over "
+        f"{P20_WORLD} ranks on the card (gloo): phase 4's rows, 15a's VW")
+    shutil.rmtree(P20_DIR, ignore_errors=True)
+    os.makedirs(P20_DIR)
+    X, y = higgs_shaped(HIGGS_ROWS, seed=0)
+    Xh, _ = higgs_shaped(HIGGS_HOLDOUT, seed=1)
+    q = len(y) // 4
+    cuts = [(i * q, len(y) if i == 3 else (i + 1) * q) for i in range(4)]
+    write_shards((X[a:b] for a, b in cuts), os.path.join(P20_DIR, "x"))
+    write_shards((y[a:b] for a, b in cuts), os.path.join(P20_DIR, "y"))
+    one, s_one = timed(lambda: LightGBMDataset.construct(
+        path=os.path.join(P20_DIR, "x"), label_path=os.path.join(P20_DIR,
+                                                                 "y"),
+        device="cuda"))
+    del one
+    counts, ids, vy, _ = criteo_raw(P20_VW_ROWS, seed=3)
+    idx, val = criteo_hashed(counts, ids)
+    for name, a in (("idx", idx), ("val", val), ("y", vy)):
+        np.save(os.path.join(P20_DIR, f"vw_{name}.npy"), a)
+    del counts, ids, idx, val, vy
+    log(f"20: data and shards {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    a = run_p20("a", P20_EXIT)
+    out = {"20b": phase_ooc_group(a, Xh, s_one)}
+    ck = os.path.join(P20_DIR, "gbdt_ck")
+    files = sorted(glob.glob(os.path.join(ck, "ckpt_*.pkl")))
+    if not files or len(a[0]["saves"]) != 3:
+        raise AssertionError(f"20a: the killed fit left {files}, saves "
+                             f"{a[0]['saves']}")
+    payload = os.path.getsize(files[-1])
+    shutil.copytree(ck, ck + "_one")
+    b = run_p20("b", P20_EXIT)
+    c = run_p20("c", 0)
+    t_ranks = time.perf_counter() - t1
+
+    # 20a: the resume on one rank, in this process
+    full = same_on_ranks(a, "full", "model")
+    os.environ["MMLSPARK_TPU_HIST_BLOCKS"] = str(HIST_BLOCKS)
+    try:
+        gbdt_api.clear_binned_dataset_cache()
+        torch.cuda.synchronize()
+        reset_counts()
+        t2 = time.perf_counter()
+        m = LightGBMClassifier(
+            numIterations=10, numLeaves=31, maxBin=255, device="cuda",
+            checkpointDir=ck + "_one",
+            checkpointInterval=P20_CKPT_INTERVAL).fit(
+            Dataset({"features": X, "label": y}))
+        torch.cuda.synchronize()
+        s_one_resume = time.perf_counter() - t2
+        one_counts = read_counts()
+    finally:
+        del os.environ["MMLSPARK_TPU_HIST_BLOCKS"]
+    one_model = hashlib.sha256(
+        m.booster.model_string().encode()).hexdigest()
+    if same_on_ranks(b, "resumed", "model") != full or one_model != full:
+        raise AssertionError("20a: a resumed fit differs from the "
+                             "uninterrupted two-rank fit")
+    full_counts = summed_counts(a, "full")
+    resumed_counts = summed_counts(b, "resumed")
+    for what, cnt in (("uninterrupted", full_counts),
+                      ("resumed on 2 ranks", resumed_counts),
+                      ("resumed on 1 rank", one_counts)):
+        check_launches(cnt, ["node_hist_det"], f"20a {what}")
+    # the resumes grew rounds 6-9 only
+    if torch.cuda.is_available() and not (
+            0 < resumed_counts["node_hist_det"]
+            < full_counts["node_hist_det"]
+            and 0 < one_counts["node_hist_det"]
+            < full_counts["node_hist_det"] // P20_WORLD):
+        raise AssertionError(f"20a: a resume grew every round: "
+                             f"{resumed_counts} / {one_counts} against "
+                             f"{full_counts}")
+    for name in ("gbdt_ck", "vw_ck"):
+        if os.path.exists(os.path.join(P20_DIR, name + "_rank1")):
+            raise AssertionError(f"20: rank 1 created {name}_rank1")
+    save_s = a[0]["saves"]
+    out["20a"] = dict(full_s=[r["full"]["s"] for r in a],
+                      resumed_s=[r["resumed"]["s"] for r in b],
+                      one_rank_resume_s=s_one_resume,
+                      save_s_rank0=save_s, save_s_rank1=a[1]["saves"],
+                      payload_bytes=payload)
+    log(f"20a: phase 4's fit (hist_blocks=8) on 2 ranks killed at round 7 "
+        f"({P20_KILL}), resumed on 2 ranks and on 1: all three byte-equal "
+        f"to the uninterrupted 2-rank fit; a checkpoint "
+        f"{np.mean(save_s):.3f} s on rank 0 ({save_s}), payload "
+        f"{payload:,} bytes; fits {out['20a']['full_s']} s uninterrupted, "
+        f"{out['20a']['resumed_s']} s resumed, {s_one_resume:.3f} s resumed "
+        f"on one rank; launches {full_counts} / {resumed_counts} / "
+        f"{one_counts}")
+
+    # 20c
+    vw_full = same_on_ranks(b, "vw_full", "weights")
+    if same_on_ranks(c, "vw_resumed", "weights") != vw_full:
+        raise AssertionError("20c: the resumed VW weights differ from the "
+                             "uninterrupted two-rank fit's")
+    if any(r["vw_resumed"]["passes"] != 1 for r in c):
+        raise AssertionError("20c: the resume did not start at pass 2")
+    for r in b + c:
+        for k in ("vw_full", "vw_resumed"):
+            if k in r and any(r[k]["counts"].values()):
+                raise AssertionError(f"20c: {k} launched a histogram")
+    vw_ck = sorted(glob.glob(os.path.join(P20_DIR, "vw_ck", "ckpt_*.pkl")))
+    out["20c"] = dict(full_s=[r["vw_full"]["s"] for r in b],
+                      resumed_s=[r["vw_resumed"]["s"] for r in c],
+                      payload_bytes=os.path.getsize(vw_ck[-1]))
+    log(f"20c: VowpalWabbitClassifier(numBits={VW_BITS}, numPasses=2) on "
+        f"{P20_VW_ROWS:,} Criteo-shaped rows over 2 ranks, killed as pass 2 "
+        f"started, resumed: weights bit-equal to the uninterrupted fit; "
+        f"fits {out['20c']['full_s']} s, resumed pass "
+        f"{out['20c']['resumed_s']} s; payload "
+        f"{out['20c']['payload_bytes']:,} bytes")
+    out["fits"] = {"20a:full": dict(counts=full_counts),
+                   "20a:resumed": dict(counts=resumed_counts),
+                   "20a:one_rank": dict(counts=one_counts),
+                   **{f"20b:{k}": dict(counts=out["20b"][k]["counts"])
+                      for k in ("quantized_ooc", "quantized_mem",
+                                "bf16_ooc", "bf16_mem")}}
+    shutil.rmtree(P20_DIR, ignore_errors=True)
+    out["rank_stages_s"] = t_ranks
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 20: {out['seconds']:.1f} s ({t_ranks:.1f} s in the three "
+        f"rank stages) on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -6360,6 +6842,8 @@ def main() -> int:
     p18 = phase_automl_and_http((X, y, Xh, yh), base, quantized, card)
     del X, y, Xh, yh
     p19 = phase_transformer(card)
+    p20 = phase_group_resume(card)
+    fits.update(p20.pop("fits"))
     fits.update(p18.pop("fits"))
     fits["17c"] = p17["17c"]
     fits["15e"] = p15.pop("15e")
@@ -6375,7 +6859,8 @@ def main() -> int:
         + "; phase 14: " + json.dumps(p14) + "; phase 15: "
         + json.dumps(p15) + "; phase 16: " + json.dumps(p16)
         + "; phase 17: " + json.dumps(p17) + "; phase 18: "
-        + json.dumps(p18) + "; phase 19: " + json.dumps(p19))
+        + json.dumps(p18) + "; phase 19: " + json.dumps(p19)
+        + "; phase 20: " + json.dumps(p20))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

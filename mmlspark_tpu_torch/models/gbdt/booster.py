@@ -44,6 +44,7 @@ import hashlib
 import itertools
 import json
 import os
+import pickle
 import threading
 import time
 from collections import OrderedDict
@@ -66,6 +67,7 @@ from ...core.dataset import _is_sparse
 from ...parallel import mesh as meshlib
 from ...parallel import placement
 from ...parallel.mesh import Mesh
+from ...robustness.failpoints import fault_point as _failpoint
 from ... import tuning as _tuning
 from ...tuning.decisions import ladder_pad
 from . import quantize as _quantize
@@ -195,7 +197,8 @@ class LightGBMDataset:
         :func:`.ingest.construct_from_files`; bins default to uint8 there
         when ``max_bin <= 256`` (an explicit ``bin_dtype`` is honoured).
         The binner, the bins and so the trees equal the in-memory
-        construct's."""
+        construct's; over a data group each rank reads only its own padded
+        row range from the files, and rank 0 alone fits the binner."""
         if path is None and (label_path is not None
                              or weight_path is not None
                              or chunk_rows is not None):
@@ -206,10 +209,6 @@ class LightGBMDataset:
         if not mesh.member:
             raise ValueError(f"this process is not in the data group {mesh}")
         if path is not None:
-            if mesh.size > 1:
-                raise NotImplementedError(
-                    "out-of-core ingest (path=) over a data group of "
-                    f"{mesh.size} ranks is not ported; pass arrays")
             if X is not None or y is not None or weight is not None:
                 raise ValueError(
                     "pass either in-memory arrays or path=..., not both")
@@ -228,7 +227,8 @@ class LightGBMDataset:
                 categorical_features=categorical_features,
                 bin_dtype=bin_dtype,
                 chunk_rows=262_144 if chunk_rows is None else chunk_rows,
-                max_bin_by_feature=max_bin_by_feature, device=device)
+                max_bin_by_feature=max_bin_by_feature, device=device,
+                mesh=mesh)
         if X is None or y is None:
             raise ValueError(
                 "construct needs in-memory arrays (X, y) or file shards "
@@ -1961,6 +1961,35 @@ def _last_good_dump(ckpt_mgr, K: int, all_trees: list, finalize,
     return dump
 
 
+def _rank_scores(saved, mesh: Mesh, base: np.ndarray) -> np.ndarray:
+    """This rank's padded slice of a saved ``(n, K)`` score matrix, its
+    padding rows at ``base``, the score a fresh run gives them."""
+    full = np.asarray(saved, np.float32)
+    part = placement.local_rows(full, mesh).copy()
+    start = mesh.rank * part.shape[0]
+    part[max(0, full.shape[0] - start):] = np.asarray(base, np.float32)
+    return part
+
+
+def _save_checkpoint(ckpts, it: int, mesh: Mesh, scores: torch.Tensor,
+                     n: int, valid: Optional["_Valid"],
+                     es: "_EarlyStopping", model_string: Callable[[], str],
+                     **payload) -> None:
+    """Checkpoint iteration ``it``: the whole training and validation
+    score matrices gathered from the ranks in row order, padding dropped
+    (the layout of one process, so the payload does not depend on the
+    topology), and the early-stopping state, which must be the same on
+    every rank (its metrics are reduced over the group); rank 0 writes."""
+    full = mesh.all_gather(scores)[:n].cpu().numpy()
+    vfull = (None if valid is None else mesh.all_gather(valid.scores)[
+        :len(valid.y_host)].cpu().numpy())
+    state = es.state()
+    mesh.check_same(pickle.dumps(state), "the early-stopping state")
+    if ckpts.writer:
+        ckpts.save(it, dict(payload, model=model_string(), iteration=it,
+                            scores=full, vscores=vfull, **state))
+
+
 def train_booster(
     X: Optional[np.ndarray] = None,
     y: Optional[np.ndarray] = None,
@@ -2071,7 +2100,11 @@ def train_booster(
     :func:`...parallel.placement.resolve_hist_blocks`), per-row draws are
     each rank's slice of the global stream, validation rows are sharded
     too and their metrics summed over the group, and every rank returns
-    the same booster. ``checkpoint_dir`` needs one rank.
+    the same booster. ``checkpoint_dir`` over a group: rank 0 alone reads
+    and writes the directory (:class:`...utils.checkpoint.
+    GroupCheckpoints`); a payload holds the whole score matrices, gathered
+    from the ranks, so a checkpoint written on R ranks resumes on R' (under
+    ``hist_blocks`` to the uninterrupted run's trees, byte for byte).
     ``iteration_callback(it, {metric: value})`` is called after every
     iteration (an empty dict where no metric was evaluated).
     """
@@ -2091,10 +2124,6 @@ def train_booster(
                          "dataset=")
     mesh = mesh or (dataset.mesh if dataset is not None
                     else meshlib.get_default_mesh())
-    if mesh.size > 1 and checkpoint_dir is not None:
-        raise NotImplementedError(
-            f"checkpointDir over a data group of {mesh.size} ranks is not "
-            "ported (a checkpoint holds the whole score matrix)")
     # the canonical reduction geometry, before anything else reads cfg:
     # the padded row count is the dataset's, or the rows' padded to the
     # group
@@ -2114,13 +2143,13 @@ def train_booster(
     eval_override = None if auc_host else requested
     objective_kwargs = objective_kwargs or {}
 
-    ckpt_mgr = ckpt_fp = None
+    ckpts = ckpt_fp = None
     dump_on_unhealthy = False
     iterations_done = 0
     user_init_booster = init_booster
     resume: Optional[dict] = None
     if checkpoint_dir is not None:
-        from ...utils.checkpoint import CheckpointManager, data_fingerprint
+        from ...utils.checkpoint import GroupCheckpoints, data_fingerprint
         ckpt_fp = data_fingerprint(
             np.asarray(_densify(X), np.float32), np.asarray(y, np.float32),
             None if weight is None else np.asarray(weight, np.float32),
@@ -2137,18 +2166,17 @@ def train_booster(
                     None if user_init_booster is None
                     else user_init_booster.model_string()))
         # one namespace per run: sweeps sharing the directory never prune
-        # each other's files
-        ckpt_mgr = CheckpointManager(checkpoint_dir, namespace=ckpt_fp[:12])
+        # each other's files; over a data group rank 0 alone reads and
+        # writes it, and hands every rank what it read
+        ckpts = GroupCheckpoints(checkpoint_dir, ckpt_fp, mesh)
         dump_on_unhealthy = _env_flag("MMLSPARK_TPU_CHECKPOINT_ON_UNHEALTHY")
-        latest = ckpt_mgr.latest_matching(ckpt_fp)
         # MMLSPARK_TPU_STRICT_RESUME=1: resume or raise. Probed only when
         # the namespaced lookup found nothing, and across namespaces (a
         # changed config changes the namespace, which is what strict mode
         # must catch): CheckpointMismatchError names what was found; a
         # match there is a legacy un-namespaced checkpoint, resumed
-        if latest is None and _env_flag("MMLSPARK_TPU_STRICT_RESUME"):
-            latest = CheckpointManager(checkpoint_dir).latest_matching(
-                ckpt_fp, purge_stale=False, strict=True)
+        latest = ckpts.latest(
+            strict_probe=_env_flag("MMLSPARK_TPU_STRICT_RESUME"))
         if latest is not None:
             resume = latest[1]
             init_booster = Booster.from_string(resume["model"])
@@ -2193,12 +2221,13 @@ def train_booster(
                 "dataset=")
         base = init_booster.base_score
         base_d = torch.from_numpy(base).to(dev)
-        # a resume restores the exact score matrix of the interrupted run:
-        # re-scoring through predict_raw sums in another order, which can
-        # pick other splits; an old payload without it re-scores
+        # a resume restores the exact score matrix of the interrupted run
+        # (this rank's slice of it): re-scoring through predict_raw sums in
+        # another order, which can pick other splits; an old payload
+        # without it re-scores this rank's rows
         saved = None if resume is None else resume.get("scores")
-        if saved is not None and np.asarray(saved).shape == (n, K):
-            scores = torch.from_numpy(np.asarray(saved, np.float32)).to(dev)
+        if saved is not None and np.shape(saved) == (n, K):
+            scores = torch.from_numpy(_rank_scores(saved, mesh, base)).to(dev)
         else:
             scores = init_booster.predict_raw_tensor(torch.from_numpy(
                 placement.local_rows(np.asarray(_densify(X), np.float32), mesh)
@@ -2230,7 +2259,7 @@ def train_booster(
         Xv = np.asarray(_densify(Xv), np.float32)
         yv = np.asarray(yv, np.float32)
         wv = np.ones_like(yv) if wv is None else np.asarray(wv, np.float32)
-        if ckpt_mgr is not None:
+        if ckpts is not None:
             # the validation rows are not in the run's fingerprint; their
             # saved scores are restored only against the same rows
             from ...utils.checkpoint import data_fingerprint
@@ -2241,8 +2270,9 @@ def train_booster(
         saved = None if resume is None else resume.get("vscores")
         if (saved is not None and valid_fp is not None
                 and resume.get("valid_fingerprint") == valid_fp
-                and np.asarray(saved).shape == (len(yv), K)):
-            vscores = torch.from_numpy(np.asarray(saved, np.float32)).to(dev)
+                and np.shape(saved) == (len(yv), K)):
+            vscores = torch.from_numpy(_rank_scores(saved, mesh, base)).to(
+                dev)
         elif init_booster is not None:
             vscores = init_booster.predict_raw_tensor(Xv_d)
         else:
@@ -2300,15 +2330,20 @@ def train_booster(
     prior_iterations = (0 if user_init_booster is None
                         else user_init_booster.num_iterations)
     unregister_dump = None
-    if ckpt_mgr is not None and dump_on_unhealthy:
+    if ckpts is not None and ckpts.writer and dump_on_unhealthy:
+        # rank 0's callback alone: it holds no score matrix, so it needs
+        # no collective (and may not enter one from the watchdog's thread)
         unregister_dump = _watchdog.add_event_callback(_last_good_dump(
-            ckpt_mgr, K, all_trees, finalize, es, iterations_done,
+            ckpts.manager, K, all_trees, finalize, es, iterations_done,
             fingerprint=ckpt_fp, prior_iterations=prior_iterations,
             valid_fingerprint=valid_fp))
     t_round = time.perf_counter()
     try:
         for it in range(iterations_done, num_iterations):
             hb.beat()
+            # chaos hook, one evaluation a round: `exit` is the mid-fit
+            # preemption the resume path is tested against
+            _failpoint("gbdt.round")
             grad, hess = _grad_hess(obj, column(scores), y_d, w_d, group)
             if K == 1:
                 grad, hess = grad[:, None], hess[:, None]
@@ -2367,16 +2402,14 @@ def train_booster(
             _watchdog.report_training_metric("gbdt", it,
                                              seconds=now_round - t_round)
             t_round = now_round
-            if (ckpt_mgr is not None and checkpoint_period > 0
+            if (ckpts is not None and checkpoint_period > 0
                     and (it + 1) % checkpoint_period == 0
                     and it + 1 < num_iterations):
-                ckpt_mgr.save(it, dict(
-                    model=finalize(all_trees).model_string(), iteration=it,
+                _save_checkpoint(
+                    ckpts, it, mesh, scores, n, valid, es,
+                    lambda: finalize(all_trees).model_string(),
                     fingerprint=ckpt_fp, prior_iterations=prior_iterations,
-                    scores=scores[:n].cpu().numpy(),
-                    vscores=(None if valid is None
-                             else valid.scores.cpu().numpy()),
-                    valid_fingerprint=valid_fp, **es.state()))
+                    valid_fingerprint=valid_fp)
     finally:
         hb.close()
         if unregister_dump is not None:

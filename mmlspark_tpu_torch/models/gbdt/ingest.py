@@ -1,13 +1,20 @@
 """Out-of-core dataset ingest: ``.npy`` shards -> the binned device matrix.
 
-Counterpart of ``mmlspark_tpu/models/gbdt/ingest.py`` on one device
-(reference: partition files feeding LightGBM's chunked dataset,
+Counterpart of ``mmlspark_tpu/models/gbdt/ingest.py`` (reference:
+partition files feeding LightGBM's chunked dataset,
 lightgbm/LightGBMUtils.scala:201-265). Row shards on disk are read in
 bounded host chunks by offset (``ShardedMatrixSource``: no memmaps), each
 chunk binned on the device and copied into its column slice of a
-preallocated ``[F, n]`` bin matrix. Host peak memory is one chunk (two
-while the next is prefetched) plus the binner sample; the raw float matrix
-never exists whole on the host or the device.
+preallocated ``[F, n_local]`` bin matrix. Host peak memory is one chunk
+(two while the next is prefetched) plus the binner sample; the raw float
+matrix never exists whole on the host or the device.
+
+Over a data group of ``k`` ranks each rank reads only its padded row
+range ``[r n_pad / k, (r + 1) n_pad / k)`` cut at ``n`` (the slice
+:func:`...parallel.placement.shard_rows` keeps in memory); its padding
+columns bin zero rows, as the in-memory construct pads, and its labels,
+weights and validity mask come from the same range. Rank 0 alone draws
+and reads the binner sample and hands the fitted binner to the group.
 
 Binner parity: the quantile binner is fit on exactly the rows the
 in-memory path samples (same seed, same ``rng.choice`` draw, gathered from
@@ -409,31 +416,37 @@ def fit_binner_from_source(src: ShardedMatrixSource, *, max_bin: int,
 
 def binned_matrix_from_source(src: ShardedMatrixSource,
                               binner: QuantileBinner, bin_dtype: torch.dtype,
-                              chunk_rows: int,
-                              dev: torch.device) -> torch.Tensor:
-    """Stream file rows into the binned column-major ``[F, n]`` matrix on
-    ``dev``: the matrix is allocated once, then each chunk of
+                              chunk_rows: int, dev: torch.device,
+                              lo0: int, hi0: int, width: int
+                              ) -> torch.Tensor:
+    """Stream file rows into the binned column-major ``[F, width]`` matrix
+    on ``dev``: the matrix is allocated once, then each chunk of
     ``chunk_rows`` rows is read (on the prefetch thread), uploaded and
     binned by :func:`bin_cols` (or quantized on the host, see
     :func:`host_quant_enabled`) into its column slice, in row order on
-    the calling thread."""
-    n, F = src.n, src.num_features
+    the calling thread. Only the file rows ``[lo0, hi0)`` (a rank's
+    range) are read; the columns past ``hi0 - lo0`` bin zero rows, the
+    padding of the in-memory construct."""
+    F = src.num_features
     c = max(1, int(chunk_rows))
     ub = binner.upper_bounds
     ub_t = torch.from_numpy(ub)
     host_quant = host_quant_enabled(binner.max_bin)
-    buf = torch.empty((F, n), dtype=bin_dtype, device=dev)
+    buf = torch.empty((F, width), dtype=bin_dtype, device=dev)
     from ...io.prefetch import iter_prefetched
 
     def load_chunk(lo: int):
         # a fresh host buffer per chunk: the prefetch thread fills the next
         # one while this one is uploaded
-        hi = min(lo + c, n)
+        hi = min(lo + c, width)
         host = np.empty((hi - lo, F), np.float32)
-        src.read_into(host, lo, hi)
+        got = max(0, min(hi, hi0 - lo0) - lo)
+        if got:
+            src.read_into(host[:got], lo0 + lo, lo0 + lo + got)
+        host[got:] = 0.0
         return lo, host
 
-    reads = ((lambda lo=lo: load_chunk(lo)) for lo in range(0, n, c))
+    reads = ((lambda lo=lo: load_chunk(lo)) for lo in range(0, width, c))
     for lo, host in iter_prefetched(reads, site="ingest"):
         hi = lo + host.shape[0]
         if host_quant:
@@ -446,15 +459,19 @@ def binned_matrix_from_source(src: ShardedMatrixSource,
 
 
 def vector_from_source(src: Optional[ShardedMatrixSource], n: int,
-                       dev: torch.device) -> Optional[torch.Tensor]:
-    """A 1-D label or weight vector read from shards onto ``dev``."""
+                       dev: torch.device, lo: int, hi: int, width: int
+                       ) -> Optional[torch.Tensor]:
+    """A 1-D label or weight vector read from shards onto ``dev``: the rows
+    ``[lo, hi)``, zero-padded to ``width``."""
     if src is None:
         return None
     if src.ndim != 1:
         raise ValueError(f"expected 1-D shards, got ndim={src.ndim}")
     if src.n != n:
         raise ValueError(f"label/weight length {src.n} != feature rows {n}")
-    return torch.from_numpy(src.read(0, n)).to(dev)
+    out = np.zeros(width, np.float32)
+    src.read_into(out[:hi - lo], lo, hi)
+    return torch.from_numpy(out).to(dev)
 
 
 def construct_from_files(path, label_path, weight_path=None, *,
@@ -464,14 +481,19 @@ def construct_from_files(path, label_path, weight_path=None, *,
                          bin_dtype="uint8",
                          chunk_rows: int = 262_144,
                          max_bin_by_feature=None,
-                         device: DeviceLike = None):
+                         device: DeviceLike = None, mesh=None):
     """Build a :class:`~.booster.LightGBMDataset` on ``device`` (default
     ``cuda``) from on-disk shards. ``bin_dtype`` defaults to ``uint8``
     here (the in-memory path's default is int32): out of core is the
-    large-n regime where narrow bin storage is the point."""
+    large-n regime where narrow bin storage is the point. ``mesh`` (a
+    data group, default :func:`...parallel.mesh.get_default_mesh`): each
+    rank reads and bins only its own padded row range; the result equals
+    the in-memory ``construct(X, y, mesh=mesh)``'s slice bit for bit."""
+    from ...parallel import mesh as meshlib
     from .booster import LightGBMDataset, _bin_dtype
 
     dev = resolve_device(device)
+    mesh = mesh or meshlib.get_default_mesh()
     bd = _bin_dtype(bin_dtype, max_bin)
     xsrc = ShardedMatrixSource(path)
     if xsrc.ndim != 2:
@@ -485,14 +507,21 @@ def construct_from_files(path, label_path, weight_path=None, *,
     ysrc = ShardedMatrixSource(label_path)
     wsrc = (ShardedMatrixSource(weight_path) if weight_path is not None
             else None)
-    binner = fit_binner_from_source(
+    # the sample is drawn and read on rank 0 alone; every rank gets its
+    # binner (the same upper bounds the in-memory construct fits)
+    binner = mesh.from_first(lambda: fit_binner_from_source(
         xsrc, max_bin=max_bin, bin_sample_count=bin_sample_count,
         seed=seed, categorical_features=categorical_features,
-        max_bin_by_feature=max_bin_by_feature)
-    Xbt = binned_matrix_from_source(xsrc, binner, bd, chunk_rows, dev)
+        max_bin_by_feature=max_bin_by_feature))
     n = xsrc.n
-    y = vector_from_source(ysrc, n, dev)
-    vmask = torch.ones(n, dtype=torch.float32, device=dev)
-    w = vector_from_source(wsrc, n, dev)
+    per = -(-n // mesh.size)
+    n_pad = per * mesh.size
+    rows = (min(mesh.rank * per, n), min((mesh.rank + 1) * per, n), per)
+    Xbt = binned_matrix_from_source(xsrc, binner, bd, chunk_rows, dev,
+                                    *rows)
+    y = vector_from_source(ysrc, n, dev, *rows)
+    vmask = torch.from_numpy(np.ascontiguousarray(meshlib.validity_mask(
+        n, n_pad)[mesh.rank * per:(mesh.rank + 1) * per])).to(dev)
+    w = vector_from_source(wsrc, n, dev, *rows)
     return LightGBMDataset(binner, Xbt, y, vmask if w is None else w, vmask,
-                           n, n, max_bin, categorical_features)
+                           n, n_pad, max_bin, categorical_features, mesh)

@@ -27,13 +27,14 @@ equal ones in a fixed order, so equal inputs give equal bits on the card
 (``index_add_`` sums duplicates with float atomics in no fixed order). Every
 row carries VW's constant feature, so each batch adds ``batch_size`` times
 into one cell. That keeps the JAX package's promises on the card: a
-streamed fit equals the in-memory fit and a resumed fit the uninterrupted
-one, bit for bit, on one rank.
+streamed fit equals the in-memory fit on one rank, and a resumed fit the
+uninterrupted one on the same rank count, bit for bit.
 """
 
 from __future__ import annotations
 
 import threading
+import zlib
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -469,22 +470,28 @@ def train_sgd_checkpointed(indices: np.ndarray, values: np.ndarray,
 
     Each pass runs as one call whose full optimizer state (weights, adagrad
     accumulators, step counter, lazy-L1 clock) is checkpointed; resuming
-    reproduces the uninterrupted run exactly."""
-    from ...utils.checkpoint import CheckpointManager, data_fingerprint
+    reproduces the uninterrupted run exactly.
+
+    Over a data group the whole state is a replica after every pass: the
+    weights and accumulators are averaged over the group, every rank takes
+    the same number of steps (rows pad to whole batches per rank), so the
+    step clock agrees, and the lazy-L1 clock is filled with it at the pass
+    end (``l1 > 0``) or is a one-element slot nothing reads (``l1 == 0``).
+    Rank 0 alone writes it, once, after the ranks have checked that their
+    copies agree, and hands it to the group on resume
+    (:class:`...utils.checkpoint.GroupCheckpoints`). A resume on another
+    rank count loads it, as the JAX package's does."""
+    from ...utils.checkpoint import GroupCheckpoints, data_fingerprint
 
     dev = resolve_device(device)
     mesh = mesh or meshlib.get_default_mesh()
-    if mesh.size > 1:
-        raise NotImplementedError(
-            "checkpointDir over a data group of more than one rank is not "
-            "ported")
     fingerprint = data_fingerprint(
         indices, values, labels,
         None if sample_weight is None else np.asarray(sample_weight),
         None if initial_weights is None else np.asarray(initial_weights),
         config=cfg._replace(num_passes=0))    # pass count may legally change
-    mgr = CheckpointManager(checkpoint_dir, namespace=fingerprint[:12])
-    latest = mgr.latest_matching(fingerprint)
+    ckpts = GroupCheckpoints(checkpoint_dir, fingerprint, mesh)
+    latest = ckpts.latest()
     start_pass, state = 0, None
     if latest is not None:
         _, payload = latest
@@ -507,9 +514,17 @@ def train_sgd_checkpointed(indices: np.ndarray, values: np.ndarray,
                              initial_state=state, return_state=True,
                              prepped=prepped, device=dev)
         if p != cfg.num_passes - 1:
-            mgr.save(p, {"pass": p, "state": state,
-                         "fingerprint": fingerprint})
+            mesh.check_same(_state_digest(state), "the VW optimizer state")
+            ckpts.save(p, {"pass": p, "state": state,
+                           "fingerprint": fingerprint})
     return w
+
+
+def _state_digest(state: tuple) -> tuple:
+    """A cheap digest of ``(w, g2, t, lt)``: crc32 of each array's bytes
+    and the clock."""
+    w, g2, t, lt = state
+    return (zlib.crc32(w), zlib.crc32(g2), float(t), zlib.crc32(lt))
 
 
 DEFAULT_STREAM_CHUNK_ROWS = 262_144

@@ -16,8 +16,12 @@ differentiable collectives over one axis.
 The data axis keeps its own surface, which the GBDT, VW and ALS trainers
 read: ``size``, ``rank``, ``ranks``, ``group``, and the collectives
 :meth:`Mesh.all_reduce` (``SUM`` or ``MAX``) and :meth:`Mesh.all_gather`,
-in rank order. Every rank passes the same global rows; each keeps the
-slice its data rank selects (:func:`..placement.shard_rows`). On one
+in rank order; for host objects :meth:`Mesh.from_first` (rank 0 computes,
+every rank receives, rank 0's exception is raised everywhere) and
+:meth:`Mesh.check_same` (under ``nccl`` these pickle through the current
+CUDA device, so each rank must have set its own). Every rank passes the
+same global rows; each keeps the slice its data rank selects
+(:func:`..placement.shard_rows`). On one
 process every axis has size 1 and the collectives are the identity. With
 the ``gloo`` backend a CUDA tensor goes through a host copy (gloo's
 collectives on CUDA tensors are partial), so a check of several ranks on
@@ -30,7 +34,8 @@ and ``model`` (tensor-parallel shards).
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Sequence, Tuple
+import pickle
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,6 +146,45 @@ class Mesh:
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts, dim=0).to(t.device)
+
+    def from_first(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` run on the data group's rank 0 alone, its result
+        handed to every rank (``broadcast_object_list`` over the group).
+        An exception on rank 0 is raised on every rank (its own type where
+        it pickles, else a ``RuntimeError`` naming it), so no rank waits
+        on a peer that has given up."""
+        out = err = None
+        if self.rank == 0:
+            try:
+                out = fn()
+            except Exception as e:  # noqa: BLE001 — raised on every rank
+                err = e
+        if self.size > 1:
+            sent = err
+            if err is not None:
+                try:
+                    pickle.dumps(err)
+                except Exception:  # noqa: BLE001
+                    sent = RuntimeError(f"rank 0 of {self} failed: {err!r}")
+            box = [(out, sent)]
+            dist.broadcast_object_list(box, src=self.ranks[0],
+                                       group=self.group)
+            if self.rank != 0:
+                out, err = box[0]
+        if err is not None:
+            raise err
+        return out
+
+    def check_same(self, value: Any, what: str) -> None:
+        """Raise ``ValueError`` on every rank unless ``value`` (a small
+        picklable object) is equal on every rank of the data group."""
+        if self.size == 1:
+            return
+        got = [None] * self.size
+        dist.all_gather_object(got, value, group=self.group)
+        if any(g != got[0] for g in got[1:]):
+            raise ValueError(f"{what} differs across the data group's ranks "
+                             f"{self.ranks}: {got}")
 
 
 _default_mesh: Optional[Mesh] = None

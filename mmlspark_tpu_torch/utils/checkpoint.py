@@ -11,6 +11,11 @@ where the last checkpoint left off.
 matrices as numpy), never live device tensors. The JAX copy's fault
 injection hook is left out.
 
+Over a data group of several ranks, :class:`GroupCheckpoints` gives the
+directory one writer and one reader, rank 0: the payloads are the
+topology-free ones of one process (the whole score matrices, gathered),
+so a checkpoint written on R ranks resumes on R'.
+
 A checkpoint's fingerprint hashes the run's config, which holds the
 package's own ``GrowConfig``; the two packages' configs differ, so a
 checkpoint written by one package is not resumed by the other.
@@ -166,3 +171,47 @@ class CheckpointManager:
                 "config or warm-start model changed since the interrupted "
                 "run")
         return best
+
+
+class GroupCheckpoints:
+    """One writer and one reader of a checkpoint directory for a data
+    group (``mesh``: a :class:`...parallel.mesh.Mesh`).
+
+    Rank 0 of the group alone owns the :class:`CheckpointManager`: it
+    reads, purges stale files, writes and prunes, so no two ranks race on
+    one file. The other ranks never touch ``directory`` (they need no
+    shared file system): :meth:`latest` hands them what rank 0 read, and
+    rank 0's failure (a :class:`CheckpointMismatchError` under strict
+    resume, an unreadable directory) is raised on every rank. Before any
+    file is read the ranks compare their data fingerprints: ranks fed
+    other rows raise ``ValueError`` together instead of resuming each
+    other's state. On one process this is the manager itself."""
+
+    def __init__(self, directory: str, fingerprint: str, mesh):
+        mesh.check_same(fingerprint[:32], "the checkpoint data fingerprint")
+        self.directory, self.fingerprint, self.mesh = (directory,
+                                                       fingerprint, mesh)
+        self.writer = mesh.rank == 0
+        self.manager = (CheckpointManager(directory,
+                                          namespace=fingerprint[:12])
+                        if self.writer else None)
+
+    def latest(self, strict_probe: bool = False
+               ) -> Optional[Tuple[int, Dict[str, Any]]]:
+        """The newest checkpoint matching the fingerprint, on every rank
+        (None where there is none). ``strict_probe``: when the run's
+        namespace holds none, look across every namespace in strict mode
+        (a mismatch raises :class:`CheckpointMismatchError`; a match is a
+        legacy un-namespaced checkpoint)."""
+        def read():
+            found = self.manager.latest_matching(self.fingerprint)
+            if found is None and strict_probe:
+                found = CheckpointManager(self.directory).latest_matching(
+                    self.fingerprint, purge_stale=False, strict=True)
+            return found
+        return self.mesh.from_first(read)
+
+    def save(self, step: int, payload: Dict[str, Any]) -> Optional[str]:
+        """Rank 0 writes ``payload`` for ``step``; elsewhere a no-op. Any
+        collective the payload needs runs before, on every rank."""
+        return self.manager.save(step, payload) if self.writer else None

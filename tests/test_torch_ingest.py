@@ -7,9 +7,12 @@ order, the port's in-memory binner takes them in draw order; the quantiles
 do not depend on the order), so bin bounds and bins are bit-equal to the
 in-memory ones and to the JAX package's ``construct_from_files`` on its
 valid columns ``[:, :n]`` (one-device mesh), and a fit on either dataset
-grows the same trees. Also: ``csv_to_shards`` through the C++ CSV reader,
-the argument checks of ``construct``, host-side quantization
-(``MMLSPARK_TPU_INGEST_HOST_QUANT=1``) and the shard reader.
+grows the same trees. Over 2 gloo ranks each rank reads only its padded
+row range (rank 0 also the binner's sample) and holds its slice of the
+in-memory 2-rank construct bit for bit, bounds and valid columns equal to
+the JAX package's on a two-device mesh. Also: ``csv_to_shards`` through
+the C++ CSV reader, the argument checks of ``construct``, host-side
+quantization (``MMLSPARK_TPU_INGEST_HOST_QUANT=1``) and the shard reader.
 """
 
 import os
@@ -23,6 +26,7 @@ import jax
 from mmlspark_tpu.models.gbdt.ingest import \
     construct_from_files as jconstruct_from_files
 from mmlspark_tpu.models.gbdt.ingest import csv_to_shards as jcsv_to_shards
+from _torch_ranks import run_ranks
 from mmlspark_tpu.parallel.mesh import make_mesh
 from mmlspark_tpu_torch.models.gbdt.booster import (LightGBMDataset,
                                                     train_booster)
@@ -124,6 +128,130 @@ def test_fit_from_shards_grows_the_in_memory_trees(shards, quantized):
         np.testing.assert_array_equal(b1.trees[f], b2.trees[f], err_msg=f)
     np.testing.assert_array_equal(b1.predict_raw(X, device="cpu"),
                                   b2.predict_raw(X, device="cpu"))
+
+
+# a rank of the 2-rank out-of-core construct: bins, labels, weights and
+# mask against the in-memory 2-rank construct, the rows it read from the
+# files, and quantized and bf16 fits on both datasets
+_RANK_OOC = """
+import os
+import torch
+from mmlspark_tpu_torch.models.gbdt import ingest
+from mmlspark_tpu_torch.models.gbdt.booster import (LightGBMDataset,
+                                                    train_booster)
+from mmlspark_tpu_torch.models.gbdt.growth import GrowConfig
+T = __TMP__
+KW = __KW__
+d = np.load(T + "/data.npz")
+reads = []
+real_read_into = ingest.ShardedMatrixSource.read_into
+real_gather = ingest.ShardedMatrixSource.gather
+
+
+def read_into(self, out, start, stop):
+    reads.append([os.path.basename(os.path.dirname(self.paths[0])),
+                  int(start), int(min(stop, self.n))])
+    return real_read_into(self, out, start, stop)
+
+
+def gather(self, idx):
+    reads.append(["gather", len(idx)])
+    return real_gather(self, idx)
+
+
+ingest.ShardedMatrixSource.read_into = read_into
+ingest.ShardedMatrixSource.gather = gather
+ds = LightGBMDataset.construct(path=T + "/x", label_path=T + "/y",
+                               weight_path=T + "/w", chunk_rows=999,
+                               device="cpu", **KW)
+ingest.ShardedMatrixSource.read_into = real_read_into
+ingest.ShardedMatrixSource.gather = real_gather
+dm = LightGBMDataset.construct(d["X"], d["y"], d["w"], bin_dtype="uint8",
+                               device="cpu", **KW)
+out = {"equal": {k: bool(torch.equal(getattr(ds, k), getattr(dm, k)))
+                 for k in ("Xbt", "y", "w", "vmask")},
+       "shape": [ds.n, ds.n_pad, ds.n_local, dm.n_pad],
+       "dtype": str(ds.Xbt.dtype), "reads": reads,
+       "bounds": ds.binner.upper_bounds.tolist(), "Xbt": ds.Xbt.tolist()}
+for quant in (False, True):
+    cfg = GrowConfig(num_leaves=15, min_data_in_leaf=40,
+                     quantized_grad=quant, quant_warmup_iters=0)
+    out[f"fits_{quant}"] = [train_booster(
+        dataset=x, objective="binary", num_iterations=4, cfg=cfg,
+        seed=3).model_string() for x in (ds, dm)]
+result = out
+"""
+
+
+@pytest.fixture(scope="module")
+def two_rank_ooc(tmp_path_factory):
+    """4,999 rows (rank 1 holds a padding row) in three uneven shards,
+    built out of core and in memory on each of 2 gloo ranks."""
+    tmp = tmp_path_factory.mktemp("ooc_ranks")
+    X, y, w = _data(n=4999)
+    np.savez(tmp / "data.npz", X=X, y=y, w=w)
+    write_shards([X[:1700], X[1700:3100], X[3100:]], tmp / "x")
+    write_shards([y[:2600], y[2600:]], tmp / "y")
+    write_shards([w], tmp / "w")
+    body = (_RANK_OOC.replace("__TMP__", repr(str(tmp)))
+            .replace("__KW__", repr(KW)))
+    return run_ranks(tmp, 2, body, timeout=180), tmp
+
+
+def test_two_rank_out_of_core_equals_the_in_memory_slices(two_rank_ooc):
+    ranks, _ = two_rank_ooc
+    for r in ranks:
+        assert r["equal"] == {"Xbt": True, "y": True, "w": True,
+                              "vmask": True}
+        assert r["shape"] == [4999, 5000, 2500, 5000]
+        assert r["dtype"] == "torch.uint8"
+    assert ranks[0]["bounds"] == ranks[1]["bounds"]
+
+
+def test_two_rank_out_of_core_matches_jax_on_two_devices(two_rank_ooc):
+    ranks, tmp = two_rank_ooc
+    jd = jconstruct_from_files(str(tmp / "x"), str(tmp / "y"),
+                               str(tmp / "w"), chunk_rows=999,
+                               mesh=make_mesh({"data": 2},
+                                              devices=jax.devices()[:2]),
+                               **KW)
+    np.testing.assert_array_equal(
+        np.asarray(ranks[0]["bounds"], np.float32), jd.binner.upper_bounds)
+    jbins = np.asarray(jd.Xbt_d)
+    for r, rec in enumerate(ranks):
+        # the valid columns: JAX leaves its padding's bins unspecified
+        valid = min(2500, 4999 - r * 2500)
+        np.testing.assert_array_equal(
+            np.asarray(rec["Xbt"])[:, :valid],
+            jbins[:, r * 2500:r * 2500 + valid])
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_two_rank_fit_from_shards_grows_the_in_memory_trees(two_rank_ooc,
+                                                             quantized):
+    ranks, _ = two_rank_ooc
+    for r in ranks:
+        ooc, mem = r[f"fits_{quantized}"]
+        assert len(ooc) > 1000 and ooc == mem
+    assert ranks[0][f"fits_{quantized}"] == ranks[1][f"fits_{quantized}"]
+
+
+def test_each_rank_reads_only_its_rows(two_rank_ooc):
+    """Every file read of a rank lies in its padded row range cut at n and
+    together they cover it once per source; rank 0 alone gathers the
+    binner's 3,000-row sample."""
+    ranks, _ = two_rank_ooc
+    for r, rec in enumerate(ranks):
+        lo, hi = r * 2500, min((r + 1) * 2500, 4999)
+        gathers = [g for g in rec["reads"] if g[0] == "gather"]
+        assert gathers == ([["gather", 3000]] if r == 0 else [])
+        for src in ("x", "y", "w"):
+            spans = sorted((g[1], g[2]) for g in rec["reads"]
+                           if g[0] == src)
+            assert spans and all(lo <= a < b <= hi for a, b in spans), src
+            assert sum(b - a for a, b in spans) == hi - lo, src
+            assert all(b0 == a1 for (_, b0), (a1, _) in zip(spans,
+                                                              spans[1:]))
 
 
 def test_host_quant_bins_equal_device_bins(shards, monkeypatch):

@@ -10,7 +10,8 @@
     ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``,
     ``tools/chip_phase16.py``, ``tools/chip_phase17.py``,
     ``tools/chip_phase18.py``, ``tools/chip_phase19.py``,
-    ``tools/dnn_tolerances.py``), imports either.
+    ``tools/chip_phase20.py``, ``tools/dnn_tolerances.py``), imports
+    either.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -263,11 +264,12 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "chip_phase17.py"),
              os.path.join(ROOT, "tools", "chip_phase18.py"),
              os.path.join(ROOT, "tools", "chip_phase19.py"),
+             os.path.join(ROOT, "tools", "chip_phase20.py"),
              os.path.join(ROOT, "tools", "dnn_tolerances.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:13])
+    assert all(os.path.isfile(p) for p in paths[:14])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):

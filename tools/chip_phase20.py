@@ -1,0 +1,55 @@
+"""Run phase 20 of ``chip_smoke.py`` alone on the card.
+
+    python3 tools/chip_phase20.py [--out chiprun_out/p20.txt]
+
+Builds kernel 1, its deterministic mode and kernel 2
+(``csrc/node_hist.cu``, ``csrc/node_hist_det.cu``,
+``csrc/node_hist_int8.cu``), then runs ``chip_smoke.phase_group_resume``:
+over two processes on the card joined by gloo, phase 4's checkpointed fit
+killed and resumed on two ranks and on one (20a), phase 4's rows built
+out of core and fitted (20b), and 15a's VW fit killed and resumed (20c).
+Every hold of the phase applies; a failed one exits non-zero. The phase's
+JSON record is the last line (and, with ``--out``, written there too). A
+quicker call than the whole script while phase 20 is being worked on.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from mmlspark_tpu_torch.ops import _build  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_phase20: no CUDA GPU is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all(["node_hist", "node_hist_int8", "node_hist_det"],
+                     verbose=True)
+    card = chip_smoke.card_line()
+    out = chip_smoke.phase_group_resume(card)
+    line = json.dumps(out)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(card, flush=True)
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

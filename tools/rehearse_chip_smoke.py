@@ -14,6 +14,8 @@
     python tools/rehearse_chip_smoke.py p18 [--higgs-rows 100000
         --http-rows 2000]
     python tools/rehearse_chip_smoke.py p19 [--tf-width 64 --tf-seq 256]
+    python tools/rehearse_chip_smoke.py p20 [--higgs-rows 40000
+        --vw-rows 50000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -67,8 +69,11 @@ rows, the small tuning and ``FindBestModel``, the HTTP stages over
 CPU, the model fetched by ``http://``; "cuda against cpu" compares the CPU
 with itself), ``p19`` (phase 19: the transformer's three strategies at
 ``d_model=--tf-width`` over 2 x ``--tf-seq`` tokens, the narrow config
-"cuda against cpu", and 19b's four gloo ranks as CPU processes). The plain
-versions are counted
+"cuda against cpu", and 19b's four gloo ranks as CPU processes), ``p20``
+(phase 20 on ``--higgs-rows`` rows and ``--vw-rows`` Criteo-shaped rows:
+its three stages of two gloo ranks as CPU processes; the ranks' launch
+holds wait for the card, since their plain versions count nothing). The
+plain versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
 """
@@ -297,12 +302,18 @@ def phase_transformer(mod, width: int, seq: int) -> dict:
     return mod.phase_transformer("CPU rehearsal, no card")
 
 
+def phase_group_resume(mod, vw_rows: int) -> dict:
+    """Phase 20 on ``HIGGS_ROWS`` rows and ``vw_rows`` VW rows."""
+    mod.P20_VW_ROWS = vw_rows
+    return mod.phase_group_resume("CPU rehearsal, no card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
                              "p11", "p12", "p13", "p14", "p15", "p16",
-                             "p17", "p18", "p19"])
+                             "p17", "p18", "p19", "p20"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     ap.add_argument("--vw-rows", type=int, default=200_000)
@@ -333,7 +344,8 @@ def main() -> int:
                                     args.lime_images),
            "p18": lambda: phase_automl(mod, args.http_rows),
            "p19": lambda: phase_transformer(mod, args.tf_width,
-                                            args.tf_seq)}
+                                            args.tf_seq),
+           "p20": lambda: phase_group_resume(mod, args.vw_rows)}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
