@@ -152,9 +152,10 @@ Phases (any failure exits non-zero and prints no result line):
    rounds, bagging 0.8) and the same fit again, which resumes from its
    iteration-4 checkpoint: the checkpoint's trees bit for bit, every
    tree's structure identical, margins within 1e-5. Then one refit on the cached
-   binned dataset (timed), and the host time of one iteration's per-row
-   uniforms and their copy to the card. Every timed fit empties the
-   binned-dataset cache first, so its time includes its ingest.
+   binned dataset (timed), and the time of one iteration's per-row
+   uniforms drawn on the card (phase 21a holds them to JAX's). Every
+   timed fit empties the binned-dataset cache first, so its time includes
+   its ingest.
 10b. The same options at 20,000 rows on cuda against cpu, as phase 5:
    identical trees and margins within 1e-5.
 11. The main path's extensions, on the models of phases 4, 4b, 6 and 8.
@@ -365,9 +366,9 @@ Phases (any failure exits non-zero and prints no result line):
    their bound and ``index_add_``. 17d: ``stream_transform`` over 3 shards
    of 1,024 inputs in chunks of 300 and ``stream_featurize_images`` over
    512 JPEG files and a corrupt one, each bit-equal to its in-memory run.
-   17e: ``ImageLIME`` over the ResNet-50 ``DNNModel`` at its defaults on 4
-   inputs: s an explanation, the model's share; coefficients cuda against
-   cpu on one input within ``LIME_COEF_RTOL``. 17f: the DigitsConvNet
+   17e: ``ImageLIME`` over the ResNet-50 ``DNNModel`` at its defaults on 2
+   inputs (``LIME_IMAGES``): s an explanation, the model's share;
+   coefficients cuda against cpu on one input within ``LIME_COEF_RTOL``. 17f: the DigitsConvNet
    fixture's pinned hash, its logits on 64 inputs of 32x32 as 17a. 17d-17f
    launch no histogram kernel. ``tools/chip_phase17.py`` runs this phase
    alone.
@@ -432,6 +433,26 @@ Phases (any failure exits non-zero and prints no result line):
    fit, the resume running pass 2 alone. Rank 1 names checkpoint
    directories of its own, which must never be created.
    ``tools/chip_phase20.py`` runs this phase alone.
+
+21. The JAX package's random streams on the card
+   (``mmlspark_tpu_torch/utils/prng.py``, threefry2x32 as torch integer
+   ops). 21a: ``_row_uniforms`` over 1,000,000 rows, the stochastic
+   rounding's uniforms at ``[3, 1,000,000]`` and a rank's slice of them
+   from column 500,000, drawn on cuda and on cpu: bit-equal, and the
+   sha256 of their f32 bits equal to ``PRNG_GOLDEN``, the hashes of
+   ``jax.random``'s own draws under the same keys (a tier-1 test computes
+   them with JAX), so the card draws JAX's stream without JAX; each
+   draw's warm ms on the card; normals at [1,000,000] and a narrow
+   transformer's init bit-equal on cuda and cpu. 21b:
+   phase 4's rows fitted with ``baggingFraction=0.8, baggingFreq=1,
+   featureFraction=0.8`` in bf16 (kernel 1) and quantized with
+   stochastic rounding, warmup 0 (kernel 2); GOSS with
+   ``featureFraction=0.8``; the quantized and bf16 bagged fits under
+   ``MMLSPARK_TPU_HIST_BLOCKS=8`` (kernel 2's blocked route, the
+   deterministic mode): each held as phase 4 (its kernels launch, no plain
+   version, AUC floor 0.75, cuda and cpu margins within 1e-5), and its
+   20,000-row twin on cuda against cpu as phase 5 (identical trees,
+   margins within 1e-5). ``tools/chip_phase21.py`` runs this phase alone.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
@@ -534,6 +555,7 @@ from mmlspark_tpu_torch.recommendation.sar import SAR, SARModel
 from mmlspark_tpu_torch.robustness import failpoints
 from mmlspark_tpu_torch.train.core import (ComputeModelStatistics,
                                            TrainClassifier)
+from mmlspark_tpu_torch.utils import prng
 from mmlspark_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                  CheckpointMismatchError,
                                                  data_fingerprint)
@@ -1735,27 +1757,24 @@ SAMPLING_FITS = (
 )
 
 
-def time_host_draw(n: int, reps: int = 5) -> tuple:
-    """Host ms of one iteration's per-row uniforms (``_row_uniforms``) and
-    ms of their copy to the card."""
-    draw = copy = 0.0
+def time_row_draw(n: int, reps: int = 5) -> float:
+    """Wall ms of one iteration's per-row uniforms (``_row_uniforms``)
+    drawn on the card, synchronized, after one warm draw."""
+    _row_uniforms(3, reps, n, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for step in range(reps):
-        t0 = time.perf_counter()
-        u = _row_uniforms(3, step, n)
-        t1 = time.perf_counter()
-        u.to("cuda")
-        torch.cuda.synchronize()
-        draw += t1 - t0
-        copy += time.perf_counter() - t1
-    return 1e3 * draw / reps, 1e3 * copy / reps
+        _row_uniforms(3, step, n, device="cuda")
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 def check_resumed(whole: Booster, resumed: Booster, Xh, done: int) -> float:
     """A resumed fit against the uninterrupted one: its first ``done``
     trees (the checkpoint's) and its base score bit for bit; every tree's
     structure and thresholds identical; margins within 1e-5 (the leaf
-    renewal's float ``index_add_`` sums in another order on every run).
-    Returns the largest leaf-value difference."""
+    renewal sums exactly, so on the card the fits' leaves are expected
+    bit-equal). Returns the largest leaf-value difference."""
     if resumed.num_trees != whole.num_trees:
         raise AssertionError(f"{resumed.num_trees} trees resumed, "
                              f"{whole.num_trees} uninterrupted")
@@ -1831,12 +1850,12 @@ def phase_sampling(data, base: Booster) -> dict:
     X, y, Xh, yh = data
     log("== phase 10: kernels 1 and 2 vs plain versions under row masks")
     phase_masked_kernels()
-    draw_ms, copy_ms = time_host_draw(len(y))
+    draw_ms = time_row_draw(len(y))
     t0 = time.perf_counter()
     data_fingerprint(X, y, None)
     fp_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"== phase 10: host draw of {len(y):,} row uniforms {draw_ms:.3f} ms"
-        f", copy to the card {copy_ms:.3f} ms; the rows' content "
+    log(f"== phase 10: draw of {len(y):,} row uniforms on the card "
+        f"{draw_ms:.3f} ms; the rows' content "
         f"fingerprint (the cache key and checkpoint identity) {fp_ms:.3f} ms")
     fits = {}
     for label, needs, params in SAMPLING_FITS:
@@ -1899,7 +1918,7 @@ def phase_sampling(data, base: Booster) -> dict:
         f"({10 / hit_s:.3f} trees/s)")
     gbdt_api.clear_binned_dataset_cache()
     fits["10:cache_hit"] = dict(fit_s=hit_s, trees_per_s=10 / hit_s,
-                                host_draw_ms=draw_ms, draw_copy_ms=copy_ms,
+                                device_draw_ms=draw_ms,
                                 fingerprint_ms=fp_ms)
     return fits
 
@@ -4981,8 +5000,9 @@ STREAM_FILES, STREAM_BATCH_FILES = 512, 256
 # lets the scores differ by 8 spreads, about 3e-6 of the largest logit,
 # and the lasso on 1,000 masks of 150-196 superpixels moves its
 # coefficients by 0.91-1.69 times a relative score change
-# (tools/dnn_tolerances.py)
-LIME_IMAGES = 4
+# (tools/dnn_tolerances.py); two pictures keep the whole script inside
+# its time (four took 68-79 s of it)
+LIME_IMAGES = 2
 LIME_COEF_RTOL = 1e-3
 DIGITS_ROWS = 64
 
@@ -6067,7 +6087,10 @@ def phase_transformer_full_width(card) -> dict:
     first = {}
     for mode in TF_STRATEGIES:
         cfg = cfg0._replace(seq_attention=mode)
+        t_init = time.perf_counter()
         params = tfm.init_params(cfg, TF_SEED, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t_init
         n_params = sum(t.numel() for t in tfm.tree_leaves(params))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6085,7 +6108,8 @@ def phase_transformer_full_width(card) -> dict:
         del params, opt, step, prof
         att = attention_profile(cfg, mode, TF_BATCH, TF_SEQ)
         warm = ms[1:]
-        rec = dict(losses=losses, step_ms=ms, warm_ms=float(np.mean(warm)),
+        rec = dict(init_s=init_s, losses=losses, step_ms=ms,
+                   warm_ms=float(np.mean(warm)),
                    tokens_per_s=TF_BATCH * TF_SEQ / (np.mean(warm) / 1e3),
                    peak_bytes=peak, params=n_params, step_device_ms=step_dev,
                    attention_ms=att["ms"] * cfg.n_layers,
@@ -6097,7 +6121,8 @@ def phase_transformer_full_width(card) -> dict:
                    attention_bound_by=att["bound_by"])
         first[mode] = losses[0]
         out[mode] = rec
-        log(f"19a {mode}: {n_params:,} params, B={TF_BATCH} S={TF_SEQ}: "
+        log(f"19a {mode}: {n_params:,} params drawn on the card in "
+            f"{init_s:.3f} s, B={TF_BATCH} S={TF_SEQ}: "
             f"losses {[round(x, 5) for x in losses]}; step ms "
             f"{[round(x, 2) for x in ms]} (warm mean {rec['warm_ms']:.2f}, "
             f"{rec['tokens_per_s']:,.0f} tokens/s); peak "
@@ -6168,7 +6193,7 @@ for mode in spec["strategies"]:
         n = spec["shape"]["seq"]
         toks, tgts = (zigzag_permute(a, n, axis=1) for a in (toks, tgts))
     params = tfm.shard_params(tfm.init_params(cfg, spec["seed"],
-                                              device="cpu"),
+                                              device="cuda"),
                               cfg, mesh, device="cuda")
     opt = tfm.adamw_init(params)
     step = tfm.make_train_step(cfg, mesh, lr=spec["lr"], device="cuda")
@@ -6775,6 +6800,152 @@ def phase_group_resume(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the JAX package's random streams on the card
+# ---------------------------------------------------------------------------
+
+P21_SEED = 21
+P21_ROWS = 1_000_000            # phase 4's rows
+P21_BAG_STEP = 3
+P21_ROUND = (4, 1)              # the rounding key's (iteration, class)
+P21_RANK_START = 500_000        # rank 1 of 2 over P21_ROWS
+P21_TIME_REPS = 20
+# sha256 of the little-endian f32 bits of jax.random's own draws (jax
+# 0.9.0, partitionable threefry, on the CPU) under 21a's keys:
+# uniform(fold_in(fold_in(PRNGKey(21), 1_000_006), 0), (1_000_000,)),
+# uniform(fold_in(fold_in(PRNGKey(21), 4), 14), (3, 1_000_000)) and its
+# columns from 500,000; tests/test_torch_prng.py computes them with JAX
+PRNG_GOLDEN = {
+    "row_uniforms":
+        "5ed56e10cd14e2d6901ca16a1deba251bbf6cafc6e5bcdcd1507e8db8f08ffa3",
+    "round_uniforms":
+        "ec3339675ea3e1aa73c8c1f45245ab5441333a0991bd5308a27b2f4e65ee7b53",
+    "rank_slice":
+        "750435afa79fb92247a78a8c0cd298d89f2144779672c64dd4f2cecc08bd5cd9",
+}
+P21_BAG = dict(baggingFraction=0.8, baggingFreq=1, featureFraction=0.8)
+P21_INT8 = dict(useQuantizedGrad=True, quantWarmupIters=0)
+# 21b: (label, the kernels the fit must launch, estimator params, blocked)
+P21_FITS = (
+    ("bagged", ("node_hist_bf16",), P21_BAG, False),
+    ("bagged_int8", ("node_hist_int8",), {**P21_BAG, **P21_INT8}, False),
+    ("goss", ("node_hist_bf16",), dict(boostingType="goss",
+                                       featureFraction=0.8), False),
+    ("blocked_int8", ("node_hist_int8",), {**P21_BAG, **P21_INT8}, True),
+    ("blocked_bf16", ("node_hist_det",), P21_BAG, True),
+)
+
+
+def prng_draws(dev) -> dict:
+    """21a's three draws on ``dev``: phase 4's row uniforms, the rounding
+    uniforms and rank 1's slice of them."""
+    key = hist_ops.quant_key(P21_SEED, *P21_ROUND)
+    return {"row_uniforms": _row_uniforms(P21_SEED, P21_BAG_STEP, P21_ROWS,
+                                          device=dev),
+            "round_uniforms": prng.uniform(key, (3, P21_ROWS), device=dev),
+            "rank_slice": prng.uniform(key, (3, P21_ROWS - P21_RANK_START),
+                                       start=P21_RANK_START,
+                                       stride=P21_ROWS, device=dev)}
+
+
+def draw_sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        t.cpu().numpy(), dtype="<f4").tobytes()).hexdigest()
+
+
+def phase_prng_draws(card) -> dict:
+    """21a: the card's draws bit-equal to the CPU's and to JAX's hashes;
+    their warm ms; normals and an init bit-equal on cuda and cpu."""
+    log("== phase 21a: the JAX package's threefry stream on the card")
+    # (a list, not a dict by device: the CPU rehearsal renames the card)
+    on_card, on_cpu = (prng_draws(dev) for dev in ("cuda", "cpu"))
+    out = {}
+    for name, want in PRNG_GOLDEN.items():
+        cuda, cpu = on_card[name], on_cpu[name]
+        if cuda.device.type != "cuda" or not torch.equal(cuda.cpu(), cpu):
+            raise AssertionError(f"21a {name}: the card's draws differ from "
+                                 "the cpu's")
+        sha = draw_sha(cuda)
+        if sha != want:
+            raise AssertionError(f"21a {name}: sha256 {sha}, JAX's {want}")
+        out[name] = sha
+    if not torch.equal(on_card["rank_slice"],
+                       on_card["round_uniforms"][:, P21_RANK_START:]):
+        raise AssertionError("21a: the rank's slice is not the one-device "
+                             "draw's columns")
+    key = hist_ops.quant_key(P21_SEED, *P21_ROUND)
+    ms = {"row_uniforms_1m": time_ms(lambda: _row_uniforms(
+              P21_SEED, P21_BAG_STEP, P21_ROWS, device="cuda"),
+              P21_TIME_REPS),
+          "round_uniforms_3x1m": time_ms(lambda: prng.uniform(
+              key, (3, P21_ROWS), device="cuda"), P21_TIME_REPS)}
+    t0 = time.perf_counter()
+    prng.uniform(key, (3, P21_ROWS), device="cpu")
+    ms["round_uniforms_3x1m_cpu"] = 1e3 * (time.perf_counter() - t0)
+    ms["normal_1m"] = time_ms(lambda: prng.normal(
+        key, (P21_ROWS,), device="cuda"), P21_TIME_REPS)
+    a, b = (prng.normal(key, (P21_ROWS,), device=dev).cpu()
+            for dev in ("cuda", "cpu"))
+    if not torch.equal(a, b):
+        raise AssertionError(f"21a: normals differ on cuda and cpu at "
+                             f"{int((a != b).sum())} of {P21_ROWS}")
+    cfg = tfm.TransformerConfig(**TF_NARROW)
+    inits = [tfm.tree_leaves(tfm.init_params(cfg, TF_SEED, device=dev))
+             for dev in ("cuda", "cpu")]
+    if not all(torch.equal(g.cpu(), c) for g, c in zip(*inits)):
+        raise AssertionError("21a: the narrow transformer's init differs on "
+                             "cuda and cpu")
+    out["ms"] = ms
+    log(f"21a: row uniforms, rounding uniforms and the rank's slice "
+        f"bit-equal on cuda and cpu and to JAX's sha256; warm ms on the "
+        f"card {ms['row_uniforms_1m']:.4f} at [1M], "
+        f"{ms['round_uniforms_3x1m']:.4f} at [3, 1M] (cpu "
+        f"{ms['round_uniforms_3x1m_cpu']:.1f} ms), normals "
+        f"{ms['normal_1m']:.4f} at [1M]; normals and a transformer init "
+        f"bit-equal on cuda and cpu on {card}")
+    return out
+
+
+def phase_prng_fits() -> dict:
+    """21b: phase 4's rows under the sampled and stochastically rounded
+    options, and their 20,000-row twins on cuda against cpu."""
+    X, y = higgs_shaped(HIGGS_ROWS, seed=0)
+    Xh, yh = higgs_shaped(HIGGS_HOLDOUT, seed=1)
+    data = (X, y, Xh, yh)
+    fits = {}
+    for label, needs, params, blocked in P21_FITS:
+        if blocked:
+            os.environ["MMLSPARK_TPU_HIST_BLOCKS"] = str(HIST_BLOCKS)
+        try:
+            floor = (SAMPLING_AUC_FLOORS["goss"] if label == "goss"
+                     else AUC_FLOOR)
+            rec = phase_end_to_end(f"21b {label}", needs, data,
+                                   auc_floor=floor, **params)[0]
+            others = [k for k in ("node_hist_bf16", "node_hist_int8",
+                                  "node_hist_det") if k not in needs]
+            if any(rec["counts"][k] for k in others):
+                raise AssertionError(f"21b {label}: other kernels ran: "
+                                     f"{rec['counts']}")
+            phase_small_agreement(f"21b {label}", needs=needs, **params)
+        finally:
+            os.environ.pop("MMLSPARK_TPU_HIST_BLOCKS", None)
+        fits[f"21b:{label}"] = rec
+    return fits
+
+
+def phase_prng(card) -> dict:
+    """Phase 21: 21a and 21b."""
+    t0 = time.perf_counter()
+    out = {"21a": phase_prng_draws(card)}
+    t1 = time.perf_counter()
+    out["fits"] = phase_prng_fits()
+    out["sub_s"] = {"21a": t1 - t0, "21b": time.perf_counter() - t1}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 21: {out['seconds']:.1f} s (21a {out['sub_s']['21a']:.1f} "
+        f"s, 21b {out['sub_s']['21b']:.1f} s) on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU is available")
@@ -6844,6 +7015,8 @@ def main() -> int:
     p19 = phase_transformer(card)
     p20 = phase_group_resume(card)
     fits.update(p20.pop("fits"))
+    p21 = phase_prng(card)
+    fits.update(p21.pop("fits"))
     fits.update(p18.pop("fits"))
     fits["17c"] = p17["17c"]
     fits["15e"] = p15.pop("15e")
@@ -6860,7 +7033,8 @@ def main() -> int:
         + json.dumps(p15) + "; phase 16: " + json.dumps(p16)
         + "; phase 17: " + json.dumps(p17) + "; phase 18: "
         + json.dumps(p18) + "; phase 19: " + json.dumps(p19)
-        + "; phase 20: " + json.dumps(p20))
+        + "; phase 20: " + json.dumps(p20) + "; phase 21: "
+        + json.dumps(p21))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()

@@ -41,6 +41,7 @@ from ..core.pipeline import Estimator, Model
 from ..device import DeviceLike, resolve_device
 from ..parallel import mesh as meshlib
 from ..parallel import placement
+from ..utils import prng
 from .complement import ComplementAccessTransformer
 from .feature import IdIndexer, LinearScalarScaler, MultiIndexer
 
@@ -79,16 +80,18 @@ class AccessAnomalyConfig:
 # ---------------------------------------------------------------------------
 
 
-def _als_init(seed: int, n_users: int, n_items: int,
-              rank: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Initial user and item factors, uniform in [0, 0.1) f32, from one
-    seeded ``torch.Generator`` on the CPU (the only draw of ``als_fit``; the
-    JAX package draws ``jax.random.uniform`` under ``PRNGKey(seed)``, which
-    parity tests patch in here)."""
-    g = torch.Generator().manual_seed(int(seed))
-    x0 = torch.rand((n_users, rank), generator=g) * 0.1
-    y0 = torch.rand((n_items, rank), generator=g) * 0.1
-    return x0.numpy(), y0.numpy()
+def _als_init(seed: int, n_users: int, n_items: int, rank: int,
+              device: DeviceLike = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Initial user and item factors, uniform in [0, 0.1) f32 on
+    ``device``: the JAX package's draws, bit for bit (``utils/prng.py``):
+    ``ku, ki = split(PRNGKey(seed))``, then ``uniform(ku, (U, rank)) *
+    0.1`` and ``uniform(ki, (I, rank)) * 0.1``. The only draw of
+    ``als_fit``."""
+    ku, ki = prng.split(prng.prng_key(seed))
+    x0 = prng.uniform(ku, (n_users, rank), device=device) * 0.1
+    y0 = prng.uniform(ki, (n_items, rank), device=device) * 0.1
+    return x0, y0
 
 
 def _scatter_add(table: torch.Tensor, idx: torch.Tensor,
@@ -160,7 +163,7 @@ def als_fit(user_idx: np.ndarray, item_idx: np.ndarray, rating: np.ndarray,
     """
     dev = resolve_device(device)
     nnz = len(rating)
-    x0, y0 = _als_init(seed, n_users, n_items, rank)
+    x, y = _als_init(seed, n_users, n_items, rank, dev)
 
     mesh = meshlib.get_default_mesh()
     nshards = mesh.size
@@ -190,8 +193,6 @@ def als_fit(user_idx: np.ndarray, item_idx: np.ndarray, rating: np.ndarray,
         cm1 = wl
         tgt = rl * wl
     reg_eye = torch.eye(rank, dtype=torch.float32, device=dev) * reg
-    x = torch.tensor(x0, dtype=torch.float32, device=dev)
-    y = torch.tensor(y0, dtype=torch.float32, device=dev)
     for _ in range(max_iter):
         x = _solve_side(y, ul, il, cm1, tgt, n_users, implicit, reg_eye,
                         mesh)

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils import prng
+
 
 @dataclass(frozen=True)
 class CNNConfig:
@@ -60,25 +62,39 @@ BLOCK_SPECS = {"basic": {"convs": 2, "expansion": 1},
 _EXPANSION = {k: v["expansion"] for k, v in BLOCK_SPECS.items()}
 
 
-def _conv_init(gen: torch.Generator, kh, kw, cin, cout) -> torch.Tensor:
-    """He-normal ``[cout, cin, kh, kw]`` weights."""
-    fan_in = kh * kw * cin
-    return torch.randn((cout, cin, kh, kw), generator=gen) \
-        * float(np.sqrt(2.0 / fan_in))
+def _scaled_normal(key, shape, scale: float) -> torch.Tensor:
+    """The JAX package's ``jax.random.normal(key, shape) * scale`` (an f32
+    product), on the host (the params are CPU tensors; the draw is the
+    same bits on any device)."""
+    return prng.normal(key, shape, device="cpu") * float(np.float32(scale))
+
+
+def _conv_init(key, kh, kw, cin, cout) -> torch.Tensor:
+    """He-normal ``[cout, cin, kh, kw]`` weights: the JAX package's draw
+    in its ``(kh, kw, cin, cout)`` shape, permuted to the port's layout."""
+    w = _scaled_normal(key, (kh, kw, cin, cout),
+                       np.sqrt(2.0 / (kh * kw * cin)))
+    return w.permute(3, 2, 0, 1).contiguous()
 
 
 def _bn_unit(cout) -> Dict[str, torch.Tensor]:
     return {"scale": torch.ones(cout), "bias": torch.zeros(cout)}
 
 
-def init_cnn_params(cfg: CNNConfig, gen: torch.Generator) -> Dict[str, Any]:
-    """Fresh ResNet params drawn from ``gen`` (He-normal convolutions,
-    identity batch-norm, zero head bias), as CPU tensors. The draws are
-    the port's own: a JAX ``init_cnn_params`` of the same config draws
-    other (equally random) weights."""
+def init_cnn_params(cfg: CNNConfig, key) -> Dict[str, Any]:
+    """Fresh ResNet params under the PRNG key ``key`` (``utils/prng.py``:
+    two words, e.g. ``prng.prng_key(seed)``): He-normal convolutions,
+    identity batch-norm, zero head bias, as CPU tensors. The keys of
+    ``split(key, ...)`` are consumed in the JAX package's order and each
+    draw is taken at its shape, so the weights are the JAX
+    ``init_cnn_params``' under the same key, within a few f32 ulps
+    (:func:`~mmlspark_tpu_torch.utils.prng.normal`)."""
     expansion = BLOCK_SPECS[cfg.block]["expansion"]
+    n_convs = BLOCK_SPECS[cfg.block]["convs"]
+    keys = iter(prng.split(key, 4 + (n_convs + 1) * sum(cfg.stage_sizes)
+                           + 2))
     params: Dict[str, Any] = {
-        "stem": {"w": _conv_init(gen, 7, 7, 3, cfg.width),
+        "stem": {"w": _conv_init(next(keys), 7, 7, 3, cfg.width),
                  **_bn_unit(cfg.width)}}
     cin = cfg.width
     for s, n_blocks in enumerate(cfg.stage_sizes):
@@ -87,27 +103,27 @@ def init_cnn_params(cfg: CNNConfig, gen: torch.Generator) -> Dict[str, Any]:
         for b in range(n_blocks):
             if cfg.block == "basic":
                 blk = {
-                    "conv1": {"w": _conv_init(gen, 3, 3, cin, mid),
+                    "conv1": {"w": _conv_init(next(keys), 3, 3, cin, mid),
                               **_bn_unit(mid)},
-                    "conv2": {"w": _conv_init(gen, 3, 3, mid, cout),
+                    "conv2": {"w": _conv_init(next(keys), 3, 3, mid, cout),
                               **_bn_unit(cout)},
                 }
             else:
                 blk = {
-                    "conv1": {"w": _conv_init(gen, 1, 1, cin, mid),
+                    "conv1": {"w": _conv_init(next(keys), 1, 1, cin, mid),
                               **_bn_unit(mid)},
-                    "conv2": {"w": _conv_init(gen, 3, 3, mid, mid),
+                    "conv2": {"w": _conv_init(next(keys), 3, 3, mid, mid),
                               **_bn_unit(mid)},
-                    "conv3": {"w": _conv_init(gen, 1, 1, mid, cout),
+                    "conv3": {"w": _conv_init(next(keys), 1, 1, mid, cout),
                               **_bn_unit(cout)},
                 }
             if cin != cout:
-                blk["proj"] = {"w": _conv_init(gen, 1, 1, cin, cout)}
+                blk["proj"] = {"w": _conv_init(next(keys), 1, 1, cin, cout)}
             params[f"stage{s}_block{b}"] = blk
             cin = cout
     params["head"] = {
-        "w": torch.randn((cin, cfg.num_classes), generator=gen)
-        * float(np.sqrt(1.0 / cin)),
+        "w": _scaled_normal(next(keys), (cin, cfg.num_classes),
+                            np.sqrt(1.0 / cin)),
         "b": torch.zeros(cfg.num_classes)}
     return params
 
@@ -224,25 +240,26 @@ def _alex_spatial(cfg: AlexNetConfig) -> Tuple[int, int]:
     return axis(cfg.input_hw[0]), axis(cfg.input_hw[1])
 
 
-def init_alexnet_params(cfg: AlexNetConfig, gen: torch.Generator
-                        ) -> Dict[str, Any]:
-    """Fresh AlexNet params drawn from ``gen``, as CPU tensors (the port's
-    own draws, as :func:`init_cnn_params`)."""
+def init_alexnet_params(cfg: AlexNetConfig, key) -> Dict[str, Any]:
+    """Fresh AlexNet params under the PRNG key ``key``, as CPU tensors: the
+    JAX ``init_alexnet_params``' draws, as :func:`init_cnn_params`."""
     chans, fc = _alex_dims(cfg)
+    keys = iter(prng.split(key, 16))
     specs = [(11, 3, chans[0]), (5, chans[0], chans[1]),
              (3, chans[1], chans[2]), (3, chans[2], chans[3]),
              (3, chans[3], chans[4])]
     params: Dict[str, Any] = {}
     for i, (k, cin, cout) in enumerate(specs):
-        params[f"conv{i + 1}"] = {"w": _conv_init(gen, k, k, cin, cout),
+        params[f"conv{i + 1}"] = {"w": _conv_init(next(keys), k, k, cin,
+                                                  cout),
                                   "b": torch.zeros(cout)}
     h, w = _alex_spatial(cfg)
     flat = chans[4] * h * w
     for i, (din, dout) in enumerate([(flat, fc), (fc, fc),
                                      (fc, cfg.num_classes)]):
         params[f"fc{i + 6}"] = {
-            "w": torch.randn((din, dout), generator=gen)
-            * float(np.sqrt(2.0 / din)),
+            "w": _scaled_normal(next(keys), (din, dout),
+                                np.sqrt(2.0 / din)),
             "b": torch.zeros(dout)}
     return params
 

@@ -16,11 +16,11 @@ The repository format is the JAX package's, byte for byte: an ``.npz``
 payload of the flattened param tree in the JAX layout (convolutions ``[kh,
 kw, in, out]``; ``convert.py``), a ``config_json`` entry, ``schema.json``
 and sha256 bookkeeping, so a repository written by either package loads in
-the other. One difference, on purpose: a builtin is drawn from a
-``torch.Generator`` seeded from the same name hash the JAX package seeds
-``jax.random.PRNGKey`` from, so a fresh builtin has other (equally random)
-weights than the JAX package's; a payload already in a repository loads to
-the same weights in both.
+the other. A builtin is drawn under the JAX package's key,
+``PRNGKey(int(sha256(name)[:8], 16))``, with its ``jax.random`` stream
+(``utils/prng.py``), so a fresh builtin has the JAX package's weights
+(within a few f32 ulps: the normals' ``erf_inv`` tail), and a payload
+already in a repository loads to the same weights in both.
 
 Genuinely pretrained weights enter via ``import_torch_resnet``
 (torchvision-format state_dict -> folded-BN tree -> repository payload) or
@@ -39,8 +39,8 @@ from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List
 
 import numpy as np
-import torch
 
+from ...utils import prng
 from .convert import params_from_jax, params_to_jax
 
 
@@ -366,17 +366,16 @@ class ModelDownloader:
     def _materialize_builtin(self, name: str) -> bytes:
         spec = dict(_BUILTIN[name])
         arch = spec.pop("arch")
-        # the JAX package's seed (its PRNGKey's), drawn by torch's own
-        # generator: other weights than the JAX package's fresh builtin
-        gen = torch.Generator().manual_seed(
+        # the JAX package's key, from the name's hash
+        key = prng.prng_key(
             int(hashlib.sha256(name.encode()).hexdigest()[:8], 16))
         if arch == "alexnet":
             from .cnn import AlexNetConfig, init_alexnet_params
             cfg = AlexNetConfig(**spec)
-            params = init_alexnet_params(cfg, gen)
+            params = init_alexnet_params(cfg, key)
         else:
             from .cnn import CNNConfig, init_cnn_params
             cfg = CNNConfig(**spec)
-            params = init_cnn_params(cfg, gen)
+            params = init_cnn_params(cfg, key)
         return serialize_payload(params_to_jax(params),
                                  {"arch": arch, **spec})

@@ -41,6 +41,7 @@ from ...parallel.collectives import all_gather, pmax, pmean, psum
 from ...parallel.mesh import Mesh
 from ...parallel.ring_attention import ring_attention, zigzag_ring_attention
 from ...parallel.ulysses import ulysses_attention
+from ...utils import prng
 
 _ATTENTION = {"ring": ring_attention, "ring_zigzag": zigzag_ring_attention,
               "ulysses": ulysses_attention}
@@ -88,44 +89,52 @@ def _unflatten(tree: Tree, leaves) -> Tree:
     return tree_map(lambda _: next(it), tree)
 
 
-def init_params(cfg: TransformerConfig,
-                generator: Union[int, torch.Generator] = 0,
+def init_params(cfg: TransformerConfig, key: Union[int, Any] = 0,
                 device: DeviceLike = None) -> Tree:
-    """f32 parameters, layers stacked on a leading axis, drawn on the host
-    from ``generator`` (a seed or a CPU ``torch.Generator``) and placed on
-    ``device``. The draws are the port's own: the JAX package's come from
-    ``jax.random`` (``convert.transformer_params_from_jax`` carries those
-    across)."""
+    """f32 parameters, layers stacked on a leading axis, drawn on
+    ``device`` under ``key`` (a seed, or a PRNG key of ``utils/prng.py``).
+    The draws are the JAX ``init_params(cfg, PRNGKey(seed))`` ones
+    (``split(key, 4)``, ``split(k_layers, 6 L)`` as ``[L, 6]``, each
+    normal at the JAX shape and scale), within a few f32 ulps
+    (:func:`~mmlspark_tpu_torch.utils.prng.normal`), and the same bytes on
+    every device."""
     dev = resolve_device(device)
-    if not isinstance(generator, torch.Generator):
-        generator = torch.Generator().manual_seed(int(generator))
+    if isinstance(key, (int, np.integer)):
+        key = prng.prng_key(int(key))
     E, H, Dh, Fd, L = (cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff,
                        cfg.n_layers)
+    k_embed, k_pos, k_layers, k_head = prng.split(key, 4)
+    ks = prng.split(k_layers, (L, 6))
 
-    def norm(shape, scale):
-        return torch.randn(shape, generator=generator) * scale
+    def norm(k, shape, scale):
+        return prng.normal(k, shape, device=dev) * float(np.float32(scale))
 
-    def stack(shape, scale):
-        return torch.stack([norm(shape, scale) for _ in range(L)])
+    def stack(j, shape, scale):
+        return torch.stack([norm(ks[i, j], shape, scale) for i in range(L)])
 
-    embed = norm((cfg.vocab_size, E), 1.0)
-    pos = norm((cfg.max_len, E), 0.02)
+    def ones(*shape):
+        return torch.ones(shape, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
     layers = {
-        "ln1_scale": torch.ones(L, E), "ln1_bias": torch.zeros(L, E),
+        "ln1_scale": ones(L, E), "ln1_bias": zeros(L, E),
         # [E, H, 3*Dh]: per-head q|k|v contiguous, so the head-axis TP shard
         # is the same layout at every tensor-parallel size
-        "wqkv": stack((E, H, 3 * Dh), E ** -0.5),
-        "wo": stack((H * Dh, E), (H * Dh) ** -0.5),
-        "ln2_scale": torch.ones(L, E), "ln2_bias": torch.zeros(L, E),
-        "w1": stack((E, Fd), E ** -0.5),
-        "b1": torch.zeros(L, Fd),
-        "w2": stack((Fd, E), Fd ** -0.5),
-        "b2": torch.zeros(L, E),
+        "wqkv": stack(0, (E, H, 3 * Dh), E ** -0.5),
+        "wo": stack(1, (H * Dh, E), (H * Dh) ** -0.5),
+        "ln2_scale": ones(L, E), "ln2_bias": zeros(L, E),
+        "w1": stack(2, (E, Fd), E ** -0.5),
+        "b1": zeros(L, Fd),
+        "w2": stack(3, (Fd, E), Fd ** -0.5),
+        "b2": zeros(L, E),
     }
-    params = {"embed": embed, "pos": pos, "layers": layers,
-              "lnf_scale": torch.ones(E), "lnf_bias": torch.zeros(E),
-              "head": norm((E, cfg.vocab_size), E ** -0.5)}
-    return tree_map(lambda t: t.to(dev), params)
+    return {"embed": norm(k_embed, (cfg.vocab_size, E), 1.0),
+            "pos": norm(k_pos, (cfg.max_len, E), 0.02),
+            "layers": layers,
+            "lnf_scale": ones(E), "lnf_bias": zeros(E),
+            "head": norm(k_head, (E, cfg.vocab_size), E ** -0.5)}
 
 
 def param_specs(cfg: TransformerConfig) -> Tree:

@@ -63,6 +63,7 @@ from ...observability import watchdog as _watchdog
 from ...observability.logging import console as _console
 from ...ops.binning import QuantileBinner, bin_cols
 from ...ops.histogram import quant_key
+from ...utils import prng
 from ...core.dataset import _is_sparse
 from ...parallel import mesh as meshlib
 from ...parallel import placement
@@ -1664,19 +1665,17 @@ def _check_options(*, objective, boosting_type, init_booster, checkpoint_dir,
     return requested, auc_host
 
 
-def _row_uniforms(seed: int, bag_step: int, n: int) -> torch.Tensor:
-    """``[n]`` f32 uniforms in [0, 1) on the host: the port's one source of
-    per-row draws (bagging, GOSS, rf), one stream per (seed, bag step).
-    They are drawn on the host and copied to the fit's device, so a fit
-    on the GPU and one on the CPU keep the same rows. (The JAX package
-    draws ``jax.random.uniform`` under ``fold_in(key, 1_000_003 +
-    bag_step)``: another stream.)"""
-    words = np.random.SeedSequence(
-        [int(seed) & ((1 << 64) - 1), 1_000_003 + int(bag_step)]
-    ).generate_state(2, np.uint32)
-    gen = torch.Generator().manual_seed(
-        (int(words[0]) << 31) ^ int(words[1]))
-    return torch.rand(n, generator=gen)
+def _row_uniforms(seed: int, bag_step: int, n: int, start: int = 0,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """``[n]`` f32 uniforms in [0, 1): the per-row draws of bagging, GOSS
+    and rf, rows ``[start, start + n)`` of the JAX package's one-device
+    draw ``jax.random.uniform(fold_in(fold_in(PRNGKey(seed), 1_000_003 +
+    bag_step), 0), (n_rows,))``, bit for bit (``utils/prng.py``). Drawn on
+    ``device``; integer draws are exact, so the GPU and the CPU keep the
+    same rows."""
+    key = prng.fold_in(prng.fold_in(prng.prng_key(seed),
+                                    1_000_003 + int(bag_step)), 0)
+    return prng.uniform(key, n, start=start, device=device)
 
 
 def _quantile_linear(a: torch.Tensor, q: np.float32) -> float:
@@ -1723,11 +1722,11 @@ class _RowSampling:
 
     def __init__(self, *, boosting_type, vmask, y, seed, bagging_fraction,
                  bagging_freq, pos_bagging_fraction, neg_bagging_fraction,
-                 top_rate, other_rate, rows=(0, None)):
+                 top_rate, other_rate, start=0):
         self.vmask, self.seed = vmask, seed
-        # (this rank's first global row, the global row count): the draws
-        # of a rank are its slice of the global stream
-        self.start, self.n_global = rows[0], rows[1] or vmask.shape[0]
+        # this rank's first global row: a rank draws its slice of the
+        # one-device stream
+        self.start = start
         self.goss = boosting_type == "goss"
         self.every_iteration = boosting_type in ("goss", "rf")
         stratified = (pos_bagging_fraction != 1.0
@@ -1759,10 +1758,9 @@ class _RowSampling:
         return it // self.freq if self.bagging else 0
 
     def _uniforms(self, it: int) -> torch.Tensor:
-        step = self.bag_step(it)
-        u = _row_uniforms(self.seed, step, self.n_global)
-        return u[self.start:self.start + self.vmask.shape[0]].to(
-            self.vmask.device)
+        return _row_uniforms(self.seed, self.bag_step(it),
+                             self.vmask.shape[0], self.start,
+                             self.vmask.device)
 
     def __call__(self, it: int, grad: torch.Tensor) -> torch.Tensor:
         """The row mask of iteration ``it`` (``grad`` [n, K])."""
@@ -1781,29 +1779,34 @@ class _RowSampling:
         return self._bag[1]
 
 
-def _feature_mask(gen: torch.Generator, F: int, feature_fraction: float,
+def _feature_mask(seed: int, it: int, F: int, feature_fraction: float,
                   dev: torch.device) -> torch.Tensor:
-    """One iteration's [F] bool feature subset from the host generator (at
-    least one feature is kept)."""
-    fmask = torch.ones(F, dtype=torch.bool)
-    if feature_fraction < 1.0:
-        u = torch.rand(F, generator=gen)
-        fmask = u < feature_fraction
-        fmask[torch.argmin(u)] = True
-    return fmask.to(dev)
+    """Iteration ``it``'s [F] bool feature subset, the JAX package's: ``u =
+    uniform(fold_in(fold_in(PRNGKey(seed), it), 7), (F,))``, the features
+    with ``u < feature_fraction`` and the argmin of ``u`` (at least one
+    feature is kept)."""
+    if feature_fraction >= 1.0:
+        return torch.ones(F, dtype=torch.bool, device=dev)
+    key = prng.fold_in(prng.fold_in(prng.prng_key(seed), it), 7)
+    u = prng.uniform(key, F, device=dev)
+    fmask = u < float(np.float32(feature_fraction))
+    fmask[torch.argmin(u)] = True
+    return fmask
 
 
 def _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat,
-                    seed: int, it: int, group=None):
+                    seed: int, it: int, group=None, n_rows=None):
     """The K trees of iteration ``it``, one per grad/hess column: full
     precision below ``cfg.quant_warmup_iters`` (or without
     ``quantized_grad``), else on int8 histograms rounded under
     ``quant_key(seed, it, k)``; on the collective path of ``group``
-    (:func:`_grow_group`). Returns [(tree, row_node)]."""
+    (:func:`_grow_group`), whose ranks round their rows of the draw over
+    the data's ``n_rows`` real rows. Returns [(tree, row_node)]."""
     quantized = cfg.quantized_grad and it >= cfg.quant_warmup_iters
     fp_cfg = cfg._replace(quantized_grad=False)
     # one device: the grow functions' single-device call
-    on_group = {} if group is None else {"group": group}
+    on_group = ({} if group is None
+                else {"group": group, "n_rows": n_rows})
     out = []
     for k in range(grad.shape[1]):
         g_k, h_k = grad[:, k].contiguous(), hess[:, k].contiguous()
@@ -2046,13 +2049,14 @@ def train_booster(
     values to that column. ``dataset`` (a pre-built
     :class:`LightGBMDataset`) skips the ingest; its device wins over
     ``device`` (``X`` may come with it for an ``init_booster`` warm start).
-    ``feature_fraction < 1`` draws each iteration's feature subset from a
-    ``torch.Generator`` seeded with ``seed`` (its draws differ from the JAX
-    package's ``jax.random``). With ``cfg.quantized_grad``, iterations
-    below ``cfg.quant_warmup_iters`` grow at full precision and later ones
-    on int8 histograms, each tree stochastically rounded under
-    ``quant_key(seed, iteration, class)`` (the JAX package rounds under
-    other draws).
+    Every draw is the JAX package's, from its ``jax.random`` keys
+    (``utils/prng.py``): ``feature_fraction < 1`` takes iteration ``it``'s
+    feature subset under ``fold_in(fold_in(PRNGKey(seed), it), 7)``
+    (:func:`_feature_mask`), so a resume needs no replay. With
+    ``cfg.quantized_grad``, iterations below ``cfg.quant_warmup_iters``
+    grow at full precision and later ones on int8 histograms, each tree
+    stochastically rounded under ``quant_key(seed, iteration, class)``,
+    the words of ``fold_in(fold_in(PRNGKey(seed), it), 13 + class)``.
 
     ``boosting_type``:
       * ``gbdt`` with bagging (``bagging_fraction < 1`` or the binary-only
@@ -2065,7 +2069,9 @@ def train_booster(
         the finished forest scaled by ``1 / iterations``; its validation
         metric is taken on the average of the trees so far;
       * ``dart``: :func:`_train_dart`.
-    Per-row draws come from :func:`_row_uniforms` on the host.
+    Per-row draws come from :func:`_row_uniforms` on the fit's device: a
+    rank draws its own rows of the one-device stream, so a fit over a data
+    group draws what one device draws.
 
     ``init_booster`` warm-starts: its base score, its margins on the raw
     rows as the starting scores, its trees merged in front of the new ones
@@ -2290,10 +2296,9 @@ def train_booster(
         pos_bagging_fraction=pos_bagging_fraction,
         neg_bagging_fraction=neg_bagging_fraction, top_rate=top_rate,
         other_rate=other_rate,
-        rows=(mesh.rank * dataset.n_local, dataset.n_pad))
+        start=mesh.rank * dataset.n_local)
     grow = (grow_tree_depthwise if cfg.growth_policy == "depthwise"
             else grow_tree)
-    gen = torch.Generator().manual_seed(int(seed))
     es = _EarlyStopping(metric_name, early_stopping_rounds,
                         early_stopping_tolerance)
     if boosting_type == "dart":
@@ -2302,16 +2307,13 @@ def train_booster(
             objective_kwargs=objective_kwargs, base_d=base_d,
             valid=valid, depth_cap=depth_cap, es=es,
             num_iterations=num_iterations, seed=seed,
-            feature_fraction=feature_fraction, sampling=sampling, gen=gen,
+            feature_fraction=feature_fraction, sampling=sampling,
             grow=grow, is_cat=is_cat, metric_eval_period=metric_eval_period,
             drop_rate=drop_rate, max_drop=max_drop, skip_drop=skip_drop,
             drop_seed=drop_seed, mesh=mesh, group=group,
             iteration_callback=iteration_callback)
     if resume is not None:
         es.restore(resume)
-        # the feature subsets of the iterations already done
-        for _ in range(iterations_done):
-            _feature_mask(gen, F, feature_fraction, torch.device("cpu"))
     is_rf = boosting_type == "rf"
 
     def column(sc):
@@ -2348,11 +2350,11 @@ def train_booster(
             if K == 1:
                 grad, hess = grad[:, None], hess[:, None]
             row_mask = sampling(it, grad)
-            fmask = _feature_mask(gen, F, feature_fraction, dev)
+            fmask = _feature_mask(seed, it, F, feature_fraction, dev)
             trees = []
             for k, (tree, row_node) in enumerate(_grow_iteration(
                     grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat, seed,
-                    it, group)):
+                    it, group, dataset.n)):
                 # rf's trees all fit the base score's gradients
                 if not is_rf:
                     scores[:, k] += tree.leaf_value[row_node.long()]
@@ -2431,7 +2433,7 @@ def train_booster(
 
 def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
                 base_d, valid, depth_cap, es, num_iterations, seed,
-                feature_fraction, sampling, gen, grow, is_cat,
+                feature_fraction, sampling, grow, is_cat,
                 metric_eval_period, drop_rate, max_drop, skip_drop,
                 drop_seed, mesh, group, iteration_callback) -> Booster:
     """DART boosting (Dropouts meet Multiple Additive Regression Trees;
@@ -2502,9 +2504,9 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
             if K == 1:
                 grad, hess = grad[:, None], hess[:, None]
             row_mask = sampling(it, grad)
-            fmask = _feature_mask(gen, F, feature_fraction, dev)
+            fmask = _feature_mask(seed, it, F, feature_fraction, dev)
             grown = _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask,
-                                    cfg, is_cat, seed, it, group)
+                                    cfg, is_cat, seed, it, group, dataset.n)
             for k, (tree, row_node) in enumerate(grown):
                 contribs[it, :, k] = tree.leaf_value[row_node.long()]
                 all_trees.append(tree)

@@ -58,6 +58,7 @@ import torch
 
 from ...ops.histogram import (node_histogram, positional_uniform,
                               quant_q_max, quantize_stats)
+from ...utils import prng
 from ...ops.histogram_scatter import (NONFINITE_SHIFT, fixed_point_shifts,
                                       pow2)
 
@@ -95,9 +96,9 @@ class GrowConfig(NamedTuple):
     # per level, grow_tree_depthwise); train_booster dispatches on it
     growth_policy: str = "leafwise"
     # quantized-gradient histograms (LightGBM use_quantized_grad): grad/hess
-    # quantize to int8 per tree, stochastically rounded with the uniforms of
-    # ops.histogram.positional_uniform, and every histogram pass sums them
-    # exactly in int32
+    # quantize to int8 per tree, stochastically rounded with the JAX
+    # package's uniforms (_quantize_for), and every histogram pass sums
+    # them exactly in int32
     quantized_grad: bool = False
     # with quantized_grad: recompute the leaves' grad/hess/count from the
     # f32 stats after growth, so leaf values carry no quantization error
@@ -437,23 +438,28 @@ def _use_subtraction(cfg: GrowConfig, n: int, group=None) -> bool:
 
 def _quantize_for(base_t: torch.Tensor, qkey: Optional[Tuple[int, int]],
                   group=None, blocks_local: int = 0,
-                  rows_per_block: int = 0):
+                  rows_per_block: int = 0, n_rows: Optional[int] = None):
     """int8 quantization of one tree's ``[3, n]`` stats (the JAX package's
-    ``_quantize_for``): stochastic rounding from :func:`positional_uniform`
-    under ``qkey`` over global row indices, round-to-nearest when it is
-    None. The JAX package's plain path draws ``jax.random.uniform(qkey)``
-    instead (only its blocked path uses the positional hash); the port uses
-    the positional hash everywhere, so a fit rounds the same rows the same
-    way on every device. The blocked mode takes the scales from the global
-    amax (``all_reduce(MAX)`` is exact) and bounds the int32 accumulator by
-    the rows per block. Returns (int8 stats, f32 scales [3])."""
+    ``_quantize_for``), stochastically rounded under the key words
+    ``qkey`` with the JAX package's draws, round-to-nearest when it is
+    None. The plain path draws ``jax.random.uniform(qkey, [3, n_rows])``
+    (``utils/prng.py``): the one-device draw over ``n_rows`` rows (default
+    ``n`` times the group's size), of which a rank draws its own rows at
+    their global index, so every world size rounds as one device does.
+    The blocked mode draws :func:`positional_uniform` over global row
+    indices, takes the scales from the global amax (``all_reduce(MAX)`` is
+    exact) and bounds the int32 accumulator by the rows per block. Returns
+    (int8 stats, f32 scales [3])."""
     S, n = base_t.shape
     # ranks hold equal consecutive slices: this rank's first global row
     start = 0 if group is None else group.rank * n
+    if not blocks_local:
+        u = None if qkey is None else prng.uniform(
+            qkey, (S, n), start=start, device=base_t.device,
+            stride=n_rows or n * (1 if group is None else group.size))
+        return quantize_stats(base_t, u=u)
     u = None if qkey is None else positional_uniform(
         qkey, S, n, base_t.device, start=start)
-    if not blocks_local:
-        return quantize_stats(base_t, u=u)
     amax = base_t.abs().amax(dim=1)
     if group is not None:
         amax = group.all_reduce(amax, op="max")
@@ -492,18 +498,20 @@ def _renew_leaf_stats(ng, nh, nc, is_leaf, row_node, grad, hess, vm,
     quant_train_renew_leaf): each leaf's grad/hess/count recomputed from
     the f32 stats by one segment-sum over the final row->leaf map, so leaf
     values carry no int8 error. Internal nodes keep their recorded stats.
-    The arrays are ``[M + 1]`` with the spare slot. Over a group the sums
+    The arrays are ``[M + 1]`` with the spare slot. The segment sums are
+    exact (:func:`_exact_block_sums`; the JAX package adds in f32), so a
+    fit's leaves are the same bits on every run and device, where a float
+    ``index_add_`` on the card adds in launch order. Over a group the sums
     are all-reduced, or (blocked mode) taken per block and folded in block
-    order."""
+    order. Non-finite stats give NaN leaves (their int8 histograms are
+    undefined in both packages)."""
     stats = torch.stack([grad * vm, hess * vm, vm])              # [3, n]
     seg = row_node.long()
     if blocks_local:
         renew = _blocked_fold(_exact_block_sums(
             stats, blocks_local, seg, ng.shape[0]), group)
     else:
-        renew = torch.zeros((3, ng.shape[0]), dtype=torch.float32,
-                            device=ng.device)
-        renew.index_add_(1, seg, stats)
+        renew = _exact_block_sums(stats, 1, seg, ng.shape[0])[0]
         if group is not None:
             renew = group.all_reduce(renew)
     return tuple(torch.where(is_leaf, renew[i], v)
@@ -601,7 +609,7 @@ class _Stats(NamedTuple):
 
 
 def _prepare_stats(grad, hess, valid, cfg: GrowConfig, qkey,
-                   group=None) -> _Stats:
+                   group=None, n_rows: Optional[int] = None) -> _Stats:
     """The masked ``[3, n]`` stats a tree is grown from, quantized when
     ``cfg.quantized_grad``, with the blocked geometry of this rank's
     rows."""
@@ -611,7 +619,8 @@ def _prepare_stats(grad, hess, valid, cfg: GrowConfig, qkey,
     base_t = torch.stack([grad * vm, hess * vm, vm], dim=0).contiguous()
     qscales = None
     if cfg.quantized_grad:
-        base_t, qscales = _quantize_for(base_t, qkey, group, bl, rpb)
+        base_t, qscales = _quantize_for(base_t, qkey, group, bl, rpb,
+                                        n_rows)
         base_t = base_t.contiguous()
     return _Stats(vm, base_t, qscales, group, bl, rpb)
 
@@ -645,7 +654,8 @@ def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
 def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               valid: torch.Tensor, feat_mask: torch.Tensor, cfg: GrowConfig,
               is_cat: Optional[torch.Tensor] = None,
-              qkey: Optional[Tuple[int, int]] = None, group=None):
+              qkey: Optional[Tuple[int, int]] = None, group=None,
+              n_rows: Optional[int] = None):
     """Grow one leafwise tree on one device, or on this rank's rows of
     ``group`` (the collective path: every rank takes the same splits).
 
@@ -655,7 +665,10 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     None for none. ``cfg`` must be resolved
     (:func:`resolve_growth_backend`). With ``cfg.quantized_grad``, ``qkey``
     (two uint32 words, :func:`...ops.histogram.quant_key`) seeds the
-    stochastic rounding; None rounds to nearest. Returns (Tree, row_node
+    stochastic rounding; None rounds to nearest. ``n_rows``: the rows of
+    the one-device fit whose rounding draw this rank's rows slice (the
+    data's real rows, when the group pads them; :func:`_quantize_for`).
+    Returns (Tree, row_node
     [n] int32): ``row_node`` is each row's final leaf, so
     ``leaf_value[row_node]`` is the tree's prediction for the training rows.
     """
@@ -666,7 +679,7 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     B = int(cfg.num_bins)
     BW = bitset_words(B)
 
-    st = _prepare_stats(grad, hess, valid, cfg, qkey, group)
+    st = _prepare_stats(grad, hess, valid, cfg, qkey, group, n_rows)
     base_t, qscales = st.base_t, st.qscales
     use_sub = _use_subtraction(cfg, n, group)
     h_buf = max(n // 2, 1)
@@ -810,7 +823,8 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor, valid: torch.Tensor,
                         feat_mask: torch.Tensor, cfg: GrowConfig,
                         is_cat: Optional[torch.Tensor] = None,
-                        qkey: Optional[Tuple[int, int]] = None, group=None):
+                        qkey: Optional[Tuple[int, int]] = None, group=None,
+                        n_rows: Optional[int] = None):
     """Grow one tree level by level: one histogram pass per level.
 
     Counterpart of the JAX package's ``grow_tree_depthwise``. Every node
@@ -833,7 +847,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
     depth_cap = (cfg.max_depth if cfg.max_depth > 0
                  else min(L - 1, (L - 1).bit_length() + 2))
 
-    st = _prepare_stats(grad, hess, valid, cfg, qkey, group)
+    st = _prepare_stats(grad, hess, valid, cfg, qkey, group, n_rows)
     base_t, qscales = st.base_t, st.qscales
     use_sub = _use_subtraction(cfg, n, group)
     h_buf = max(n // 2, 1)

@@ -37,6 +37,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from ..utils import prng
 from .histogram_scatter import (blocks_as_nodes, hist_plain,
                                 node_hist_blocked_plain, node_hist_plain)
 
@@ -101,7 +102,7 @@ def quantize_stats(base_t: torch.Tensor, *,
                    u: Optional[torch.Tensor] = None):
     """Per-channel symmetric int8 quantization of ``[S, n]`` stats
     (LightGBM use_quantized_grad): stochastic rounding ``floor(x + u)``
-    with uniforms ``u`` in [0, 1) (from :func:`positional_uniform`),
+    with uniforms ``u`` in [0, 1) (``growth._quantize_for`` draws them),
     round-to-nearest without. Returns (int8 stats [S, n], f32 scales [S]).
     Mirrors ``mmlspark_tpu/ops/histogram.py:quantize_stats``."""
     n = base_t.shape[1]
@@ -130,21 +131,18 @@ def _mix32(v):
 
 
 def quant_key(seed: int, iteration: int, klass: int = 0) -> Tuple[int, int]:
-    """The two uint32 key words of one tree's stochastic rounding, derived
-    from (seed, boosting iteration, class). The port's stand-in for the JAX
-    package's ``jax.random.fold_in(fold_in(key, it), 13 + k)``: its words
-    differ, and plain ints need no device and no host round-trip."""
-    k0 = _mix32((int(seed) & _M32) ^ 0x9E3779B9)
-    k0 = _mix32((k0 + _mul32(int(iteration) & _M32, 0x85EBCA6B)) & _M32)
-    k1 = _mix32(k0 ^ _mul32(13 + int(klass), 0xC2B2AE35))
-    return k0, k1
+    """The two uint32 key words of one tree's stochastic rounding: the JAX
+    package's ``fold_in(fold_in(PRNGKey(seed), iteration), 13 + klass)``
+    (``utils/prng.py``), as Python ints."""
+    return prng.fold_in(prng.fold_in(prng.prng_key(seed), iteration),
+                        13 + klass)
 
 
 def positional_uniform(qkey: Tuple[int, int], channels: int, n: int,
                        device=None, start: int = 0) -> torch.Tensor:
     """``[channels, n]`` f32 uniforms in [0, 1) that depend only on the key
     and each row's global index (``start + i``: a rank's first row in the
-    global order): the port's one source of stochastic-rounding draws. A
+    global order): the blocked mode's stochastic-rounding draws. A
     port of ``mmlspark_tpu/models/gbdt/growth.py:_positional_uniform``
     with uint32 arithmetic done in int64 and reduced mod 2^32: for the key
     words ``(k0, k1)`` it reproduces the JAX function's draws bit for bit,

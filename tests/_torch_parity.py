@@ -4,7 +4,8 @@
 names, and each column equal value for value — numeric arrays bit-equal
 (NaN equal to NaN, dtypes equal), object columns and lists element by
 element, recursively. ``atol`` loosens numeric comparisons where a test
-states a tolerance.
+states a tolerance. ``f32_ulps(got, want)`` is the largest distance of two
+f32 arrays in units in the last place.
 """
 
 import numpy as np
@@ -53,3 +54,16 @@ def assert_same(a, b, atol: float = 0.0) -> None:
     assert list(a.columns) == list(b.columns), (a.columns, b.columns)
     for c in a.columns:
         _same_value(a[c], b[c], atol, c)
+
+
+def f32_ulps(got, want) -> float:
+    """The largest distance between two f32 arrays of one shape, in units
+    of the last place of the larger magnitude at each element."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, f"shape {got.shape} != {want.shape}"
+    if got.size == 0:
+        return 0.0
+    ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)))
+    return float((np.abs(got.astype(np.float64) - want.astype(np.float64))
+                  / ulp).max())

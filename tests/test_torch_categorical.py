@@ -13,12 +13,12 @@ Seeded numpy inputs go through both packages on the CPU.
   * Small fits (2,000 or 9,000 rows x 4, one categorical column of 12 ids
     whose label-carrying set {1, 4, 7, 10} is not contiguous; 4 rounds,
     15 leaves): leafwise and depthwise, without and with histogram
-    subtraction (it engages from 8,192 rows), and quantized with both
-    ``_quantize_for`` patched to round to nearest. ``feat``, ``thr_bin``
-    and ``cat_bitset`` must be identical, margins within 1e-5. Leaves keep
-    at least 100 rows: the f32 root totals are summed in another order on
-    each side, and a leaf of a few rows carries that difference into its
-    value past 1e-5.
+    subtraction (it engages from 8,192 rows), and quantized (stochastic
+    rounding under the JAX package's draws, nothing patched). ``feat``,
+    ``thr_bin`` and ``cat_bitset`` must be identical, margins within 1e-5.
+    Leaves keep at least 100 rows: the f32 root totals are summed in
+    another order on each side, and a leaf of a few rows carries that
+    difference into its value past 1e-5.
   * Routing of raw category values: NaN, negative, unseen, past the
     catch-all bin (``maxBin - 1``), huge and non-integer ids, for a model
     trained here (ids bin as in training) and the same model read back
@@ -179,12 +179,7 @@ def test_categorical_fit_matches_jax(policy, n, sub):
 
 
 @pytest.mark.parametrize("policy", ["leafwise", "depthwise"])
-def test_categorical_quantized_fit_matches_jax(policy, monkeypatch):
-    jq, tq = JG._quantize_for, TG._quantize_for
-    monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
-                        jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
-                        tq(base_t, None, *a))
+def test_categorical_quantized_fit_matches_jax(policy):
     X, y = _cat_data(9000, seed=3)
     jb, tb = _fit_pair(X, y, num_leaves=15, min_data_in_leaf=100,
                        growth_policy=policy, quantized_grad=True,

@@ -4,9 +4,11 @@
   ``undo_transform``), ``StandardScalarScaler``, ``LinearScalarScaler``,
   ``ComplementAccessTransformer`` and ``DataFactory`` give equal outputs
   (the same ``default_rng`` draws).
-* ``als_fit`` with ``anomaly._als_init`` patched to the JAX package's draws
-  (``jax.random.uniform`` under ``PRNGKey(seed)``), implicit and explicit,
-  duplicates included: factors within 4x the spread that one ulp of input
+* ``als_fit``'s initial factors (``anomaly._als_init``) are the JAX
+  package's draws bit for bit (``jax.random.uniform`` under
+  ``split(PRNGKey(seed))``, drawn by ``mmlspark_tpu_torch/utils/prng.py``;
+  nothing is patched). Implicit and explicit fits, duplicates included:
+  factors within 4x the spread that one ulp of input
   makes on the CPU (the port alone, ratings moved up one f32 ulp). The
   batched solves and the YtY product round in another order than XLA's,
   and ALS carries that through its sweeps as it carries an ulp of input.
@@ -69,9 +71,14 @@ def _jax_init(seed, n_users, n_items, rank):
                                           dtype=jnp.float32) * 0.1))
 
 
-@pytest.fixture
-def jax_init(monkeypatch):
-    monkeypatch.setattr(tanom, "_als_init", _jax_init)
+def test_als_init_is_the_jax_draw():
+    for seed, (u, i, r) in ((0, (7, 5, 3)), (11, (40, 23, 10)),
+                            (-4, (1, 300, 2))):
+        x0, y0 = tanom._als_init(seed, u, i, r, device="cpu")
+        jx, jy = _jax_init(seed, u, i, r)
+        assert x0.dtype == torch.float32 and x0.shape == (u, r)
+        np.testing.assert_array_equal(x0.numpy(), jx)
+        np.testing.assert_array_equal(y0.numpy(), jy)
 
 
 def _same(a, b):
@@ -184,7 +191,7 @@ def _spread(a, b):
 
 
 @pytest.mark.parametrize("implicit", [True, False])
-def test_als_fit_within_the_one_ulp_spread(implicit, jax_init):
+def test_als_fit_within_the_one_ulp_spread(implicit):
     u, i, r, nu, ni = _coo()
     args = (nu, ni, 10, 25, 1.0, implicit, 1.0, 0)
     with jmesh.default_mesh(_one_device()):
@@ -243,7 +250,7 @@ def _factory_data(seed=4):
                                 dict(maxIter=8, applyImplicitCf=False,
                                      complementsetFactor=2)],
                          ids=["implicit", "explicit"])
-def test_access_anomaly_scores_within_the_spread(kw, jax_init):
+def test_access_anomaly_scores_within_the_spread(kw):
     cols, probe = _factory_data()
     with jmesh.default_mesh(_one_device()):
         jm = janom.AccessAnomaly(**kw).fit(JDataset(dict(cols)))

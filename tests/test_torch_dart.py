@@ -13,10 +13,11 @@ stopping records ``best_iteration`` and keeps every tree.
 Cases: binary with a validation set and early stopping, with drops that
 really happen (``dropRate=0.5``, ``skipDrop=0.2``); three classes;
 regression (``rmse``) with ``metricEvalPeriod=2`` (the JAX package's host
-loop); quantized (both ``_quantize_for`` patched to round to nearest);
-depthwise; bagging with the JAX package's per-row uniforms injected into
-the port's ``_row_uniforms``; the classifier estimator. A DART fit that
-never drops (``skipDrop=1``) grows the gbdt fit's trees.
+loop); quantized (stochastically rounded); depthwise; bagging and
+``featureFraction`` (the port draws the JAX package's streams,
+``mmlspark_tpu_torch/utils/prng.py``; nothing is patched); the classifier
+estimator. A DART fit that never drops (``skipDrop=1``) grows the gbdt
+fit's trees.
 
 The two packages sum the dropped ensemble in another order (the JAX
 package with one ``einsum``, the port tree by tree), so gradients differ
@@ -46,14 +47,6 @@ torch.set_num_threads(1)
 STRUCTURE = ("feat", "thr_bin", "left", "right", "is_leaf")
 CFG = dict(num_leaves=7, min_data_in_leaf=40)
 DROPS = dict(drop_rate=0.5, skip_drop=0.2, drop_seed=9)
-
-
-def jax_uniforms(seed, bag_step, n):
-    """The JAX package's per-row uniforms of one bag step on a one-device
-    mesh (the port's ``_row_uniforms`` signature)."""
-    key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed),
-                                                1_000_003 + bag_step), 0)
-    return torch.from_numpy(np.array(jax.random.uniform(key, (n,))))
 
 
 def _rows(n, seed, kind="binary"):
@@ -129,12 +122,7 @@ def test_dart_regression_eval_period_matches_jax():
     assert len(tb.eval_history["rmse"]) == 4        # iterations 0, 2, 4, 6
 
 
-def test_dart_quantized_matches_jax(monkeypatch):
-    jq, tq = JG._quantize_for, TG._quantize_for
-    monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
-                        jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
-                        tq(base_t, None, *a))
+def test_dart_quantized_matches_jax():
     X, y = _rows(1997, 5)
     jb, tb = _fit_pair(X, y, cfg=dict(quantized_grad=True,
                                       quant_warmup_iters=1))
@@ -147,10 +135,17 @@ def test_dart_depthwise_matches_jax():
     _assert_same_fit(jb, tb, X)
 
 
-def test_dart_bagging_matches_jax(monkeypatch):
-    monkeypatch.setattr(TB, "_row_uniforms", jax_uniforms)
+def test_dart_bagging_matches_jax():
     X, y = _rows(1999, 7)
     jb, tb = _fit_pair(X, y, bagging_fraction=0.7, bagging_freq=2, seed=5)
+    _assert_same_fit(jb, tb, X)
+
+
+def test_dart_feature_fraction_matches_jax():
+    """Each iteration's feature subset under the JAX package's key
+    ``fold_in(fold_in(PRNGKey(seed), it), 7)``."""
+    X, y = _rows(1999, 10)
+    jb, tb = _fit_pair(X, y, feature_fraction=0.5, seed=4)
     _assert_same_fit(jb, tb, X)
 
 

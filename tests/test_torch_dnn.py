@@ -52,6 +52,7 @@ from mmlspark_tpu.models.dnn import cnn as J
 from mmlspark_tpu.models.dnn import downloader as jdl
 from mmlspark_tpu.models.dnn.scoring import DNNModel as JDNNModel
 from mmlspark_tpu.models.dnn.scoring import ImageFeaturizer as JFeaturizer
+from _torch_parity import f32_ulps
 from mmlspark_tpu_torch import device as devmod
 from mmlspark_tpu_torch.core.dataset import Dataset
 from mmlspark_tpu_torch.core.pipeline import PipelineStage
@@ -61,6 +62,7 @@ from mmlspark_tpu_torch.models.dnn.convert import (dnn_model_from_jax,
                                                    params_from_jax,
                                                    params_to_jax)
 from mmlspark_tpu_torch.models.dnn.scoring import DNNModel, ImageFeaturizer
+from mmlspark_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -146,18 +148,19 @@ def test_init_params_have_the_jax_tree_and_shapes():
     tc = T.CNNConfig(num_classes=5, stage_sizes=(1, 2), width=4,
                      block="bottleneck")
     jp = _np(J.init_cnn_params(jc, jax.random.PRNGKey(0)))
-    tp = params_to_jax(T.init_cnn_params(tc, torch.Generator().manual_seed(0)))
+    tp = params_to_jax(T.init_cnn_params(tc, prng.prng_key(0)))
     ja = J.AlexNetConfig(num_classes=4, input_hw=(45, 37), width_mult=0.05)
     ta = T.AlexNetConfig(num_classes=4, input_hw=(45, 37), width_mult=0.05)
     jpa = _np(J.init_alexnet_params(ja, jax.random.PRNGKey(0)))
-    tpa = params_to_jax(T.init_alexnet_params(
-        ta, torch.Generator().manual_seed(0)))
+    tpa = params_to_jax(T.init_alexnet_params(ta, prng.prng_key(0)))
     for a, b in ((jp, tp), (jpa, tpa)):
         fa = jdl._flatten(a)
         fb = tdl._flatten(b)
         assert list(fa) == list(fb)
         for k in fa:
             assert fa[k].shape == fb[k].shape and fb[k].dtype == np.float32
+            # the JAX draws under the same key (tests/test_torch_prng.py)
+            assert f32_ulps(fb[k], fa[k]) <= 4, k
     # He-normal scale, identity batch-norm
     w = tp["stage0_block0"]["conv2"]["w"]
     assert abs(float(w.std()) - np.sqrt(2.0 / (9 * 4))) < 0.1
@@ -800,7 +803,7 @@ def test_digits_fixture_is_trained_and_transfer_accuracy_pinned(tmp_path):
     acc_trained = head_acc(featurizer_for(dnn))
     acc_pixels = head_acc(None)
     rand = DNNModel(T.init_cnn_params(T.CNNConfig(**{
-        **dnn.apply_spec["config"]}), torch.Generator().manual_seed(3)),
+        **dnn.apply_spec["config"]}), prng.prng_key(3)),
         apply_spec=dnn.apply_spec)
     acc_random = head_acc(featurizer_for(rand))
     assert acc_trained > 0.75, acc_trained

@@ -42,6 +42,7 @@ from mmlspark_tpu_torch.nn import knn
 from mmlspark_tpu_torch.recommendation import ranking, sar
 from mmlspark_tpu_torch.stages import basic, batching
 from mmlspark_tpu_torch.train import core as train
+from mmlspark_tpu_torch.utils import prng
 
 from _torch_parity import assert_same
 
@@ -182,8 +183,7 @@ _CNN = cnn.CNNConfig(num_classes=3, stage_sizes=(1,), width=4,
                      input_hw=(16, 16))
 _SPEC = {"kind": "cnn", "config": {"num_classes": 3, "stage_sizes": (1,),
                                    "width": 4, "input_hw": (16, 16)}}
-DNN = scoring.DNNModel(cnn.init_cnn_params(_CNN,
-                                           torch.Generator().manual_seed(0)),
+DNN = scoring.DNNModel(cnn.init_cnn_params(_CNN, prng.prng_key(0)),
                        apply_spec=_SPEC, device="cpu")
 
 

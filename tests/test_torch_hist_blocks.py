@@ -8,9 +8,8 @@ PyTorch port against itself across world sizes and against the JAX package.
     rendezvous): every rank's ``model_string()`` is byte-equal to the
     one-process fit's.
   * The same configurations against the JAX package on a one-device mesh:
-    identical trees, margins within 1e-5 (quantized: both sides round to
-    nearest, as the other quantized parity tests patch them, since the two
-    packages' rounding keys differ).
+    identical trees, margins within 1e-5 (quantized: both packages round
+    stochastically under the same key words, nothing patched).
   * The blocked histogram entry (``node_histogram(..., blocks=)``) on the
     CPU against per-block plain histograms (bit-equal) and the JAX
     package's blocked partials (bf16: 1e-5 relative; int8: bit-equal).
@@ -29,6 +28,12 @@ PyTorch port against itself across world sizes and against the JAX package.
     byte-equal across world sizes too; validation metrics, summed over
     the group, agree within 1e-6 relative (the JAX package's scope note:
     their last ulp may follow the world size), on the same trees.
+  * Reference behaviour the port does not copy (ROADMAP Queue 3): the JAX
+    package's bagged fit on two devices draws ``fold_in(bag_key,
+    axis_index)`` over each shard's rows and grows other trees than its
+    one-device fit, which the port's fit at every world size equals; its
+    plain quantized path draws the same local uniforms on every shard,
+    where a port rank draws its rows of the one-device draw.
 """
 
 import numpy as np
@@ -176,12 +181,7 @@ def test_in_process_fit_equals_the_one_rank_process(world_fits):
 
 
 @pytest.mark.parametrize("tag", sorted(CONFIGS))
-def test_blocked_fits_match_jax_one_device(monkeypatch, tag):
-    jq, tq = JG._quantize_for, TG._quantize_for
-    monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
-                        jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
-                        tq(base_t, None, *a))
+def test_blocked_fits_match_jax_one_device(tag):
     X, y = _data()
     cats = CONFIGS[tag][2]
     common = dict(objective="binary", num_iterations=2, max_bin=63,
@@ -195,6 +195,76 @@ def test_blocked_fits_match_jax_one_device(monkeypatch, tag):
                                       err_msg=f)
     np.testing.assert_allclose(tb.predict_raw(X, device="cpu"),
                                jb.predict_raw(X), rtol=0, atol=1e-5)
+
+
+def _bagged_jax(devices):
+    """The JAX package's blocked bagged fit of ``_FITS`` on ``devices``
+    CPU devices."""
+    X, y = _data()
+    cfg = JG.GrowConfig(num_leaves=7, min_data_in_leaf=5, hist_blocks=8)
+    return jtrain(X, y, cfg=cfg, objective="binary", num_iterations=3,
+                  max_bin=63, bin_sample_count=960, seed=0,
+                  bagging_fraction=0.7, bagging_freq=1,
+                  mesh=make_mesh(devices=jax.devices()[:devices]))
+
+
+def test_bagged_fit_at_any_world_size_is_the_jax_one_device_fit(
+        world_fits):
+    """Queue 3's "not copied" entry: the JAX package's two-device bagged
+    fit differs from its one-device fit (each shard draws ``fold_in(bag_key,
+    shard)`` over its own rows); the port's fits at world sizes 1, 2 and 4
+    are byte-equal (above) and grow the one-device fit's trees."""
+    X, y = _data()
+    one, two = _bagged_jax(1), _bagged_jax(2)
+    assert any(not np.array_equal(np.asarray(getattr(one.trees, f)),
+                                  np.asarray(getattr(two.trees, f)))
+               for f in STRUCTURE)
+    cfg = TG.GrowConfig(num_leaves=7, min_data_in_leaf=5, hist_blocks=8)
+    tb = ttrain(X, y, cfg=cfg, objective="binary", num_iterations=3,
+                max_bin=63, bin_sample_count=960, seed=0,
+                bagging_fraction=0.7, bagging_freq=1, device="cpu")
+    assert tb.model_string() == world_fits[2][0]["bagging"]
+    for f in STRUCTURE:
+        np.testing.assert_array_equal(tb.trees[f],
+                                      np.asarray(getattr(one.trees, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(tb.predict_raw(X, device="cpu"),
+                               one.predict_raw(X), rtol=0, atol=1e-5)
+
+
+class _Rank:
+    """A stand-in data group for ``_quantize_for``'s plain path, which reads
+    only the rank and the size."""
+
+    def __init__(self, rank, size):
+        self.rank, self.size = rank, size
+
+
+@pytest.mark.parametrize("n", [1000, 999], ids=["even", "padded"])
+def test_plain_rounding_draws_each_ranks_slice_of_one_device(n):
+    """Queue 3's "not copied" entry, quantized: on the plain path a JAX
+    shard rounds with ``uniform(qkey, [3, n_local])``, the same local draws
+    on every shard; a port rank rounds its rows with their columns of the
+    one-device ``uniform(qkey, [3, n])``, so the ranks' int8 stats put
+    together are the one-device stats (scales from the same amax). With
+    ``n`` odd the group pads a zero row, and ``n_rows`` keeps the draw's
+    row stride at the data's ``n``."""
+    rng = np.random.default_rng(11)
+    base = np.zeros((3, 1000), np.float32)
+    base[:, :n] = rng.normal(size=(3, n))
+    base[:, 0] = 4.0                # every half shares the channel's amax
+    base[:, 500] = 4.0
+    key = TH.quant_key(5, 2, 0)
+    jkey = jnp.asarray(np.array(key, np.uint32))
+    whole, _ = JH.quantize_stats(jnp.asarray(base[:, :n]), jkey)
+    halves = [TG._quantize_for(torch.from_numpy(base[:, r * 500:
+                                                     (r + 1) * 500].copy()),
+                               key, _Rank(r, 2), n_rows=n)[0].numpy()
+              for r in (0, 1)]
+    np.testing.assert_array_equal(np.concatenate(halves, axis=1)[:, :n],
+                                  np.asarray(whole))
+    shard1, _ = JH.quantize_stats(jnp.asarray(base[:, 500:]), jkey)
+    assert not np.array_equal(np.asarray(shard1), halves[1])
 
 
 def _node_inputs(seed, n, F, W, B):

@@ -10,8 +10,9 @@
     ``tools/multi_card_fit.py``, ``tools/chip_phase15.py``,
     ``tools/chip_phase16.py``, ``tools/chip_phase17.py``,
     ``tools/chip_phase18.py``, ``tools/chip_phase19.py``,
-    ``tools/chip_phase20.py``, ``tools/dnn_tolerances.py``), imports
-    either.
+    ``tools/chip_phase20.py``, ``tools/chip_phase21.py``,
+    ``tools/dnn_tolerances.py``), imports either; nor does the port's copy
+    of the JAX package's random streams, ``utils/prng.py``.
   * The device resolver raises when ``cuda`` is asked for (or defaulted to)
     and no GPU is present; entry points that default to ``cuda`` raise with
     it instead of moving to the CPU.
@@ -33,6 +34,9 @@
   * The automl entry points (``TuneHyperparameters``, ``FindBestModel``
     and the sweep) fit on their estimators' device: ``cuda`` by default,
     raising without a GPU; they run with ``device="cpu"``.
+  * The random streams' draws (``prng.bits``, ``uniform``, ``normal``) and
+    ``booster._row_uniforms`` default to ``cuda`` and raise without a GPU;
+    key derivation (``prng_key``, ``fold_in``, ``split``) needs no device.
   * The transformer's entry points (``init_params``, ``shard_params``,
     ``shard_opt_state``, ``make_train_step``, ``make_forward``,
     ``transformer_params_from_jax``) default to ``cuda`` and raise without
@@ -192,6 +196,12 @@ SLICE_17_MODULES = (
 )
 
 
+#: the JAX package's random streams (threefry2x32 as torch integer ops)
+SLICE_19_MODULES = (
+    "mmlspark_tpu_torch.utils.prng",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _package_modules()
     assert {"mmlspark_tpu_torch.models.gbdt.growth",
@@ -207,6 +217,7 @@ def test_importing_the_port_loads_no_jax():
     assert set(SLICE_15_MODULES) <= set(mods)
     assert set(SLICE_16_MODULES) <= set(mods)
     assert set(SLICE_17_MODULES) <= set(mods)
+    assert set(SLICE_19_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -265,11 +276,12 @@ def test_no_source_imports_jax_or_the_jax_package():
              os.path.join(ROOT, "tools", "chip_phase18.py"),
              os.path.join(ROOT, "tools", "chip_phase19.py"),
              os.path.join(ROOT, "tools", "chip_phase20.py"),
+             os.path.join(ROOT, "tools", "chip_phase21.py"),
              os.path.join(ROOT, "tools", "dnn_tolerances.py")]
     for dirpath, _, filenames in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith(".py")]
-    assert all(os.path.isfile(p) for p in paths[:14])
+    assert all(os.path.isfile(p) for p in paths[:15])
     assert os.path.join(PKG, "models", "gbdt", "lgbm_format.py") in paths
     for sub in ("observability", "robustness", "tuning", "parallel",
                 os.path.join("io", "aserve")):
@@ -286,7 +298,7 @@ def test_no_source_imports_jax_or_the_jax_package():
               os.path.join("utils", "stopwatch.py")):
         assert os.path.join(PKG, f) in paths
     for mod in (SLICE_13_MODULES + SLICE_14_MODULES + SLICE_15_MODULES
-                + SLICE_16_MODULES + SLICE_17_MODULES):
+                + SLICE_16_MODULES + SLICE_17_MODULES + SLICE_19_MODULES):
         rel = mod.split(".", 1)[1].replace(".", os.sep)
         assert (os.path.join(PKG, rel + ".py") in paths
                 or os.path.join(PKG, rel, "__init__.py") in paths), mod
@@ -507,7 +519,8 @@ def test_slice_15_entry_points_default_to_cuda_and_raise(no_gpu):
                     input_hw=(8, 8))
     spec = {"kind": "cnn", "config": {"num_classes": 3, "stage_sizes": (1,),
                                       "width": 4, "input_hw": (8, 8)}}
-    dnn = DNNModel(init_cnn_params(cfg, torch.Generator().manual_seed(0)),
+    from mmlspark_tpu_torch.utils import prng
+    dnn = DNNModel(init_cnn_params(cfg, prng.prng_key(0)),
                    apply_spec=spec).set(inputCol="x", outputNode="pool")
     ds = Dataset({"img": [img], "x": np.zeros((1, 8, 8, 3), np.float32)})
     stages = (ImageTransformer().set(inputCol="img").resize(8, 8),
@@ -593,6 +606,21 @@ def test_transformer_entry_points_default_to_cuda_and_raise(no_gpu):
     assert loss.device.type == "cpu" and torch.isfinite(loss)
     logits = T.make_forward(cfg, mesh, device="cpu")(params, toks)
     assert logits.shape == (1, 8, 32)
+
+
+def test_prng_draws_default_to_cuda_and_raise(no_gpu):
+    from mmlspark_tpu_torch.models.gbdt.booster import _row_uniforms
+    from mmlspark_tpu_torch.utils import prng
+    key = prng.fold_in(prng.prng_key(3), 5)
+    assert prng.split(key, 2).device.type == "cpu"
+    calls = [lambda: prng.bits(key, (4,)), lambda: prng.uniform(key, 4),
+             lambda: prng.normal(key, (2, 2)),
+             lambda: _row_uniforms(3, 0, 8)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
+    assert prng.uniform(key, 4, device="cpu").device.type == "cpu"
+    assert _row_uniforms(3, 0, 8, device="cpu").shape == (8,)
 
 
 def test_generated_namespace_stages_default_to_cuda_and_raise(no_gpu,

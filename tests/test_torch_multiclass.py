@@ -4,11 +4,10 @@ Seeded numpy rows with three classes go through both packages' trainers on
 the CPU (the JAX side on a one-device mesh). Each iteration grows one tree
 per class on that class's grad/hess column; the structure of all 3 x
 iterations trees must be identical and the ``[n, 3]`` margins agree within
-1e-5. Quantized fits are compared with round-to-nearest on both sides
-(``_quantize_for`` patched to drop its key): the port draws its stochastic
-rounding from the positional hash and the JAX package's plain path from
-``jax.random``, so only the nearest rounding gives both the same int8
-values. Also covered: the softmax ``predict``, the classifier estimator's
+1e-5. Quantized fits round stochastically on both sides under the same
+draws (the port's come from ``mmlspark_tpu_torch/utils/prng.py``, the JAX
+package's ``jax.random`` stream; nothing is patched), so both get the same
+int8 values. Also covered: the softmax ``predict``, the classifier estimator's
 multiclass ``transform`` (margins, probabilities, ``thresholds``, argmax),
 ``.npz`` persistence in both directions and ``booster_from_jax_arrays``.
 """
@@ -102,13 +101,8 @@ def test_train_booster_multiclass_depthwise_matches_jax(data):
                                jb.predict_raw(X), rtol=0, atol=1e-5)
 
 
-def test_train_booster_multiclass_quantized_matches_jax(data, monkeypatch):
+def test_train_booster_multiclass_quantized_matches_jax(data):
     X, y = data
-    jq, tq = JG._quantize_for, TG._quantize_for
-    monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
-                        jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
-                        tq(base_t, None, *a))
     jb, tb = _fit_pair(X[:8997], y[:8997], num_leaves=7,
                        min_data_in_leaf=100, quantized_grad=True,
                        quant_warmup_iters=1)

@@ -7,8 +7,10 @@ scatter engine, and its Pallas kernel in interpret mode).
     give ``[F, 3W, B]`` histograms **bit-equal** to both JAX engines (int32
     sums are exact, and the dequantization is the same f32 product).
   * ``positional_uniform`` reproduces the JAX package's
-    ``_positional_uniform`` bit for bit; the port draws every
-    stochastic-rounding uniform from it.
+    ``_positional_uniform`` bit for bit (the blocked mode's draws), and
+    ``quant_key`` the words of the JAX package's ``fold_in(fold_in(
+    PRNGKey(seed), it), 13 + k)``; the plain path rounds with the JAX
+    package's ``jax.random.uniform(qkey, [3, n])``.
   * ``grow_tree`` / ``grow_tree_depthwise`` with ``quantized_grad`` and no
     rounding key (round-to-nearest on both sides, so the same int8
     values): identical structure and row leaves; leaf values within rtol
@@ -16,10 +18,9 @@ scatter engine, and its Pallas kernel in interpret mode).
     the leaves come from an f32 segment-sum, which XLA and PyTorch may add
     in another order; the difference measured on these cases was 0.
   * The estimator: a quantized fit whose warmup covers every iteration
-    grows the JAX fit's trees; a fit with quantized trees rounds with other
-    draws than the JAX package (its plain path uses ``jax.random.uniform``,
-    the port the positional hash), so it is held to the JAX quantized fit's
-    training log-loss within 2% relative, not to its trees.
+    grows the JAX fit's trees, and so does a fit of stochastically rounded
+    trees (the same draws on both sides); its training log-loss is also
+    held to the JAX fit's within 2% relative.
 """
 
 import numpy as np
@@ -139,25 +140,67 @@ def test_quant_key_words_depend_on_seed_iteration_and_class():
     keys = {TH.quant_key(s, it, k) for s in (0, 1) for it in (0, 1, 2)
             for k in (0, 1)}
     assert len(keys) == 12
+    want = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(4), 9),
+                              13)
+    assert TH.quant_key(4, 9, 0) == tuple(int(w) for w in np.asarray(want))
     assert TH.quant_key(4, 9, 0) == TH.quant_key(4, 9, 0)
     assert all(0 <= w < 2 ** 32 for key in keys for w in key)
 
 
 def test_quantize_for_rounds_with_the_positional_uniforms():
-    """The port's _quantize_for equals the JAX package's quantize_stats fed
-    the same positional uniforms (the JAX blocked path's draws)."""
+    """The port's _quantize_for equals the JAX package's on both paths:
+    the blocked one with the positional uniforms, the plain one with
+    ``jax.random.uniform`` under the same key words."""
     rng = np.random.default_rng(8)
-    base = rng.normal(size=(3, 4001)).astype(np.float32)
+    base = rng.normal(size=(3, 4000)).astype(np.float32)
     key = TH.quant_key(11, 4, 0)
-    u = JG._positional_uniform(jnp.asarray(np.array(key, np.uint32)), 3,
-                               4001, None)
-    jq, js = JH.quantize_stats(jnp.asarray(base), u=u)
+    jkey = jnp.asarray(np.array(key, np.uint32))
+    cfg = JG.GrowConfig(hist_blocks=8)
+    jq, js = JG._quantize_for(cfg, jnp.asarray(base), jkey, None, 8, 500)
+    tq, ts = TG._quantize_for(torch.from_numpy(base), key, None, 8, 500)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jq, js = JG._quantize_for(JG.GrowConfig(), jnp.asarray(base), jkey,
+                              None, 0, 0)
     tq, ts = TG._quantize_for(torch.from_numpy(base), key)
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     rq, _ = TG._quantize_for(torch.from_numpy(base), None)
     jr, _ = JH.quantize_stats(jnp.asarray(base))
     np.testing.assert_array_equal(rq.numpy(), np.asarray(jr))
+
+
+def test_leaf_renewal_sums_exactly_in_any_row_order():
+    """The renewed leaf stats are each leaf's exact sum rounded once to
+    f32, so no summation order (a launch on the card, a shuffle of the
+    rows) moves a bit; they stay within f32 rounding of the JAX package's
+    scatter-add."""
+    rng = np.random.default_rng(12)
+    n, M = 20_001, 9
+    grad = rng.normal(size=n).astype(np.float32) * 3.0
+    hess = rng.uniform(0.01, 0.3, size=n).astype(np.float32)
+    vm = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    node = rng.integers(0, M - 1, size=n).astype(np.int32)
+    zeros = torch.zeros(M)
+    leaf = torch.ones(M, dtype=torch.bool)
+
+    def renew(order):
+        out = TG._renew_leaf_stats(
+            zeros, zeros, zeros, leaf, torch.from_numpy(node[order]),
+            torch.from_numpy(grad[order]), torch.from_numpy(hess[order]),
+            torch.from_numpy(vm[order]))
+        return torch.stack(out).numpy()
+
+    got = renew(np.arange(n))
+    np.testing.assert_array_equal(got, renew(rng.permutation(n)))
+    stats = np.stack([grad * vm, hess * vm, vm]).astype(np.float64)
+    exact = np.zeros((3, M))
+    np.add.at(exact, (slice(None), node), stats)
+    np.testing.assert_array_equal(got, exact.astype(np.float32))
+    want = np.zeros((3, M), np.float32)
+    want = np.asarray(jnp.asarray(want).at[:, jnp.asarray(node)].add(
+        jnp.asarray(stats.astype(np.float32))))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_stat_totals_bit_equal_to_jax():
@@ -293,6 +336,24 @@ def test_estimator_quantized_warmup_covering_the_fit_matches_jax(policy):
     params = dict(numIterations=3, numLeaves=7, minDataInLeaf=100,
                   maxBin=63, useQuantizedGrad=True, quantWarmupIters=3,
                   growthPolicy=policy)
+    port, jmodel = _fit_both(X, y, **params)
+    for f in STRUCTURE:
+        np.testing.assert_array_equal(port.booster.trees[f],
+                                      np.asarray(getattr(jmodel.booster.trees,
+                                                         f)), err_msg=f)
+    np.testing.assert_allclose(port.booster.predict_raw(X, device="cpu"),
+                               jmodel.booster.predict_raw(X), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("policy", ["leafwise", "depthwise"])
+def test_estimator_stochastically_rounded_fit_matches_jax(policy):
+    """Quantized trees from the second iteration on, rounded with the JAX
+    package's draws: the JAX fit's trees, margins within 1e-5."""
+    X, y = _data(3000, 6)
+    params = dict(numIterations=4, numLeaves=7, minDataInLeaf=100,
+                  maxBin=63, useQuantizedGrad=True, quantWarmupIters=1,
+                  growthPolicy=policy, baggingSeed=9)
     port, jmodel = _fit_both(X, y, **params)
     for f in STRUCTURE:
         np.testing.assert_array_equal(port.booster.trees[f],

@@ -3,16 +3,15 @@
 Seeded binary rows (1,999 x 6) go through both packages' ``train_booster``
 on the CPU, the JAX side on a one-device mesh, under plain bagging,
 stratified pos/neg bagging, GOSS and random forests, each with bf16 and
-with quantized histograms (both ``_quantize_for`` patched to round to
-nearest: the port's stochastic rounding draws from its positional hash,
-the JAX package's from ``jax.random``). The two packages draw their
-per-row uniforms from different generators, so the port's
-``_row_uniforms`` is patched to return the JAX package's own draws:
-``jax.random.uniform(fold_in(fold_in(PRNGKey(seed), 1_000_003 +
-bag_step), 0), (n,))`` (0 is the one device's shard index). The masks are
-then the same and the fits must grow the same trees, margins within 1e-5.
-A one-device mesh pads no rows, so GOSS's quantile runs over the same
-length on both sides at any row count.
+with stochastically rounded int8 histograms. Nothing is patched: the port
+draws the JAX package's own streams (``mmlspark_tpu_torch/utils/prng.py``),
+its per-row uniforms ``jax.random.uniform(fold_in(fold_in(PRNGKey(seed),
+1_000_003 + bag_step), 0), (n,))`` (0 is the one device's shard index) and
+its rounding uniforms ``jax.random.uniform(fold_in(fold_in(PRNGKey(seed),
+it), 13 + k), (3, n))``. The masks and int8 stats are then the same and
+the fits must grow the same trees, margins within 1e-5. A one-device mesh
+pads no rows, so GOSS's quantile runs over the same length on both sides
+at any row count.
 
 Also covered: GOSS on three classes (``|grad|`` summed over the score
 columns), a random forest with a validation set and early stopping (the
@@ -20,7 +19,8 @@ metric on the average of the trees so far), the estimators and the ranker
 with these params, every argument check against the JAX package's
 message, the linear quantile against ``jnp.quantile`` and (past 2^24
 elements, where ``torch.quantile`` refuses) ``np.quantile``, the host
-draws, the bag reuse over ``baggingFreq`` iterations and the GOSS mask.
+draws (bit-equal to ``jax.random``), the bag reuse over ``baggingFreq``
+iterations and the GOSS mask.
 """
 
 import numpy as np
@@ -58,7 +58,7 @@ MODES = {
 
 def jax_uniforms(seed, bag_step, n):
     """The JAX package's per-row uniforms of one bag step on a one-device
-    mesh, as a CPU tensor (the port's ``_row_uniforms`` signature)."""
+    mesh, as a CPU tensor."""
     key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed),
                                                 1_000_003 + bag_step), 0)
     return torch.from_numpy(np.array(jax.random.uniform(key, (n,))))
@@ -85,15 +85,6 @@ def _mesh():
     return make_mesh(devices=jax.devices()[:1])
 
 
-def _nearest(monkeypatch):
-    """Both packages' int8 quantization rounds to nearest."""
-    jq, tq = JG._quantize_for, TG._quantize_for
-    monkeypatch.setattr(JG, "_quantize_for", lambda cfg, base_t, qkey, *a:
-                        jq(cfg, base_t, None, *a))
-    monkeypatch.setattr(TG, "_quantize_for", lambda base_t, qkey, *a:
-                        tq(base_t, None, *a))
-
-
 def _assert_same_fit(jb, tb, X):
     assert tb.num_trees == jb.num_trees
     for f in STRUCTURE:
@@ -115,20 +106,16 @@ def jax_fits():
     return {}
 
 
-def _pair(jax_fits, key, X, y, monkeypatch, quantized=False, cfg=None,
-          **kw):
-    """(JAX booster, port booster) of one configuration, the port drawing
-    the JAX package's uniforms."""
+def _pair(jax_fits, key, X, y, quantized=False, cfg=None, **kw):
+    """(JAX booster, port booster) of one configuration."""
     args = dict(objective="binary", num_iterations=4, max_bin=63, seed=3)
     args.update(kw)
     cfg = dict(CFG, **(cfg or {}))
     if quantized:
         cfg.update(quantized_grad=True, quant_warmup_iters=1)
-        _nearest(monkeypatch)
     if key not in jax_fits:
         jax_fits[key] = jtrain(X, y, cfg=JG.GrowConfig(**cfg), mesh=_mesh(),
                                **args)
-    monkeypatch.setattr(TB, "_row_uniforms", jax_uniforms)
     tb = TB.train_booster(X, y, cfg=TG.GrowConfig(**cfg), device="cpu",
                           **args)
     return jax_fits[key], tb
@@ -136,34 +123,60 @@ def _pair(jax_fits, key, X, y, monkeypatch, quantized=False, cfg=None,
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_sampled_fit_matches_jax(mode, quantized, data, jax_fits,
-                                 monkeypatch):
+def test_sampled_fit_matches_jax(mode, quantized, data, jax_fits):
     X, y = data
-    jb, tb = _pair(jax_fits, (mode, quantized), X, y, monkeypatch,
-                   quantized=quantized, **MODES[mode])
+    jb, tb = _pair(jax_fits, (mode, quantized), X, y, quantized=quantized,
+                   **MODES[mode])
     _assert_same_fit(jb, tb, X)
     if mode == "rf":
         # the averaged forest: each tree scaled by 1 / iterations
         assert tb.num_iterations == 4
 
 
-def test_goss_three_classes_matches_jax(jax_fits, monkeypatch):
+@pytest.mark.parametrize("policy", ["leafwise", "depthwise"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_feature_fraction_fit_matches_jax(policy, quantized, data,
+                                          jax_fits):
+    """Iteration ``it``'s features are those of ``uniform(fold_in(fold_in(
+    PRNGKey(seed), it), 7), (F,)) < featureFraction``, plus its argmin."""
+    X, y = data
+    jb, tb = _pair(jax_fits, ("ff", policy, quantized), X, y,
+                   quantized=quantized, feature_fraction=0.5,
+                   cfg=dict(growth_policy=policy))
+    _assert_same_fit(jb, tb, X)
+    used = {int(f) for f in np.unique(tb.trees["feat"][~tb.trees["is_leaf"]])}
+    assert len(used) > 3                 # the subsets change by iteration
+
+
+def test_feature_mask_is_the_jax_draw():
+    for seed, it in ((3, 0), (3, 5), (-2, 1), (2 ** 31 + 9, 7)):
+        key = jax.random.fold_in(jax.random.fold_in(
+            jax.random.PRNGKey(seed), it), 7)
+        u = np.asarray(jax.random.uniform(key, (9,)))
+        want = u < 0.4
+        want[np.argmin(u)] = True
+        got = TB._feature_mask(seed, it, 9, 0.4, torch.device("cpu"))
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert TB._feature_mask(3, 0, 9, 1.0, torch.device("cpu")).all()
+
+
+def test_goss_three_classes_matches_jax(jax_fits):
     X, y = _three_classes(3001, 1)
-    jb, tb = _pair(jax_fits, "goss3", X, y, monkeypatch,
-                   objective="multiclass", num_class=3, num_iterations=3,
+    jb, tb = _pair(jax_fits, "goss3", X, y, objective="multiclass",
+                   num_class=3, num_iterations=3,
                    boosting_type="goss", top_rate=0.3, other_rate=0.2)
     _assert_same_fit(jb, tb, X)
 
 
 @pytest.mark.parametrize("metric", [None, "auc"])
-def test_rf_validation_matches_jax(metric, data, jax_fits, monkeypatch):
+def test_rf_validation_matches_jax(metric, data, jax_fits):
     """rf's validation metric is taken on the average of the trees so far
     (auc: on the sum, whose order is the same); early stopping cuts the
     forest before it is averaged."""
     X, y = data
     Xv, yv = _binary(600, 5)
-    jb, tb = _pair(jax_fits, ("rf_valid", metric), X, y, monkeypatch,
-                   num_iterations=8, valid_set=(Xv, yv, None),
+    jb, tb = _pair(jax_fits, ("rf_valid", metric), X, y, num_iterations=8,
+                   valid_set=(Xv, yv, None),
                    early_stopping_rounds=2, eval_metric_name=metric,
                    cfg=dict(num_leaves=15, min_data_in_leaf=5),
                    **MODES["rf"])
@@ -180,11 +193,10 @@ def test_rf_validation_matches_jax(metric, data, jax_fits, monkeypatch):
     dict(boostingType="rf", posBaggingFraction=0.8, negBaggingFraction=0.5,
          baggingFreq=1),
 ], ids=["goss", "bagging", "rf-stratified"])
-def test_classifier_sampling_matches_jax(params, data, monkeypatch):
+def test_classifier_sampling_matches_jax(params, data):
     X, y = data
     kw = dict(numIterations=3, numLeaves=7, maxBin=63, baggingSeed=11,
               **params)
-    monkeypatch.setattr(TB, "_row_uniforms", jax_uniforms)
     tm = LightGBMClassifier(device="cpu", **kw).fit(
         TDataset({"features": X, "label": y}))
     with default_mesh(_mesh()):
@@ -192,7 +204,7 @@ def test_classifier_sampling_matches_jax(params, data, monkeypatch):
     _assert_same_fit(jm.booster, tm.booster, X)
 
 
-def test_ranker_bagging_matches_jax(monkeypatch):
+def test_ranker_bagging_matches_jax():
     """The ranker passes ``boostingType`` and the bagging params, as the
     JAX ranker does; the bag is drawn over the padded group rows."""
     rng = np.random.default_rng(8)
@@ -204,7 +216,6 @@ def test_ranker_bagging_matches_jax(monkeypatch):
     cols = {"features": X, "label": y, "query": group}
     kw = dict(groupCol="query", numIterations=3, numLeaves=7, maxBin=63,
               minDataInLeaf=20, baggingFraction=0.7, baggingFreq=1)
-    monkeypatch.setattr(TB, "_row_uniforms", jax_uniforms)
     tb = LightGBMRanker(device="cpu", **kw).fit(TDataset(cols)).booster
     with default_mesh(_mesh()):
         jb = JRanker(**kw).fit(JDataset(cols)).booster
@@ -277,12 +288,17 @@ def test_quantile_past_torch_limit_matches_numpy():
 
 
 def test_row_uniforms_are_keyed_by_seed_and_step():
-    a = TB._row_uniforms(3, 0, 1000)
+    """The JAX package's draws bit for bit, keyed by (seed, bag step); a
+    rank's slice from ``start`` is that slice of the one-device draw."""
+    a = TB._row_uniforms(3, 0, 1000, device="cpu")
     assert a.dtype == torch.float32 and a.shape == (1000,)
     assert float(a.min()) >= 0.0 and float(a.max()) < 1.0
-    assert torch.equal(a, TB._row_uniforms(3, 0, 1000))
-    assert not torch.equal(a, TB._row_uniforms(3, 1, 1000))
-    assert not torch.equal(a, TB._row_uniforms(4, 0, 1000))
+    np.testing.assert_array_equal(a.numpy(), jax_uniforms(3, 0, 1000))
+    assert torch.equal(a, TB._row_uniforms(3, 0, 1000, device="cpu"))
+    assert not torch.equal(a, TB._row_uniforms(3, 1, 1000, device="cpu"))
+    assert not torch.equal(a, TB._row_uniforms(4, 0, 1000, device="cpu"))
+    assert torch.equal(a[600:], TB._row_uniforms(3, 0, 400, start=600,
+                                                 device="cpu"))
     assert abs(float((a < 0.3).float().mean()) - 0.3) < 0.06
 
 
@@ -316,10 +332,10 @@ def test_bag_is_reused_for_bagging_freq_iterations():
     assert abs(float(m[~y].mean()) - 0.2) < 0.05
 
 
-def test_goss_mask_matches_the_jax_formula(monkeypatch):
+def test_goss_mask_matches_the_jax_formula():
     """The top 20% of rows by |grad| (summed over the columns) keep weight
-    1; the rest are kept with probability 0.1 / 0.8 at weight 8."""
-    monkeypatch.setattr(TB, "_row_uniforms", jax_uniforms)
+    1; the rest are kept with probability 0.1 / 0.8 at weight 8, under the
+    JAX package's draws."""
     n = 4000
     vm = np.ones(n, np.float32)
     vm[-100:] = 0.0                                 # padding rows

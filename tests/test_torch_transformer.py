@@ -18,6 +18,9 @@ through both packages' ``make_train_step`` (lr 1e-2).
     rank on the same batch.
   * ``dtype=bfloat16`` at world size 1: losses within ``BF16_LOSS_ATOL``
     of JAX (see there for why).
+  * ``init_params(cfg, 0)`` draws the JAX ``init_params(cfg,
+    PRNGKey(0))`` (``mmlspark_tpu_torch/utils/prng.py``): every leaf
+    within 4 f32 ulps, and a key given as words draws what its seed does.
 """
 
 import os
@@ -31,6 +34,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
+from _torch_parity import f32_ulps
 from _torch_ranks import run_ranks
 from mmlspark_tpu.models.dnn import transformer as JT
 from mmlspark_tpu.parallel.compat import shard_map
@@ -146,6 +150,26 @@ def test_world_size_one_f32_matches_jax(mode):
     np.testing.assert_allclose(t_losses, j_losses, rtol=0, atol=LOSS_ATOL)
     assert t_losses[-1] < t_losses[0]
     _compare_trees(t_params, j_params, PARAM_ATOL)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_init_params_is_the_jax_init(seed):
+    cfg = dict(SMALL, n_layers=3)
+    want = jax.tree_util.tree_map(np.asarray, JT.init_params(
+        JT.TransformerConfig(**cfg), jax.random.PRNGKey(seed)))
+    tcfg = TT.TransformerConfig(**cfg)
+    got = transformer_params_to_jax(TT.init_params(tcfg, seed,
+                                                   device="cpu"), tcfg)
+    flat_w = jax.tree_util.tree_leaves_with_path(want)
+    flat_g = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert len(flat_w) == len(flat_g)
+    for path, v in flat_w:
+        assert flat_g[path].shape == v.shape, path
+        assert f32_ulps(flat_g[path], v) <= 4, path
+    again = transformer_params_to_jax(TT.init_params(
+        tcfg, (0, seed), device="cpu"), tcfg)
+    for path, v in jax.tree_util.tree_leaves_with_path(again):
+        np.testing.assert_array_equal(v, flat_g[path])
 
 
 def test_bf16_world_size_one_matches_jax():

@@ -185,6 +185,38 @@ def test_resume_equals_the_uninterrupted_fit(mode, data, tmp_path):
     _assert_identical(cut, TB._truncate_booster(whole, 4))
 
 
+def test_sampled_resume_grows_the_jax_fit(data, tmp_path):
+    """A sampled, quantized fit resumed from its iteration-2 checkpoint
+    draws iteration ``it``'s bag, feature subset and rounding under the
+    JAX package's keys for that ``it`` (no replay): the JAX package's
+    uninterrupted fit, margins within 1e-5."""
+    X, y = data
+    kw = dict(RESUME["sampled"])
+    cfg = kw.pop("cfg")
+    _ckpt_fit(X, y, str(tmp_path / "b"), 6, cfg=cfg, **kw)
+    resumed = _ckpt_fit(X, y, str(tmp_path / "b"), 12, cfg=cfg, **kw)
+    jb = jtrain(X, y, objective="binary", num_iterations=12, max_bin=63,
+                seed=4, cfg=JG.GrowConfig(num_leaves=7, quantized_grad=True,
+                                          quant_warmup_iters=1),
+                mesh=_mesh(), **kw)
+    _assert_same_fit(jb, resumed, X)
+
+
+def test_sampled_warm_start_matches_jax(data, prior):
+    """A ``modelString`` warm start folds iterations 0, 1, ... of the new
+    fit into its keys, as the JAX package does."""
+    X, y = data
+    kw = dict(numIterations=3, numLeaves=7, maxBin=63, minDataInLeaf=100,
+              modelString=prior.model_string(), featureFraction=0.6,
+              baggingFraction=0.8, baggingFreq=1, useQuantizedGrad=True,
+              quantWarmupIters=1, baggingSeed=5)
+    cols = {"features": X, "label": y}
+    tb = LightGBMClassifier(device="cpu", **kw).fit(TDataset(cols)).booster
+    with default_mesh(_mesh()):
+        jb = JClassifier(**kw).fit(JDataset(cols)).booster
+    _assert_same_fit(jb, tb, X)
+
+
 def test_resume_restores_early_stopping_state(data, tmp_path):
     X, y = data
     Xv, yv = _binary(500, 2)

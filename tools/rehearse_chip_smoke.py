@@ -16,6 +16,7 @@
     python tools/rehearse_chip_smoke.py p19 [--tf-width 64 --tf-seq 256]
     python tools/rehearse_chip_smoke.py p20 [--higgs-rows 40000
         --vw-rows 50000]
+    python tools/rehearse_chip_smoke.py p21 [--higgs-rows 40000]
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -72,7 +73,10 @@ with itself), ``p19`` (phase 19: the transformer's three strategies at
 "cuda against cpu", and 19b's four gloo ranks as CPU processes), ``p20``
 (phase 20 on ``--higgs-rows`` rows and ``--vw-rows`` Criteo-shaped rows:
 its three stages of two gloo ranks as CPU processes; the ranks' launch
-holds wait for the card, since their plain versions count nothing). The
+holds wait for the card, since their plain versions count nothing), ``p21``
+(phase 21 on ``--higgs-rows`` rows: the draws' cpu-against-cpu and golden
+holds at their full 1,000,000 and ``[3, 1,000,000]`` shapes, then the
+sampled, quantized and blocked fits and their twins). The
 plain versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
@@ -313,7 +317,7 @@ def main() -> int:
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
                              "p11", "p12", "p13", "p14", "p15", "p16",
-                             "p17", "p18", "p19", "p20"])
+                             "p17", "p18", "p19", "p20", "p21"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     ap.add_argument("--vw-rows", type=int, default=200_000)
@@ -345,7 +349,8 @@ def main() -> int:
            "p18": lambda: phase_automl(mod, args.http_rows),
            "p19": lambda: phase_transformer(mod, args.tf_width,
                                             args.tf_seq),
-           "p20": lambda: phase_group_resume(mod, args.vw_rows)}
+           "p20": lambda: phase_group_resume(mod, args.vw_rows),
+           "p21": lambda: mod.phase_prng("CPU rehearsal, no card")}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
