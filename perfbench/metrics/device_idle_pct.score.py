@@ -1,0 +1,8 @@
+"""``device_idle_pct.score``: the share of the profiled run of scoring
+calls in which no kernel, copy or fill ran on the device, in %."""
+
+from perfbench.trace import idle_pct
+
+
+def read(run):
+    return idle_pct(run.trace)
