@@ -36,7 +36,13 @@ and ``gbdt_train_metric`` after it, the training-health audit of its eval
 history, and, with ``MMLSPARK_TPU_TELEMETRY_ROUNDS=1``, a ``boost_round``
 instant with ``gbdt_boost_rounds_total`` and ``gbdt_round_metric`` per
 round. ``MMLSPARK_TPU_BINNED_CACHE=0`` turns the binned-dataset cache off;
-its datasets are claimed on the HBM ledger as ``binned_cache``.
+its datasets are claimed on the HBM ledger as ``binned_cache``. Beyond the
+JAX package, a fit and a ``transform`` run their phases in spans that only
+the trace buffer holds (``publish=False``: no metric family, no flight
+record): ``gbdt.labels``, ``gbdt.extract``, ``gbdt.binned_cache`` and
+``gbdt.transform.features`` / ``.columns`` here, ``gbdt.ingest``,
+``gbdt.boost``, ``gbdt.round`` and ``gbdt.predict`` with their phases in
+:mod:`.booster` and :mod:`.growth`.
 """
 
 from __future__ import annotations
@@ -140,8 +146,10 @@ def _cached_binned_dataset(X, y, w, *, max_bin, bin_sample_count, seed,
                  device=device)
     if not _cache_enabled():
         return LightGBMDataset.construct(X, y, w, mesh=mesh, **build)
-    key = _binned_cache_key(X, y, w, mesh=mesh, **build)
-    ds = _BINNED_CACHE.get(key)
+    with _spans.span("gbdt.binned_cache", publish=False) as sp:
+        key = _binned_cache_key(X, y, w, mesh=mesh, **build)
+        ds = _BINNED_CACHE.get(key)
+        sp.set(hit=int(ds is not None))
     if ds is None:
         _BINNED_CACHE_STATS["misses"] += 1
         ds = LightGBMDataset.construct(X, y, w, mesh=mesh, **build)
@@ -501,8 +509,10 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
         binned from its own rows and warm-started from the previous one
         (reference: LightGBMBase.scala:28-50); without ``checkpointDir``, a
         cached binned dataset."""
-        train_ds, valid_ds = self._split_validation(dataset)
-        X, y, w = self._extract_arrays(train_ds)
+        with _spans.span("gbdt.extract", publish=False) as sp:
+            train_ds, valid_ds = self._split_validation(dataset)
+            X, y, w = self._extract_arrays(train_ds)
+            sp.set(rows=int(np.shape(X)[0]), features=int(np.shape(X)[1]))
         valid_set = None
         if valid_ds is not None and len(valid_ds) > 0:
             valid_set = self._extract_arrays(valid_ds)
@@ -630,8 +640,10 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasRawPredictionCol,
                        TypeConverters.to_list_float)
 
     def fit(self, dataset: Dataset) -> "LightGBMClassificationModel":
-        y = dataset.array(self.get_or_default("labelCol"))
-        classes = np.unique(y[~np.isnan(y.astype(np.float64))])
+        with _spans.span("gbdt.labels", publish=False) as sp:
+            y = dataset.array(self.get_or_default("labelCol"))
+            classes = np.unique(y[~np.isnan(y.astype(np.float64))])
+            sp.set(rows=len(y))
         if classes.size and (classes.min() < 0 or
                              not np.allclose(classes, classes.astype(int))):
             raise ValueError(
@@ -666,24 +678,28 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasRawPredictionCol,
         return max(self.booster.num_class, 2)
 
     def transform(self, dataset: Dataset) -> Dataset:
-        X = _features_dense(dataset, self.get_or_default("featuresCol"))
+        with _spans.span("gbdt.transform.features", publish=False,
+                         rows=len(dataset)):
+            X = _features_dense(dataset, self.get_or_default("featuresCol"))
         raw = self.booster.predict_raw(X, device=self.get_or_default("device"))
-        if self.booster.num_class == 1:          # binary: [neg, pos] margins
-            margins = np.concatenate([-raw, raw], axis=1)
-            p1 = torch.sigmoid(torch.from_numpy(raw[:, 0])).numpy()
-            probs = np.stack([1 - p1, p1], axis=1)
-        else:
-            margins = raw
-            probs = torch.softmax(torch.from_numpy(raw), dim=1).numpy()
-        th = self.get_or_default("thresholds")
-        scaled = probs / np.asarray(th)[None, :] if th else probs
-        out = dataset.with_columns({
-            self.get_or_default("rawPredictionCol"): margins,
-            self.get_or_default("probabilityCol"): probs,
-            self.get_or_default("predictionCol"):
-                scaled.argmax(axis=1).astype(np.float64),
-        })
-        return self._add_introspection_cols(out, X)
+        with _spans.span("gbdt.transform.columns", publish=False,
+                         rows=len(raw)):
+            if self.booster.num_class == 1:      # binary: [neg, pos] margins
+                margins = np.concatenate([-raw, raw], axis=1)
+                p1 = torch.sigmoid(torch.from_numpy(raw[:, 0])).numpy()
+                probs = np.stack([1 - p1, p1], axis=1)
+            else:
+                margins = raw
+                probs = torch.softmax(torch.from_numpy(raw), dim=1).numpy()
+            th = self.get_or_default("thresholds")
+            scaled = probs / np.asarray(th)[None, :] if th else probs
+            out = dataset.with_columns({
+                self.get_or_default("rawPredictionCol"): margins,
+                self.get_or_default("probabilityCol"): probs,
+                self.get_or_default("predictionCol"):
+                    scaled.argmax(axis=1).astype(np.float64),
+            })
+            return self._add_introspection_cols(out, X)
 
     @staticmethod
     def load_native_model(path: str) -> "LightGBMClassificationModel":

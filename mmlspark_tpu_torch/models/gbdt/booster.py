@@ -40,6 +40,7 @@ subtraction and its ``n // 2`` buffer engage exactly as they do there.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import itertools
 import json
@@ -62,7 +63,7 @@ from ...observability import spans as _spans
 from ...observability import watchdog as _watchdog
 from ...observability.logging import console as _console
 from ...ops.binning import QuantileBinner, bin_cols
-from ...ops.histogram import quant_key
+from ...ops.histogram import histogram_cols, node_histogram, quant_key
 from ...utils import prng
 from ...core.dataset import _is_sparse
 from ...parallel import mesh as meshlib
@@ -71,10 +72,12 @@ from ...parallel.mesh import Mesh
 from ...robustness.failpoints import fault_point as _failpoint
 from ... import tuning as _tuning
 from ...tuning.decisions import ladder_pad
+from . import growth as _growth
 from . import quantize as _quantize
 from .growth import (GrowConfig, Tree, _blocked, forest_leaf_nodes,
-                     grow_tree, grow_tree_depthwise, predict_forest_raw,
-                     predict_tree_binned, resolve_growth_backend)
+                     grow_tree, grow_tree_depthwise, host_read,
+                     predict_forest_raw, predict_tree_binned,
+                     resolve_growth_backend)
 from .objectives import (HIGHER_IS_BETTER, SUPPORTED_EVAL_METRICS,
                          auc_weighted, eval_metric, get_objective,
                          metric_family, score_transform)
@@ -114,6 +117,18 @@ class _PhaseTimer:
             # telemetry kill switch
             _console(f"[gbdt-timing] {name}: {now - self._t:.3f}s")
             self._t = now
+
+
+def _ingest_span(construct):
+    """``construct`` in a ``gbdt.ingest`` span that records the dataset's
+    rows and features (every route: in memory and out of core)."""
+    @functools.wraps(construct)
+    def spanned(cls, *args, **kwargs):
+        with _spans.span("gbdt.ingest", publish=False) as sp:
+            ds = construct(cls, *args, **kwargs)
+            sp.set(rows=ds.n, features=ds.num_features)
+        return ds
+    return spanned
 
 
 def _bin_dtype(bin_dtype, max_bin: int) -> torch.dtype:
@@ -167,6 +182,7 @@ class LightGBMDataset:
         return self.Xbt.device
 
     @classmethod
+    @_ingest_span
     def construct(cls, X=None, y=None, weight=None, *, max_bin: int = 255,
                   bin_sample_count: int = 200_000, seed: int = 0,
                   bin_dtype=None, max_bin_by_feature=None,
@@ -248,25 +264,32 @@ class LightGBMDataset:
                 f"{F} features")
         bd = _bin_dtype(bin_dtype, max_bin)
         tw = _timer or _PhaseTimer()
-        binner = QuantileBinner(max_bin, bin_sample_count, seed,
-                                categorical_features,
-                                max_bin_by_feature).fit(X)
+        # the phases' spans end where the timer's marks fall; the copies
+        # wait for the device, the bin apply does not (its device time)
+        with _spans.span("gbdt.ingest.binner_fit", publish=False):
+            binner = QuantileBinner(max_bin, bin_sample_count, seed,
+                                    categorical_features,
+                                    max_bin_by_feature).fit(X)
         tw.mark("binner_fit")
-        placement.plan_for("gbdt.ingest", mesh=mesh, rows=n, device=dev,
-                           dtype=str(bd).replace("torch.", ""))
-        X_d, _ = placement.shard_rows(X, mesh, device=dev)
+        with _spans.span("gbdt.ingest.upload", publish=False):
+            placement.plan_for("gbdt.ingest", mesh=mesh, rows=n, device=dev,
+                               dtype=str(bd).replace("torch.", ""))
+            X_d, _ = placement.shard_rows(X, mesh, device=dev)
         tw.mark("xfer_X", dev)
-        Xbt = bin_cols(X_d, torch.from_numpy(binner.upper_bounds), bd)
-        del X_d             # only the bin matrix stays resident
+        with _spans.span("gbdt.ingest.bin_apply", device=dev,
+                         publish=False):
+            Xbt = bin_cols(X_d, torch.from_numpy(binner.upper_bounds), bd)
+            del X_d             # only the bin matrix stays resident
         tw.mark("bin_device", dev)
-        n_pad = Xbt.shape[1] * mesh.size
-        vmask = meshlib.validity_mask(n, n_pad)
-        if row_valid is not None:
-            vmask[:n] *= np.asarray(row_valid, np.float32)
-        vmask_d, _ = placement.shard_rows(vmask, mesh, device=dev)
-        y_d, _ = placement.shard_rows(y, mesh, device=dev)
-        w_d = (vmask_d if weight is None else placement.shard_rows(
-            np.asarray(weight, np.float32), mesh, device=dev)[0])
+        with _spans.span("gbdt.ingest.aux", publish=False):
+            n_pad = Xbt.shape[1] * mesh.size
+            vmask = meshlib.validity_mask(n, n_pad)
+            if row_valid is not None:
+                vmask[:n] *= np.asarray(row_valid, np.float32)
+            vmask_d, _ = placement.shard_rows(vmask, mesh, device=dev)
+            y_d, _ = placement.shard_rows(y, mesh, device=dev)
+            w_d = (vmask_d if weight is None else placement.shard_rows(
+                np.asarray(weight, np.float32), mesh, device=dev)[0])
         tw.mark("aux_shards", dev)
         return cls(binner, Xbt, y_d, w_d, vmask_d, n, n_pad, max_bin,
                    categorical_features, mesh)
@@ -520,7 +543,13 @@ class _PredictProgram:
             # vectorized elementwise loops round a row by where it falls
             # in the batch, so only the rows as they came match the eager
             # body bit for bit
-            return _from_device(self._body(forest, active, stage_rows(None)))
+            with _spans.span("gbdt.predict.upload", publish=False):
+                X = stage_rows(None)
+            with _spans.span("gbdt.predict.traverse", device=self.device,
+                             publish=False):
+                out = self._body(forest, active, X)
+            with _spans.span("gbdt.predict.readback", publish=False):
+                return _from_device(out)
         with self._lock:
             st = self._static
             if st["serial"] != forest["serial"]:
@@ -1065,33 +1094,37 @@ class Booster:
         static input on the graph route) and ONE read-back
         (:func:`_from_device`) of ``[n, K]`` (``[n]`` transformed, K=1)."""
         dev = resolve_device(device)
-        lane = self.resolved_predict_dtype(predict_dtype)
-        rows = self._rows_host(X, lane)
-        width = (self.num_features if self.binner_state is not None
-                 else rows.shape[-1])
-        if rows.dim() != 2 or rows.shape[1] != width:
-            raise ValueError(f"rows must be [n, {width}], got "
-                             f"{list(rows.shape)}")
-        n = int(rows.shape[0])
-        plan = self.predict_plan(n, num_iteration, transformed,
-                                 num_features=int(rows.shape[1]),
-                                 predict_dtype=lane)
-        forest = self._device_forest_args(plan.T_pad, plan.predict_dtype,
-                                          dev)
-        active = self._device_active(plan.T_pad, plan.t_end, dev)
-        fn = _predict_program((str(dev), plan.key),
-                              lambda: plan.make_program(dev),
-                              dtype=plan.predict_dtype)
-        want = _quantize.staging_dtype(plan.predict_dtype)
+        with _spans.span("gbdt.predict", publish=False) as sp:
+            with _spans.span("gbdt.predict.plan", publish=False):
+                lane = self.resolved_predict_dtype(predict_dtype)
+                rows = self._rows_host(X, lane)
+                width = (self.num_features if self.binner_state is not None
+                         else rows.shape[-1])
+                if rows.dim() != 2 or rows.shape[1] != width:
+                    raise ValueError(f"rows must be [n, {width}], got "
+                                     f"{list(rows.shape)}")
+                n = int(rows.shape[0])
+                plan = self.predict_plan(n, num_iteration, transformed,
+                                         num_features=int(rows.shape[1]),
+                                         predict_dtype=lane)
+                forest = self._device_forest_args(
+                    plan.T_pad, plan.predict_dtype, dev)
+                active = self._device_active(plan.T_pad, plan.t_end, dev)
+                fn = _predict_program((str(dev), plan.key),
+                                      lambda: plan.make_program(dev),
+                                      dtype=plan.predict_dtype)
+            want = _quantize.staging_dtype(plan.predict_dtype)
 
-        def stage_rows(out: Optional[torch.Tensor]) -> torch.Tensor:
-            dst = None if out is None else out[:n]
-            if rows.dtype == want:
-                return _to_device(rows, dev, dst)
-            staged = self._staged(_to_device(rows, dev), plan.predict_dtype)
-            return staged if dst is None else dst.copy_(staged)
+            def stage_rows(out: Optional[torch.Tensor]) -> torch.Tensor:
+                dst = None if out is None else out[:n]
+                if rows.dtype == want:
+                    return _to_device(rows, dev, dst)
+                staged = self._staged(_to_device(rows, dev),
+                                      plan.predict_dtype)
+                return staged if dst is None else dst.copy_(staged)
 
-        return fn(forest, active, plan.t_end, stage_rows)
+            sp.set(rows=n, graph=int(fn.program.graph_route))
+            return fn(forest, active, plan.t_end, stage_rows)
 
     def _cat_max_bin(self) -> int:
         """The routing's categorical bin bound: the binner's ``max_bin``
@@ -1489,7 +1522,8 @@ def _finalize_trees(trees_list: List[Tree], binner: QuantileBinner,
     """Stack grown trees into a Booster (raw thresholds from bin bounds;
     the int64 bitset words become uint32); tree ``t`` scores class
     ``t % K``. A warm start's ``init_booster`` is merged in front."""
-    stacked = {f: torch.stack([getattr(t, f) for t in trees_list]).cpu()
+    stacked = {f: host_read(torch.Tensor.cpu, torch.stack(
+                   [getattr(t, f) for t in trees_list]))
                .numpy().astype(TREE_DTYPES[f]) for f in Tree._fields}
     upper = binner.bin_upper_raw()                         # [F, B]
     thr_raw = upper[stacked["feat"],
@@ -1686,7 +1720,7 @@ def _quantile_linear(a: torch.Tensor, q: np.float32) -> float:
     rounding after ``hi * hw`` is added), so a threshold inside a run of
     tied values is that value, as in the JAX package. NaN anywhere gives
     NaN."""
-    if bool(torch.isnan(a).any()):
+    if host_read(bool, torch.isnan(a).any()):
         return float("nan")
     one = np.float32(1.0)
     nf = np.float32(a.numel())
@@ -1696,8 +1730,10 @@ def _quantile_linear(a: torch.Tensor, q: np.float32) -> float:
     lw = np.float32(one - hw)
     low = int(np.clip(low, 0, nf - one))
     high = int(np.clip(high, 0, nf - one))
-    lo = np.float32(a.kthvalue(low + 1).values.item())
-    hi = lo if high == low else np.float32(a.kthvalue(high + 1).values.item())
+    item = torch.Tensor.item
+    lo = np.float32(host_read(item, a.kthvalue(low + 1).values))
+    hi = lo if high == low else np.float32(
+        host_read(item, a.kthvalue(high + 1).values))
     # f64 holds the exact product of two f32 values
     return float(np.float32(np.float64(hi) * np.float64(hw)
                             + np.float64(np.float32(lo * lw))))
@@ -1741,7 +1777,7 @@ class _RowSampling:
                          if stratified else float(f32(bagging_fraction)))
         if self.goss:
             n_pad = vmask.shape[0]
-            n_valid = max(float(vmask.sum()), 1.0)
+            n_valid = max(host_read(float, vmask.sum()), 1.0)
             self.q = np.clip(np.float32(1.0) - np.float32(top_rate)
                              * np.float32(n_valid) / np.float32(n_pad),
                              np.float32(0.0), np.float32(1.0))
@@ -1838,14 +1874,14 @@ def _global_metric(mesh: Mesh, obj, scores, y, w, metric_name: str,
     ``growth.py:206-211``). One rank: the metric as it is."""
     _, num = eval_metric(obj, scores, y, w, **kwargs)
     if mesh.size == 1:
-        return float(num)
+        return host_read(float, num)
     wsum = w.sum()
     num = torch.where(wsum > 0, num.to(torch.float32),
                       torch.zeros((), device=w.device))
     part = num * num * wsum if metric_name == "rmse" else num * wsum
     tot = mesh.all_reduce(torch.stack([part, wsum]))
     m = tot[0] / tot[1]
-    return float(torch.sqrt(m) if metric_name == "rmse" else m)
+    return host_read(float, torch.sqrt(m) if metric_name == "rmse" else m)
 
 
 # rows the CPU's vectorized loops take at a time, at most (two 16-lane
@@ -1983,14 +2019,27 @@ def _save_checkpoint(ckpts, it: int, mesh: Mesh, scores: torch.Tensor,
     (the layout of one process, so the payload does not depend on the
     topology), and the early-stopping state, which must be the same on
     every rank (its metrics are reduced over the group); rank 0 writes."""
-    full = mesh.all_gather(scores)[:n].cpu().numpy()
-    vfull = (None if valid is None else mesh.all_gather(valid.scores)[
-        :len(valid.y_host)].cpu().numpy())
+    cpu = torch.Tensor.cpu
+    full = host_read(cpu, mesh.all_gather(scores)[:n]).numpy()
+    vfull = (None if valid is None else host_read(cpu, mesh.all_gather(
+        valid.scores)[:len(valid.y_host)]).numpy())
     state = es.state()
     mesh.check_same(pickle.dumps(state), "the early-stopping state")
     if ckpts.writer:
         ckpts.save(it, dict(payload, model=model_string(), iteration=it,
                             scores=full, vscores=vfull, **state))
+
+
+# what a gbdt.round span reports the change of: the host's waits on the
+# device, and the histogram kernels' launches and the rows handed to them
+_ROUND_COUNTERS = {
+    "host_syncs": lambda: _growth.host_syncs,
+    "hist_launches": lambda: (node_histogram.launches
+                              + node_histogram.int8_launches
+                              + node_histogram.det_launches
+                              + histogram_cols.launches),
+    "hist_rows": lambda: node_histogram.rows + histogram_cols.rows,
+}
 
 
 def train_booster(
@@ -2205,230 +2254,256 @@ def train_booster(
             max_bin_by_feature=max_bin_by_feature, row_valid=row_valid,
             categorical_features=categorical_features, device=device,
             mesh=mesh, _timer=tw)
-    if dataset.mesh.ranks != mesh.ranks:
-        raise ValueError(f"the dataset is sharded over {dataset.mesh}, the "
-                         f"fit asks for {mesh}")
-    dev = dataset.device
-    max_bin = dataset.max_bin
-    cfg = cfg._replace(num_bins=max_bin)
-    F, n = dataset.num_features, dataset.n
-    Xbt, y_d, w_d, vmask = dataset.Xbt, dataset.y, dataset.w, dataset.vmask
-    placement.plan_for("gbdt.fit", mesh=mesh, rows=dataset.n_pad, device=dev,
-                       boosting=boosting_type)
-    group = _grow_group(mesh, cfg)
-    # categorical routing mask, None without categorical features
-    is_cat_np = dataset.binner.is_cat_mask()
-    is_cat = torch.from_numpy(is_cat_np).to(dev) if is_cat_np.any() else None
+    # the boosting loop and growth, from the dataset to the booster
+    with _spans.span("gbdt.boost", publish=False) as boost_span:
+        if dataset.mesh.ranks != mesh.ranks:
+            raise ValueError(f"the dataset is sharded over {dataset.mesh}, "
+                             f"the fit asks for {mesh}")
+        dev = dataset.device
+        max_bin = dataset.max_bin
+        cfg = cfg._replace(num_bins=max_bin)
+        F, n = dataset.num_features, dataset.n
+        Xbt, y_d, w_d, vmask = dataset.Xbt, dataset.y, dataset.w, dataset.vmask
+        placement.plan_for("gbdt.fit", mesh=mesh, rows=dataset.n_pad,
+                           device=dev, boosting=boosting_type)
+        group = _grow_group(mesh, cfg)
+        # categorical routing mask, None without categorical features
+        is_cat_np = dataset.binner.is_cat_mask()
+        is_cat = (torch.from_numpy(is_cat_np).to(dev) if is_cat_np.any()
+                  else None)
 
-    if init_booster is not None:
-        if X is None:
-            raise ValueError(
-                "init_booster warm start scores raw rows: pass X alongside "
-                "dataset=")
-        base = init_booster.base_score
-        base_d = torch.from_numpy(base).to(dev)
-        # a resume restores the exact score matrix of the interrupted run
-        # (this rank's slice of it): re-scoring through predict_raw sums in
-        # another order, which can pick other splits; an old payload
-        # without it re-scores this rank's rows
-        saved = None if resume is None else resume.get("scores")
-        if saved is not None and np.shape(saved) == (n, K):
-            scores = torch.from_numpy(_rank_scores(saved, mesh, base)).to(dev)
+        if init_booster is not None:
+            if X is None:
+                raise ValueError(
+                    "init_booster warm start scores raw rows: pass X "
+                    "alongside dataset=")
+            base = init_booster.base_score
+            base_d = torch.from_numpy(base).to(dev)
+            # a resume restores the exact score matrix of the interrupted run
+            # (this rank's slice of it): re-scoring through predict_raw sums in
+            # another order, which can pick other splits; an old payload
+            # without it re-scores this rank's rows
+            saved = None if resume is None else resume.get("scores")
+            if saved is not None and np.shape(saved) == (n, K):
+                scores = torch.from_numpy(
+                    _rank_scores(saved, mesh, base)).to(dev)
+            else:
+                scores = init_booster.predict_raw_tensor(torch.from_numpy(
+                    placement.local_rows(np.asarray(_densify(X), np.float32),
+                                         mesh)).to(dev))
         else:
-            scores = init_booster.predict_raw_tensor(torch.from_numpy(
-                placement.local_rows(np.asarray(_densify(X), np.float32), mesh)
-            ).to(dev))
-    else:
-        # over the whole (padded) rows, gathered in rank order: the same
-        # reduction at every world size
-        y_all, wv_all = (mesh.all_gather(t) for t in (y_d, w_d * vmask))
-        base_d = (obj.init_score(y_all, wv_all).reshape(1).expand(K)
-                  if boost_from_average else torch.zeros(K, device=dev))
-        base_d = base_d.to(torch.float32).contiguous()
-        base = base_d.cpu().numpy()
-        scores = base_d.repeat(dataset.n_local, 1)         # [n_local, K]
-    scores = scores.contiguous()
-    tw.mark("base_scores", dev)
+            # over the whole (padded) rows, gathered in rank order: the same
+            # reduction at every world size
+            y_all, wv_all = (mesh.all_gather(t) for t in (y_d, w_d * vmask))
+            base_d = (obj.init_score(y_all, wv_all).reshape(1).expand(K)
+                      if boost_from_average else torch.zeros(K, device=dev))
+            base_d = base_d.to(torch.float32).contiguous()
+            base = host_read(torch.Tensor.cpu, base_d).numpy()
+            scores = base_d.repeat(dataset.n_local, 1)         # [n_local, K]
+        scores = scores.contiguous()
+        tw.mark("base_scores", dev)
 
-    depth_cap = (cfg.max_depth if cfg.max_depth > 0
-                 else max(1, cfg.num_leaves - 1))
-    depth_cap = min(depth_cap, 2 * cfg.num_leaves)
-    device_metric = eval_metric(
-        obj, torch.zeros((1, K)) if K > 1 else torch.zeros(1),
-        torch.zeros(1), torch.ones(1), metric=eval_override,
-        **objective_kwargs)[0]
-    metric_name = "auc" if auc_host else device_metric
+        depth_cap = (cfg.max_depth if cfg.max_depth > 0
+                     else max(1, cfg.num_leaves - 1))
+        depth_cap = min(depth_cap, 2 * cfg.num_leaves)
+        device_metric = eval_metric(
+            obj, torch.zeros((1, K)) if K > 1 else torch.zeros(1),
+            torch.zeros(1), torch.ones(1), metric=eval_override,
+            **objective_kwargs)[0]
+        metric_name = "auc" if auc_host else device_metric
 
-    valid = valid_fp = None
-    if valid_set is not None:
-        Xv, yv, wv = valid_set
-        Xv = np.asarray(_densify(Xv), np.float32)
-        yv = np.asarray(yv, np.float32)
-        wv = np.ones_like(yv) if wv is None else np.asarray(wv, np.float32)
-        if ckpts is not None:
-            # the validation rows are not in the run's fingerprint; their
-            # saved scores are restored only against the same rows
-            from ...utils.checkpoint import data_fingerprint
-            valid_fp = data_fingerprint(Xv, yv, wv)
-        Xv_d = torch.from_numpy(placement.local_rows(Xv, mesh)).to(dev)
-        Xvb = bin_cols(Xv_d, torch.from_numpy(dataset.binner.upper_bounds),
-                       Xbt.dtype).t().contiguous()     # [nv_local, F]
-        saved = None if resume is None else resume.get("vscores")
-        if (saved is not None and valid_fp is not None
-                and resume.get("valid_fingerprint") == valid_fp
-                and np.shape(saved) == (len(yv), K)):
-            vscores = torch.from_numpy(_rank_scores(saved, mesh, base)).to(
-                dev)
-        elif init_booster is not None:
-            vscores = init_booster.predict_raw_tensor(Xv_d)
-        else:
-            vscores = base_d.repeat(Xv_d.shape[0], 1)  # [nv_local, K]
-        del Xv_d
-        # padding rows weigh 0
-        valid = _Valid(Xvb, placement.shard_rows(yv, mesh, device=dev)[0],
-                       placement.shard_rows(wv, mesh, device=dev)[0],
-                       yv, wv, vscores.contiguous())
-        tw.mark("valid_prep", dev)
+        valid = valid_fp = None
+        if valid_set is not None:
+            Xv, yv, wv = valid_set
+            Xv = np.asarray(_densify(Xv), np.float32)
+            yv = np.asarray(yv, np.float32)
+            wv = np.ones_like(yv) if wv is None else np.asarray(wv, np.float32)
+            if ckpts is not None:
+                # the validation rows are not in the run's fingerprint; their
+                # saved scores are restored only against the same rows
+                from ...utils.checkpoint import data_fingerprint
+                valid_fp = data_fingerprint(Xv, yv, wv)
+            Xv_d = torch.from_numpy(placement.local_rows(Xv, mesh)).to(dev)
+            Xvb = bin_cols(Xv_d, torch.from_numpy(dataset.binner.upper_bounds),
+                           Xbt.dtype).t().contiguous()     # [nv_local, F]
+            saved = None if resume is None else resume.get("vscores")
+            if (saved is not None and valid_fp is not None
+                    and resume.get("valid_fingerprint") == valid_fp
+                    and np.shape(saved) == (len(yv), K)):
+                vscores = torch.from_numpy(_rank_scores(saved, mesh, base)).to(
+                    dev)
+            elif init_booster is not None:
+                vscores = init_booster.predict_raw_tensor(Xv_d)
+            else:
+                vscores = base_d.repeat(Xv_d.shape[0], 1)  # [nv_local, K]
+            del Xv_d
+            # padding rows weigh 0
+            valid = _Valid(Xvb, placement.shard_rows(yv, mesh, device=dev)[0],
+                           placement.shard_rows(wv, mesh, device=dev)[0],
+                           yv, wv, vscores.contiguous())
+            tw.mark("valid_prep", dev)
 
-    sampling = _RowSampling(
-        boosting_type=boosting_type, vmask=vmask, y=y_d, seed=seed,
-        bagging_fraction=bagging_fraction, bagging_freq=bagging_freq,
-        pos_bagging_fraction=pos_bagging_fraction,
-        neg_bagging_fraction=neg_bagging_fraction, top_rate=top_rate,
-        other_rate=other_rate,
-        start=mesh.rank * dataset.n_local)
-    grow = (grow_tree_depthwise if cfg.growth_policy == "depthwise"
-            else grow_tree)
-    es = _EarlyStopping(metric_name, early_stopping_rounds,
-                        early_stopping_tolerance)
-    if boosting_type == "dart":
-        return _train_dart(
-            dataset=dataset, cfg=cfg, K=K, obj=obj, objective=objective,
-            objective_kwargs=objective_kwargs, base_d=base_d,
-            valid=valid, depth_cap=depth_cap, es=es,
-            num_iterations=num_iterations, seed=seed,
-            feature_fraction=feature_fraction, sampling=sampling,
-            grow=grow, is_cat=is_cat, metric_eval_period=metric_eval_period,
-            drop_rate=drop_rate, max_drop=max_drop, skip_drop=skip_drop,
-            drop_seed=drop_seed, mesh=mesh, group=group,
-            iteration_callback=iteration_callback)
-    if resume is not None:
-        es.restore(resume)
-    is_rf = boosting_type == "rf"
+        sampling = _RowSampling(
+            boosting_type=boosting_type, vmask=vmask, y=y_d, seed=seed,
+            bagging_fraction=bagging_fraction, bagging_freq=bagging_freq,
+            pos_bagging_fraction=pos_bagging_fraction,
+            neg_bagging_fraction=neg_bagging_fraction, top_rate=top_rate,
+            other_rate=other_rate,
+            start=mesh.rank * dataset.n_local)
+        grow = (grow_tree_depthwise if cfg.growth_policy == "depthwise"
+                else grow_tree)
+        es = _EarlyStopping(metric_name, early_stopping_rounds,
+                            early_stopping_tolerance)
+        if boosting_type == "dart":
+            booster = _train_dart(
+                dataset=dataset, cfg=cfg, K=K, obj=obj, objective=objective,
+                objective_kwargs=objective_kwargs, base_d=base_d,
+                valid=valid, depth_cap=depth_cap, es=es,
+                num_iterations=num_iterations, seed=seed,
+                feature_fraction=feature_fraction, sampling=sampling,
+                grow=grow, is_cat=is_cat,
+                metric_eval_period=metric_eval_period, drop_rate=drop_rate,
+                max_drop=max_drop, skip_drop=skip_drop, drop_seed=drop_seed,
+                mesh=mesh, group=group,
+                iteration_callback=iteration_callback)
+            boost_span.set(trees=booster.num_trees)
+            return booster
+        if resume is not None:
+            es.restore(resume)
+        is_rf = boosting_type == "rf"
 
-    def column(sc):
-        return sc if K > 1 else sc[:, 0]
+        def column(sc):
+            return sc if K > 1 else sc[:, 0]
 
-    def finalize(trees_list):
-        return _finalize_trees(trees_list, dataset.binner, max_bin, K, base,
-                               objective, depth_cap, objective_kwargs,
-                               es.best_iter, es.history, init_booster)
+        def finalize(trees_list):
+            return _finalize_trees(trees_list, dataset.binner, max_bin, K,
+                                   base, objective, depth_cap,
+                                   objective_kwargs, es.best_iter,
+                                   es.history, init_booster)
 
-    all_trees: List[Tree] = []
-    # watchdog: one beat and one round-duration report per boosting round
-    # (a wedged round stops beating; a round suddenly much slower than its
-    # window trips the throughput sentinel)
-    hb = _watchdog.register("gbdt_round_loop", stall_seconds=120.0)
-    prior_iterations = (0 if user_init_booster is None
-                        else user_init_booster.num_iterations)
-    unregister_dump = None
-    if ckpts is not None and ckpts.writer and dump_on_unhealthy:
-        # rank 0's callback alone: it holds no score matrix, so it needs
-        # no collective (and may not enter one from the watchdog's thread)
-        unregister_dump = _watchdog.add_event_callback(_last_good_dump(
-            ckpts.manager, K, all_trees, finalize, es, iterations_done,
-            fingerprint=ckpt_fp, prior_iterations=prior_iterations,
-            valid_fingerprint=valid_fp))
-    t_round = time.perf_counter()
-    try:
-        for it in range(iterations_done, num_iterations):
-            hb.beat()
-            # chaos hook, one evaluation a round: `exit` is the mid-fit
-            # preemption the resume path is tested against
-            _failpoint("gbdt.round")
-            grad, hess = _grad_hess(obj, column(scores), y_d, w_d, group)
-            if K == 1:
-                grad, hess = grad[:, None], hess[:, None]
-            row_mask = sampling(it, grad)
-            fmask = _feature_mask(seed, it, F, feature_fraction, dev)
-            trees = []
-            for k, (tree, row_node) in enumerate(_grow_iteration(
-                    grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat, seed,
-                    it, group, dataset.n)):
-                # rf's trees all fit the base score's gradients
-                if not is_rf:
-                    scores[:, k] += tree.leaf_value[row_node.long()]
-                trees.append(tree)
-            all_trees.extend(trees)
+        all_trees: List[Tree] = []
+        # watchdog: one beat and one round-duration report per boosting round
+        # (a wedged round stops beating; a round suddenly much slower than its
+        # window trips the throughput sentinel)
+        hb = _watchdog.register("gbdt_round_loop", stall_seconds=120.0)
+        prior_iterations = (0 if user_init_booster is None
+                            else user_init_booster.num_iterations)
+        unregister_dump = None
+        if ckpts is not None and ckpts.writer and dump_on_unhealthy:
+            # rank 0's callback alone: it holds no score matrix, so it needs
+            # no collective (and may not enter one from the watchdog's thread)
+            unregister_dump = _watchdog.add_event_callback(_last_good_dump(
+                ckpts.manager, K, all_trees, finalize, es, iterations_done,
+                fingerprint=ckpt_fp, prior_iterations=prior_iterations,
+                valid_fingerprint=valid_fp))
+        t_round = time.perf_counter()
+        try:
+            for it in range(iterations_done, num_iterations):
+                with _spans.span("gbdt.round", counters=_ROUND_COUNTERS,
+                                 publish=False, iteration=it):
+                    hb.beat()
+                    # chaos hook, one evaluation a round: `exit` is the
+                    # mid-fit preemption the resume path is tested against
+                    _failpoint("gbdt.round")
+                    with _spans.span("gbdt.grad_hess", device=dev,
+                                     publish=False):
+                        grad, hess = _grad_hess(obj, column(scores), y_d,
+                                                w_d, group)
+                        if K == 1:
+                            grad, hess = grad[:, None], hess[:, None]
+                    with _spans.span("gbdt.grow", device=dev, publish=False):
+                        row_mask = sampling(it, grad)
+                        fmask = _feature_mask(seed, it, F, feature_fraction,
+                                              dev)
+                        grown = _grow_iteration(
+                            grow, Xbt, grad, hess, row_mask, fmask, cfg,
+                            is_cat, seed, it, group, dataset.n)
+                    trees = []
+                    with _spans.span("gbdt.score_update", device=dev,
+                                     publish=False):
+                        for k, (tree, row_node) in enumerate(grown):
+                            # rf's trees all fit the base score's gradients
+                            if not is_rf:
+                                scores[:, k] += tree.leaf_value[
+                                    row_node.long()]
+                            trees.append(tree)
+                    all_trees.extend(trees)
 
-            evaluate = (it % metric_eval_period == 0
-                        or it == num_iterations - 1)
-            if provide_training_metric and evaluate:
-                es.history.setdefault(f"training_{device_metric}",
-                                      []).append(_global_metric(
-                                          mesh, obj, column(scores), y_d,
-                                          w_d * vmask, device_metric,
-                                          metric=eval_override,
-                                          **objective_kwargs))
-            stop = False
-            round_metrics: Dict[str, float] = {}
-            if valid is not None:
-                vscores = valid.scores
-                for k, tree in enumerate(trees):
-                    vscores[:, k] += predict_tree_binned(tree, valid.Xb,
-                                                         depth_cap, is_cat)
-                if evaluate:
-                    if auc_host:
-                        # rank-based: the rf average changes no order
-                        margin = mesh.all_gather(vscores[:, 0])
-                        m = auc_weighted(margin[:len(valid.y_host)]
-                                         .cpu().numpy(),
-                                         valid.y_host, valid.w_host)
-                    else:
-                        veval = (base_d[None, :]
-                                 + (vscores - base_d[None, :]) / float(it + 1)
-                                 if is_rf else vscores)
-                        m = _global_metric(mesh, obj, column(veval), valid.y,
-                                           valid.w, device_metric,
-                                           metric=eval_override,
-                                           **objective_kwargs)
+                    evaluate = (it % metric_eval_period == 0
+                                or it == num_iterations - 1)
+                    if provide_training_metric and evaluate:
+                        es.history.setdefault(
+                            f"training_{device_metric}", []).append(
+                                _global_metric(mesh, obj, column(scores),
+                                               y_d, w_d * vmask,
+                                               device_metric,
+                                               metric=eval_override,
+                                               **objective_kwargs))
+                    stop = False
+                    round_metrics: Dict[str, float] = {}
+                    if valid is not None:
+                        vscores = valid.scores
+                        for k, tree in enumerate(trees):
+                            vscores[:, k] += predict_tree_binned(
+                                tree, valid.Xb, depth_cap, is_cat)
+                        if evaluate:
+                            if auc_host:
+                                # rank-based: the rf average changes no order
+                                margin = mesh.all_gather(vscores[:, 0])
+                                m = auc_weighted(
+                                    host_read(torch.Tensor.cpu, margin[
+                                        :len(valid.y_host)]).numpy(),
+                                    valid.y_host, valid.w_host)
+                            else:
+                                veval = (base_d[None, :]
+                                         + (vscores - base_d[None, :])
+                                         / float(it + 1)
+                                         if is_rf else vscores)
+                                m = _global_metric(mesh, obj, column(veval),
+                                                   valid.y, valid.w,
+                                                   device_metric,
+                                                   metric=eval_override,
+                                                   **objective_kwargs)
+                            _watchdog.report_training_metric(
+                                "gbdt", it, loss=m, metric_name=metric_name)
+                            stop = es.update(it, m)
+                            round_metrics[metric_name] = m
+                    if iteration_callback is not None:
+                        iteration_callback(it, round_metrics)
+                    if stop:
+                        break
+                    now_round = time.perf_counter()
                     _watchdog.report_training_metric(
-                        "gbdt", it, loss=m, metric_name=metric_name)
-                    stop = es.update(it, m)
-                    round_metrics[metric_name] = m
-            if iteration_callback is not None:
-                iteration_callback(it, round_metrics)
-            if stop:
-                break
-            now_round = time.perf_counter()
-            _watchdog.report_training_metric("gbdt", it,
-                                             seconds=now_round - t_round)
-            t_round = now_round
-            if (ckpts is not None and checkpoint_period > 0
-                    and (it + 1) % checkpoint_period == 0
-                    and it + 1 < num_iterations):
-                _save_checkpoint(
-                    ckpts, it, mesh, scores, n, valid, es,
-                    lambda: finalize(all_trees).model_string(),
-                    fingerprint=ckpt_fp, prior_iterations=prior_iterations,
-                    valid_fingerprint=valid_fp)
-    finally:
-        hb.close()
-        if unregister_dump is not None:
-            unregister_dump()
+                        "gbdt", it, seconds=now_round - t_round)
+                    t_round = now_round
+                    if (ckpts is not None and checkpoint_period > 0
+                            and (it + 1) % checkpoint_period == 0
+                            and it + 1 < num_iterations):
+                        _save_checkpoint(
+                            ckpts, it, mesh, scores, n, valid, es,
+                            lambda: finalize(all_trees).model_string(),
+                            fingerprint=ckpt_fp,
+                            prior_iterations=prior_iterations,
+                            valid_fingerprint=valid_fp)
+        finally:
+            hb.close()
+            if unregister_dump is not None:
+                unregister_dump()
 
-    tw.mark("boosting", dev)
-    booster = finalize(all_trees)
-    # a resume cuts as a fresh run does (its trees carry global iteration
-    # indices); only a caller's warm start keeps every tree
-    if (early_stopping_rounds > 0 and es.best_iter >= 0
-            and user_init_booster is None):
-        booster = _truncate_booster(booster, es.best_iter + 1)
-    if is_rf:
-        # the forest's prediction: the base plus the mean of its trees
-        booster = _scale_booster_values(
-            booster, np.full(booster.num_trees, 1.0 / booster.num_iterations))
-    return booster
+        tw.mark("boosting", dev)
+        booster = finalize(all_trees)
+        # a resume cuts as a fresh run does (its trees carry global iteration
+        # indices); only a caller's warm start keeps every tree
+        if (early_stopping_rounds > 0 and es.best_iter >= 0
+                and user_init_booster is None):
+            booster = _truncate_booster(booster, es.best_iter + 1)
+        if is_rf:
+            # the forest's prediction: the base plus the mean of its trees
+            booster = _scale_booster_values(
+                booster,
+                np.full(booster.num_trees, 1.0 / booster.num_iterations))
+        boost_span.set(trees=booster.num_trees)
+        return booster
 
 
 def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
@@ -2497,47 +2572,57 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
     t_round = time.perf_counter()
     try:
         for it in range(T):
-            hb.beat()
-            sc = weighted(contribs, eff_rows[it], it)
-            grad, hess = _grad_hess(obj, sc if K > 1 else sc[:, 0], y_d,
-                                    w_d, group)
-            if K == 1:
-                grad, hess = grad[:, None], hess[:, None]
-            row_mask = sampling(it, grad)
-            fmask = _feature_mask(seed, it, F, feature_fraction, dev)
-            grown = _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask,
-                                    cfg, is_cat, seed, it, group, dataset.n)
-            for k, (tree, row_node) in enumerate(grown):
-                contribs[it, :, k] = tree.leaf_value[row_node.long()]
-                all_trees.append(tree)
-                if valid is not None:
-                    vcontribs[it, :, k] = predict_tree_binned(
-                        tree, valid.Xb, depth_cap, is_cat)
-            n_done = it + 1
-            round_metrics: Dict[str, float] = {}
-            stop = False
-            if valid is not None and (it % metric_eval_period == 0
-                                      or it == T - 1):
-                vsc = weighted(vcontribs, post_rows[it], it + 1)
-                m = _global_metric(mesh, obj, vsc if K > 1 else vsc[:, 0],
-                                   valid.y, valid.w, es.name,
-                                   **objective_kwargs)
-                _watchdog.report_training_metric("gbdt", it, loss=m,
-                                                 metric_name=es.name)
-                stop = es.update(it, m)
-                round_metrics[es.name] = m
-            if iteration_callback is not None:
-                iteration_callback(it, round_metrics)
-            if stop:
-                break
-            now_round = time.perf_counter()
-            _watchdog.report_training_metric("gbdt", it,
-                                             seconds=now_round - t_round)
-            t_round = now_round
+            with _spans.span("gbdt.round", counters=_ROUND_COUNTERS,
+                             publish=False, iteration=it):
+                hb.beat()
+                with _spans.span("gbdt.grad_hess", device=dev,
+                                 publish=False):
+                    sc = weighted(contribs, eff_rows[it], it)
+                    grad, hess = _grad_hess(obj, sc if K > 1 else sc[:, 0],
+                                            y_d, w_d, group)
+                    if K == 1:
+                        grad, hess = grad[:, None], hess[:, None]
+                with _spans.span("gbdt.grow", device=dev, publish=False):
+                    row_mask = sampling(it, grad)
+                    fmask = _feature_mask(seed, it, F, feature_fraction, dev)
+                    grown = _grow_iteration(grow, Xbt, grad, hess, row_mask,
+                                            fmask, cfg, is_cat, seed, it,
+                                            group, dataset.n)
+                with _spans.span("gbdt.score_update", device=dev,
+                                 publish=False):
+                    for k, (tree, row_node) in enumerate(grown):
+                        contribs[it, :, k] = tree.leaf_value[row_node.long()]
+                        all_trees.append(tree)
+                        if valid is not None:
+                            vcontribs[it, :, k] = predict_tree_binned(
+                                tree, valid.Xb, depth_cap, is_cat)
+                n_done = it + 1
+                round_metrics: Dict[str, float] = {}
+                stop = False
+                if valid is not None and (it % metric_eval_period == 0
+                                          or it == T - 1):
+                    vsc = weighted(vcontribs, post_rows[it], it + 1)
+                    m = _global_metric(mesh, obj,
+                                       vsc if K > 1 else vsc[:, 0],
+                                       valid.y, valid.w, es.name,
+                                       **objective_kwargs)
+                    _watchdog.report_training_metric("gbdt", it, loss=m,
+                                                     metric_name=es.name)
+                    stop = es.update(it, m)
+                    round_metrics[es.name] = m
+                if iteration_callback is not None:
+                    iteration_callback(it, round_metrics)
+                if stop:
+                    break
+                now_round = time.perf_counter()
+                _watchdog.report_training_metric("gbdt", it,
+                                                 seconds=now_round - t_round)
+                t_round = now_round
     finally:
         hb.close()
     booster = _finalize_trees(all_trees, dataset.binner, dataset.max_bin, K,
-                              base_d.cpu().numpy(), objective, depth_cap,
+                              host_read(torch.Tensor.cpu, base_d).numpy(),
+                              objective, depth_cap,
                               objective_kwargs, es.best_iter, es.history)
     return _scale_booster_values(booster,
                                  np.repeat(post_rows[n_done - 1][:n_done], K))

@@ -25,7 +25,8 @@ Where the JAX package compiles one program (``fori_loop`` over rounds,
 an eager Python loop that stops once no split is left, with the candidate
 axis written out as a batch dimension. Every tensor stays on the device of
 ``binned_t``; the loop reads one boolean per round or level back to the
-host.
+host, through :func:`host_read`, which counts every such wait in
+``host_syncs``.
 
 Per-node state tensors carry one spare slot at index ``M``: writes for
 candidates that do not split go there (the JAX package's ``mode="drop"``)
@@ -52,10 +53,11 @@ globally smaller children has no bound).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ...observability import spans as _spans
 from ...ops.histogram import (node_histogram, positional_uniform,
                               quant_q_max, quantize_stats)
 from ...utils import prng
@@ -63,6 +65,21 @@ from ...ops.histogram_scatter import (NONFINITE_SHIFT, fixed_point_shifts,
                                       pow2)
 
 NEG_INF = float("-inf")
+
+# device-to-host reads made through host_read since the process started:
+# each one waits for the device to finish the work queued before it
+host_syncs = 0
+
+
+def host_read(read: Callable[[torch.Tensor], Any], t: torch.Tensor) -> Any:
+    """``read(t)``, counted in ``host_syncs``: the one way growth and the
+    boosting loop read a tensor's value on the host (``bool``, ``int``,
+    ``float``, ``torch.Tensor.item``, ``.cpu``, ``.tolist``), each of which
+    waits for the device. Counted on every device, so a fit on the CPU
+    counts the reads its run on the card would wait on."""
+    global host_syncs
+    host_syncs += 1
+    return read(t)
 
 
 class GrowConfig(NamedTuple):
@@ -615,13 +632,14 @@ def _prepare_stats(grad, hess, valid, cfg: GrowConfig, qkey,
     rows."""
     n = grad.shape[0]
     bl, rpb = _hist_block_geometry(cfg, group, n)
-    vm = valid.to(torch.float32)
-    base_t = torch.stack([grad * vm, hess * vm, vm], dim=0).contiguous()
-    qscales = None
-    if cfg.quantized_grad:
-        base_t, qscales = _quantize_for(base_t, qkey, group, bl, rpb,
-                                        n_rows)
-        base_t = base_t.contiguous()
+    with _spans.span("gbdt.grow.stats", device=grad.device, publish=False):
+        vm = valid.to(torch.float32)
+        base_t = torch.stack([grad * vm, hess * vm, vm], dim=0).contiguous()
+        qscales = None
+        if cfg.quantized_grad:
+            base_t, qscales = _quantize_for(base_t, qkey, group, bl, rpb,
+                                            n_rows)
+            base_t = base_t.contiguous()
     return _Stats(vm, base_t, qscales, group, bl, rpb)
 
 
@@ -631,9 +649,11 @@ def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
     """Leaf values from the node totals (renewed from the f32 stats first
     when quantized), and the ``[M]`` tree without the spare slot."""
     if cfg.quantized_grad and cfg.quant_renew_leaf:
-        ng, nh, nc = _renew_leaf_stats(ng, nh, nc, is_leaf, row_node, grad,
-                                       hess, st.vm, st.group, st.blocks,
-                                       st.rpb)
+        with _spans.span("gbdt.grow.renew", device=grad.device,
+                         publish=False):
+            ng, nh, nc = _renew_leaf_stats(ng, nh, nc, is_leaf, row_node,
+                                           grad, hess, st.vm, st.group,
+                                           st.blocks, st.rpb)
     ng, nh, nc = ng[:M], nh[:M], nc[:M]
     is_leaf = is_leaf[:M]
     raw_val = -_soft_threshold(ng, cfg.lambda_l1) / (nh + cfg.lambda_l2
@@ -731,7 +751,7 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     for _ in range(L - 1):
         # the JAX package's round predicate; once false it stays false
         live = (num_nodes < M) & (cg[:M].max() > cfg.min_gain_to_split)
-        if not bool(live):
+        if not host_read(bool, live):
             break
         # top-KB cached gains, ties to the lower slot (lax.top_k order)
         top_g, slots = torch.sort(cg[:M], descending=True, stable=True)
@@ -877,7 +897,7 @@ def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,
     for depth in range(depth_cap):
         W = min(2 ** depth, L)
         # once the budget is spent or the frontier is empty, stop
-        if not bool((leaves < L) & (frontier >= 0).any()):
+        if not host_read(bool, (leaves < L) & (frontier >= 0).any()):
             break
         fr = frontier[:W]
         active = fr >= 0

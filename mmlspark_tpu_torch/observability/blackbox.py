@@ -257,8 +257,8 @@ class FleetTimeline:
 
 def _span_events_for(trace_id: str) -> List[Dict[str, Any]]:
     """This process's span-buffer events belonging to ``trace_id``
-    (Chrome 'X' records; their ``ts`` is perf_counter-based, so they
-    ride the payload as-is but stay out of the wall-clock export)."""
+    (Chrome 'X' records, ``ts`` in Unix-epoch microseconds; they ride the
+    payload as-is and stay out of the wall-clock export)."""
     out = []
     for e in _spans.get_trace_events():
         args = e.get("args") or {}

@@ -24,6 +24,10 @@ The kernels (``KERNELS``, sources in ``csrc/``):
     ``node_histogram.det_launches``. With int8 stats ``blocks=`` launches
     ``node_hist_int8``, whose int32 sums are exact already.
 
+Beside the launches, ``node_histogram.rows`` sums the rows (``n``) that
+every launch of kernels 1, 2 and the deterministic mode was handed, and
+``histogram_cols.rows`` those of kernel 3's launches.
+
 Layout matches the JAX package: ``binned_t`` is column-major ``[F, n]``,
 node stats are ``[3, n]`` and a node histogram is ``out[f, w*3 + s, b]``.
 """
@@ -85,10 +89,14 @@ def _check_int8_range(base_t: torch.Tensor, cell_rows: int) -> None:
     most ``cell_rows`` int8 stats (all of them, or one block's), and
     ``quantize_stats`` clips them to ``quant_q_max(cell_rows)``, which
     keeps the cell's int32 sum in range. Only where a full int8 range could
-    overflow are the stats read (one sync), and a larger one raises."""
+    overflow are the stats read (one sync, counted in ``growth.host_syncs``),
+    and a larger one raises."""
     if 128 * cell_rows <= _INT32_CELL:
         return
-    q = int(base_t.to(torch.int16).abs().amax()) if base_t.numel() else 0
+    # lazy: growth imports this module
+    from ..models.gbdt.growth import host_read
+    q = (host_read(int, base_t.to(torch.int16).abs().amax())
+         if base_t.numel() else 0)
     if q > quant_q_max(cell_rows):
         raise ValueError(
             f"int8 stats reach |{q}| over {cell_rows} rows per histogram "
@@ -232,6 +240,7 @@ def node_histogram(binned_t: torch.Tensor, row_pos: torch.Tensor,
 node_histogram.launches = 0
 node_histogram.int8_launches = 0
 node_histogram.det_launches = 0
+node_histogram.rows = 0
 
 
 def _node_histogram_blocked(binned_t, row_pos, base_t, W: int, B: int,
@@ -542,6 +551,7 @@ def _node_hist_cuda(binned_t, row_pos, base_t, W: int, B: int,
     _launch_node("node_hist", binned_t, row_pos, base_t, out, W, B,
                  geometry)
     node_histogram.launches += 1
+    node_histogram.rows += n
     return out
 
 
@@ -561,6 +571,7 @@ def _node_hist_int8_cuda(binned_t, row_pos, base_t, W: int, B: int,
     _launch_node("node_hist_int8", binned_t, row_pos, base_t, out, W, B,
                  geometry)
     node_histogram.int8_launches += 1
+    node_histogram.rows += n
     return out
 
 
@@ -654,6 +665,7 @@ def _node_hist_det_cuda(binned_t, row_pos, base_t, W: int, B: int,
         binned_t, row_pos, base_t, amax, acc, out, W, B, blocks, g),
         binned_t.device)
     node_histogram.det_launches += 1
+    node_histogram.rows += n
     return out
 
 
@@ -730,6 +742,7 @@ def histogram_cols(binned_t: torch.Tensor, stats_t: torch.Tensor,
 
 
 histogram_cols.launches = 0
+histogram_cols.rows = 0
 
 
 def _hist_cuda(binned_t, stats_t, B: int, stats_dtype: torch.dtype,
@@ -757,6 +770,7 @@ def _hist_cuda(binned_t, stats_t, B: int, stats_dtype: torch.dtype,
         binned_t, stats_t, out, B, stats_dtype == torch.bfloat16, geometry),
         binned_t.device)
     histogram_cols.launches += 1
+    histogram_cols.rows += n
     return out
 
 

@@ -1,0 +1,10 @@
+"""``renew_device_ms_per_tree``: the device's milliseconds in the port's
+``gbdt.grow.renew`` spans (the leaves' statistics summed again from the
+float32 rows, exactly), between the timing events the span records on the
+stream; over the window's unprofiled fits' trees."""
+
+from perfbench import span_tree
+
+
+def read(run):
+    return span_tree.device_ms_per_tree(run, "gbdt.grow.renew")

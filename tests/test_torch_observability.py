@@ -424,6 +424,9 @@ def test_watchdog_stall_detection_matches(monkeypatch, tmp_path):
 # -- spans, ledgers ------------------------------------------------------------
 
 def test_spans_match(monkeypatch):
+    """The JAX package's span records, metrics and flight records; the
+    port's records add their ids, and stamp ``ts`` on the Unix epoch
+    (``EPOCH_OFFSET_US`` past the JAX package's ``perf_counter`` stamps)."""
     _clocks(monkeypatch, "spans")
 
     def run(pkg):
@@ -438,6 +441,13 @@ def test_spans_match(monkeypatch):
                  if e["kind"] == "span_end"])
 
     jout, pout = _pair(run)
+    inner, outer, mark = pout[0]
+    assert inner["args"].pop("parent_id") == outer["args"]["span_id"]
+    assert inner["args"].pop("span_id") != outer["args"].pop("span_id")
+    for j, p in zip(jout[0], pout[0]):
+        assert p["ts"] - P.spans.EPOCH_OFFSET_US == pytest.approx(j["ts"],
+                                                                 abs=1.0)
+        p["ts"] = j["ts"]
     assert pout == jout and len(jout[0]) == 3
 
 
