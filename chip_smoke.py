@@ -452,13 +452,29 @@ Phases (any failure exits non-zero and prints no result line):
    deterministic mode): each held as phase 4 (its kernels launch, no plain
    version, AUC floor 0.75, cuda and cpu margins within 1e-5), and its
    20,000-row twin on cuda against cpu as phase 5 (identical trees,
-   margins within 1e-5). ``tools/chip_phase21.py`` runs this phase alone.
+   margins within 1e-5). 21c: a quantized tree's int8 statistics
+   through ``quant_stats`` (``growth._quantize_fused``: the amax launch,
+   the scales, the fused mask-draw-round-pack launch) against the eager
+   chain they replaced on the card (``growth._quantize_for`` over the
+   stacked ``[3, n]`` statistics), int8 values and scales bit-equal
+   (``torch.equal``) in every case of ``quant_cases``: n = 1, 1,000,
+   1,048,577 and higgs-qgrad-fit's 10,500,000 rows; both ranks' slices
+   (``start``, ``stride``) of a 2-rank draw over those rows; 20,000,000
+   rows (``q_max`` 107); no key (round to nearest); the blocked mode's
+   positional draws, alone, on a rank's slice and at ``q_max`` 107; NaN
+   and +-inf statistics; an all-zero channel (scale 1). Then the kernel,
+   the fused route and the eager chain at [3, 10,500,000], warm and L2
+   cold, against the kernel's bound (15 bytes a row, or 80 int32
+   operations a draw at ``PEAK_INT32_OPS_PER_S``). The quantized fits of
+   phases 4b-4d, 5b and 21b must launch it. ``tools/chip_phase21.py``
+   runs this phase alone.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
 ``index_add_`` ms; the deterministic mode's at 14a's W=16 pass, launches
-from 14a's fit), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+from 14a's fit; ``quant_stats`` at 21c's [3, 10,500,000] with the eager
+chain as its plain version, and its amax's launches), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -503,6 +519,7 @@ from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassificationModel,
                                                 _pad_groups)
 from mmlspark_tpu_torch.models.gbdt import quantize
 from mmlspark_tpu_torch.models.gbdt import booster as booster_mod
+from mmlspark_tpu_torch.models.gbdt import growth as growth_mod
 from mmlspark_tpu_torch.models.gbdt.booster import (Booster, LightGBMDataset,
                                                     _row_uniforms,
                                                     train_booster)
@@ -1154,6 +1171,8 @@ def reset_counts():
     hist_ops.node_histogram.int8_launches = 0
     hist_ops.node_histogram.det_launches = 0
     hist_ops.histogram_cols.launches = 0
+    hist_ops.quantize_stats.launches = 0
+    hist_ops.stats_amax_cuda.launches = 0
     node_hist_plain.calls = 0
     hist_plain.calls = 0
 
@@ -1163,6 +1182,8 @@ def read_counts() -> dict:
                 node_hist_int8=hist_ops.node_histogram.int8_launches,
                 hist_bf16=hist_ops.histogram_cols.launches,
                 node_hist_det=hist_ops.node_histogram.det_launches,
+                quant_stats=hist_ops.quantize_stats.launches,
+                stats_amax=hist_ops.stats_amax_cuda.launches,
                 plain=node_hist_plain.calls + hist_plain.calls)
 
 
@@ -6828,10 +6849,12 @@ P21_INT8 = dict(useQuantizedGrad=True, quantWarmupIters=0)
 # 21b: (label, the kernels the fit must launch, estimator params, blocked)
 P21_FITS = (
     ("bagged", ("node_hist_bf16",), P21_BAG, False),
-    ("bagged_int8", ("node_hist_int8",), {**P21_BAG, **P21_INT8}, False),
+    ("bagged_int8", ("node_hist_int8", "quant_stats"),
+     {**P21_BAG, **P21_INT8}, False),
     ("goss", ("node_hist_bf16",), dict(boostingType="goss",
                                        featureFraction=0.8), False),
-    ("blocked_int8", ("node_hist_int8",), {**P21_BAG, **P21_INT8}, True),
+    ("blocked_int8", ("node_hist_int8", "quant_stats"),
+     {**P21_BAG, **P21_INT8}, True),
     ("blocked_bf16", ("node_hist_det",), P21_BAG, True),
 )
 
@@ -6906,6 +6929,153 @@ def phase_prng_draws(card) -> dict:
     return out
 
 
+# 21c: the fused int8 statistics (csrc/quant_stats.cu) against the eager
+# chain they replaced on the card. P21C_ROWS is higgs-qgrad-fit's rows;
+# P21C_Q_MAX_ROWS rows take quant_q_max 107, below 127
+P21C_ROWS = 10_500_000
+P21C_Q_MAX_ROWS = 20_000_000
+# the card's int32 rate, which the data sheet does not give (132 SMs, 64
+# int32 lanes an SM, 1,980 MHz), and the int32 operations of one draw
+# (threefry2x32's 20 rounds and key injections, the uniform, the rounding)
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+QUANT_OPS_PER_DRAW = 80
+
+
+class QuantRank:
+    """One rank of a data group as the quantization reads it: its rank,
+    the group's size, and an amax maximum over the group that is this
+    rank's own."""
+
+    def __init__(self, rank: int, size: int):
+        self.rank, self.size = rank, size
+
+    def all_reduce(self, t, op="sum"):
+        return t
+
+
+def quant_cases() -> dict:
+    """21c's cases, name: (rows, key, group, blocks_local, rows_per_block,
+    n_rows, special)."""
+    key = hist_ops.quant_key(P21_SEED, *P21_ROUND)
+    half = P21C_ROWS // 2
+    return {
+        "n1": (1, key, None, 0, 0, None, None),
+        "n1000": (1000, key, None, 0, 0, None, None),
+        "n1048577": (1_048_577, key, None, 0, 0, None, None),
+        "higgs": (P21C_ROWS, key, None, 0, 0, None, None),
+        "rank0_of_2": (half, key, QuantRank(0, 2), 0, 0, P21C_ROWS, None),
+        "rank1_of_2": (half, key, QuantRank(1, 2), 0, 0, P21C_ROWS, None),
+        "q_max_small": (P21C_Q_MAX_ROWS, key, None, 0, 0, None, None),
+        "nearest": (1_048_577, None, None, 0, 0, None, None),
+        "positional": (1_048_576, key, None, 8, 131_072, None, None),
+        "positional_rank1": (524_288, key, QuantRank(1, 2), 4, 131_072, None,
+                             None),
+        "positional_q_max_small": (1_048_576, key, None, 8, P21C_Q_MAX_ROWS,
+                                   None, None),
+        "nan_inf": (1_048_577, key, None, 0, 0, None, "nan_inf"),
+        "nan_grad": (1000, key, None, 0, 0, None, "nan_grad"),
+        "zero_channel": (1000, key, None, 0, 0, None, "zero_grad"),
+    }
+
+
+def quant_rows(n: int, special=None, seed: int = 0) -> tuple:
+    """A binary logloss round's statistics on the card (``grad = p - y``,
+    ``hess = p (1 - p)``) and a bagging mask with GOSS-like weights;
+    ``special`` puts NaN and +-inf in them or zeroes the gradients."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.rand(n, generator=g, device="cuda")
+    y = (torch.rand(n, generator=g, device="cuda") < 0.5).float()
+    grad, hess = p - y, p * (1.0 - p)
+    u = torch.rand(n, generator=g, device="cuda")
+    vm = torch.where(u < 0.8, 1.0, torch.where(u < 0.9, 2.5, 0.0))
+    if special == "zero_grad":
+        grad.zero_()
+    elif special == "nan_grad":
+        grad[::97] = float("nan")
+    elif special == "nan_inf":
+        grad[::1001] = float("nan")
+        grad[5::2003] = float("-inf")
+        hess[7::4001] = float("inf")
+    return grad.contiguous(), hess.contiguous(), vm.contiguous()
+
+
+def quant_eager(grad, hess, vm, case) -> tuple:
+    """The card's route before the kernel: the stack, ``_quantize_for``."""
+    _, key, group, bl, rpb, n_rows, _ = case
+    base = torch.stack([grad * vm, hess * vm, vm], dim=0).contiguous()
+    return growth_mod._quantize_for(base, key, group, bl, rpb, n_rows)
+
+
+def quant_fused(grad, hess, vm, case) -> tuple:
+    _, key, group, bl, rpb, n_rows, _ = case
+    return growth_mod._quantize_fused(grad, hess, vm, key, group, bl, rpb,
+                                      n_rows)
+
+
+def phase_quant_stats(card) -> dict:
+    """21c: the fused route bit-equal to the eager chain in every case of
+    ``quant_cases``; the kernel, the route and the chain timed at [3,
+    P21C_ROWS] against the kernel's bound."""
+    log("== phase 21c: quant_stats (a quantized tree's int8 statistics) "
+        "vs the eager chain on the card")
+    cases = {}
+    for name, case in quant_cases().items():
+        grad, hess, vm = quant_rows(case[0], case[6], seed=len(name))
+        q_e, s_e = quant_eager(grad, hess, vm, case)
+        q_f, s_f = quant_fused(grad, hess, vm, case)
+        torch.cuda.synchronize()
+        diff = int((q_f != q_e).sum())
+        if q_f.device.type != "cuda" or diff or not torch.equal(s_f, s_e):
+            raise AssertionError(
+                f"21c {name}: the fused route differs from the eager chain "
+                f"at {diff} of {q_e.numel()} int8 values, scales "
+                f"{s_f.tolist()} against {s_e.tolist()}")
+        cases[name] = dict(rows=case[0], scales=s_f.tolist(),
+                           q_abs_max=int(q_f.to(torch.int16).abs().max()))
+        del grad, hess, vm, q_e, s_e, q_f, s_f
+        torch.cuda.empty_cache()
+    log(f"21c: int8 statistics and scales bit-equal to the eager chain in "
+        f"{len(cases)} cases: " + ", ".join(
+            f"{k} (n={v['rows']:,}, |q| max {v['q_abs_max']})"
+            for k, v in cases.items()))
+    n = P21C_ROWS
+    case = quant_cases()["higgs"]
+    grad, hess, vm = quant_rows(n)
+    amax = hist_ops.stats_amax_cuda(grad, hess, vm)
+    q_max = hist_ops.quant_q_max(n)
+
+    def kernel():
+        hist_ops.quantize_stats_cuda(
+            grad, hess, vm, amax, q_max=q_max, mode=hist_ops.QUANT_THREEFRY,
+            qkey=case[1], start=0, stride=n)
+
+    def route():
+        quant_fused(grad, hess, vm, case)
+
+    def chain():
+        quant_eager(grad, hess, vm, case)
+
+    bound, bound_by = bound_ms(15 * n, 3.0 * QUANT_OPS_PER_DRAW * n,
+                               PEAK_INT32_OPS_PER_S)
+    row = dict(ms=time_ms(kernel, P21_TIME_REPS),
+               ms_cold=time_cold_ms(kernel),
+               route_ms=time_ms(route, P21_TIME_REPS),
+               route_ms_cold=time_cold_ms(route),
+               amax_ms=time_ms(lambda: hist_ops.stats_amax_cuda(
+                   grad, hess, vm), P21_TIME_REPS),
+               plain_ms=time_ms(chain, 5, warm=1),
+               plain_ms_cold=time_cold_ms(chain, 3),
+               bound_ms=bound, bound_by=bound_by, library_ms=None)
+    log(f"21c [3, {n:,}]: kernel {row['ms']:.4f} ms warm / "
+        f"{row['ms_cold']:.4f} L2 cold, {100 * bound / row['ms']:.1f}% / "
+        f"{100 * bound / row['ms_cold']:.1f}% of its {bound:.4f} ms bound "
+        f"({bound_by}); the route (amax, scales, kernel) "
+        f"{row['route_ms']:.4f} / {row['route_ms_cold']:.4f} (amax "
+        f"{row['amax_ms']:.4f}); the eager chain {row['plain_ms']:.3f} / "
+        f"{row['plain_ms_cold']:.3f} on {card}")
+    return dict(cases=cases, row=row, max_abs_err=0)
+
+
 def phase_prng_fits() -> dict:
     """21b: phase 4's rows under the sampled and stochastically rounded
     options, and their 20,000-row twins on cuda against cpu."""
@@ -6934,15 +7104,19 @@ def phase_prng_fits() -> dict:
 
 
 def phase_prng(card) -> dict:
-    """Phase 21: 21a and 21b."""
+    """Phase 21: 21a, 21c, then 21b."""
     t0 = time.perf_counter()
     out = {"21a": phase_prng_draws(card)}
     t1 = time.perf_counter()
+    out["21c"] = phase_quant_stats(card)
+    t2 = time.perf_counter()
     out["fits"] = phase_prng_fits()
-    out["sub_s"] = {"21a": t1 - t0, "21b": time.perf_counter() - t1}
+    out["sub_s"] = {"21a": t1 - t0, "21c": t2 - t1,
+                    "21b": time.perf_counter() - t2}
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 21: {out['seconds']:.1f} s (21a {out['sub_s']['21a']:.1f} "
-        f"s, 21b {out['sub_s']['21b']:.1f} s) on {card}")
+        f"s, 21c {out['sub_s']['21c']:.1f} s, 21b "
+        f"{out['sub_s']['21b']:.1f} s) on {card}")
     return out
 
 
@@ -6977,18 +7151,20 @@ def main() -> int:
     data = (X, y, Xh, yh)
     fits = {}
     fits["4"], base = phase_end_to_end("4", ["node_hist_bf16"], data)
-    fits["4b"], quantized = phase_end_to_end("4b", ["node_hist_int8"], data,
-                                             useQuantizedGrad=True,
-                                             quantWarmupIters=0)
-    fits["4c"] = phase_end_to_end("4c", ["node_hist_int8"], data,
-                                  useQuantizedGrad=True, quantWarmupIters=0,
+    fits["4b"], quantized = phase_end_to_end(
+        "4b", ["node_hist_int8", "quant_stats"], data, useQuantizedGrad=True,
+        quantWarmupIters=0)
+    fits["4c"] = phase_end_to_end("4c", ["node_hist_int8", "quant_stats"],
+                                  data, useQuantizedGrad=True,
+                                  quantWarmupIters=0,
                                   growthPolicy="depthwise")[0]
-    fits["4d"] = phase_end_to_end("4d", ["node_hist_bf16", "node_hist_int8"],
-                                  data, check_quality=False,
-                                  useQuantizedGrad=True)[0]
+    fits["4d"] = phase_end_to_end(
+        "4d", ["node_hist_bf16", "node_hist_int8", "quant_stats"], data,
+        check_quality=False, useQuantizedGrad=True)[0]
     phase_small_agreement("5")
     for policy in ("leafwise", "depthwise"):
-        phase_small_agreement("5b", numIterations=4, quantWarmupIters=1,
+        phase_small_agreement("5b", needs=("node_hist_int8", "quant_stats"),
+                              numIterations=4, quantWarmupIters=1,
                               useQuantizedGrad=True, growthPolicy=policy)
     phase_small_objectives()
     fits["6"], multiclass = phase_multiclass()
@@ -7069,6 +7245,15 @@ def main() -> int:
         entry("node_hist_det", "mmlspark_tpu_torch/csrc/node_hist_det.cu",
               "mmlspark_tpu/ops/histogram.py:679", launches("node_hist_det"),
               p14["14a"]["det_err"], det_rows[16]),
+        # a quantized tree's int8 statistics at higgs-qgrad-fit's [3,
+        # 10,500,000] (21c), the eager chain as its plain version; it
+        # replaces XLA elementwise code, no pallas_call
+        {**entry("quant_stats", "mmlspark_tpu_torch/csrc/quant_stats.cu",
+                 "mmlspark_tpu/models/gbdt/growth.py:286",
+                 launches("quant_stats"), p21["21c"]["max_abs_err"],
+                 p21["21c"]["row"]),
+         "amax_launches": launches("stats_amax"),
+         "route_ms": p21["21c"]["row"]["route_ms"]},
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

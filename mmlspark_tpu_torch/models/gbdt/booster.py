@@ -63,7 +63,8 @@ from ...observability import spans as _spans
 from ...observability import watchdog as _watchdog
 from ...observability.logging import console as _console
 from ...ops.binning import QuantileBinner, bin_cols
-from ...ops.histogram import histogram_cols, node_histogram, quant_key
+from ...ops.histogram import (histogram_cols, node_histogram, quant_key,
+                              quantize_stats, stats_amax_cuda)
 from ...utils import prng
 from ...core.dataset import _is_sparse
 from ...parallel import mesh as meshlib
@@ -2031,7 +2032,8 @@ def _save_checkpoint(ckpts, it: int, mesh: Mesh, scores: torch.Tensor,
 
 
 # what a gbdt.round span reports the change of: the host's waits on the
-# device, and the histogram kernels' launches and the rows handed to them
+# device, the histogram kernels' launches and the rows handed to them, and
+# the launches of the fused int8 statistics kernel and of its amax
 _ROUND_COUNTERS = {
     "host_syncs": lambda: _growth.host_syncs,
     "hist_launches": lambda: (node_histogram.launches
@@ -2039,6 +2041,8 @@ _ROUND_COUNTERS = {
                               + node_histogram.det_launches
                               + histogram_cols.launches),
     "hist_rows": lambda: node_histogram.rows + histogram_cols.rows,
+    "stats_launches": lambda: quantize_stats.launches,
+    "stats_amax_launches": lambda: stats_amax_cuda.launches,
 }
 
 

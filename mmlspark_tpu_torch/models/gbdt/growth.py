@@ -58,8 +58,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ...observability import spans as _spans
-from ...ops.histogram import (node_histogram, positional_uniform,
-                              quant_q_max, quantize_stats)
+from ...ops.histogram import (QUANT_NEAREST, QUANT_POSITIONAL,
+                              QUANT_THREEFRY, node_histogram,
+                              positional_uniform, quant_q_max,
+                              quantize_stats, quantize_stats_cuda,
+                              stats_amax_cuda)
 from ...utils import prng
 from ...ops.histogram_scatter import (NONFINITE_SHIFT, fixed_point_shifts,
                                       pow2)
@@ -468,20 +471,51 @@ def _quantize_for(base_t: torch.Tensor, qkey: Optional[Tuple[int, int]],
     exact) and bounds the int32 accumulator by the rows per block. Returns
     (int8 stats, f32 scales [3])."""
     S, n = base_t.shape
-    # ranks hold equal consecutive slices: this rank's first global row
-    start = 0 if group is None else group.rank * n
+    start, stride, q_max = _rounding(n, group, blocks_local, rows_per_block,
+                                     n_rows)
     if not blocks_local:
         u = None if qkey is None else prng.uniform(
-            qkey, (S, n), start=start, device=base_t.device,
-            stride=n_rows or n * (1 if group is None else group.size))
-        return quantize_stats(base_t, u=u)
+            qkey, (S, n), start=start, device=base_t.device, stride=stride)
+        return quantize_stats(base_t, q_max=q_max, u=u)
     u = None if qkey is None else positional_uniform(
         qkey, S, n, base_t.device, start=start)
     amax = base_t.abs().amax(dim=1)
     if group is not None:
         amax = group.all_reduce(amax, op="max")
-    return quantize_stats(base_t, amax=amax,
-                          q_max=quant_q_max(rows_per_block), u=u)
+    return quantize_stats(base_t, amax=amax, q_max=q_max, u=u)
+
+
+def _rounding(n: int, group, blocks_local: int, rows_per_block: int,
+              n_rows: Optional[int]) -> Tuple[int, int, float]:
+    """Where this rank's ``n`` rows sit in a tree's rounding draw, and the
+    int8 bound: ``(start, stride, q_max)``. Ranks hold equal consecutive
+    slices, so ``start`` is this rank's first global row; ``stride`` is the
+    plain path's counter distance between channels (the one-device draw's
+    rows, :func:`_quantize_for`; the blocked mode's positional draws take
+    none)."""
+    start = 0 if group is None else group.rank * n
+    stride = n_rows or n * (1 if group is None else group.size)
+    return start, stride, quant_q_max(rows_per_block if blocks_local else n)
+
+
+def _quantize_fused(grad, hess, vm, qkey: Optional[Tuple[int, int]],
+                    group=None, blocks_local: int = 0,
+                    rows_per_block: int = 0, n_rows: Optional[int] = None):
+    """:func:`_quantize_for` of the stack ``(grad * vm, hess * vm, vm)`` on
+    the card, without the stack: the per-channel amax in one launch (over
+    the group in the blocked mode), then the masking, the draw and the int8
+    pack in one more (``ops/histogram.py:quantize_stats_cuda``), the same
+    bits as the eager chain. Returns (int8 stats [3, n], f32 scales
+    [3])."""
+    start, stride, q_max = _rounding(grad.shape[0], group, blocks_local,
+                                     rows_per_block, n_rows)
+    mode = (QUANT_NEAREST if qkey is None
+            else QUANT_POSITIONAL if blocks_local else QUANT_THREEFRY)
+    amax = stats_amax_cuda(grad, hess, vm)
+    if blocks_local and group is not None:
+        amax = group.all_reduce(amax, op="max")
+    return quantize_stats_cuda(grad, hess, vm, amax, q_max=q_max, mode=mode,
+                               qkey=qkey, start=start, stride=stride)
 
 
 def _stat_totals(base_t: torch.Tensor, qscales: Optional[torch.Tensor],
@@ -629,11 +663,17 @@ def _prepare_stats(grad, hess, valid, cfg: GrowConfig, qkey,
                    group=None, n_rows: Optional[int] = None) -> _Stats:
     """The masked ``[3, n]`` stats a tree is grown from, quantized when
     ``cfg.quantized_grad``, with the blocked geometry of this rank's
-    rows."""
+    rows. Quantized stats on the card come from the fused kernel
+    (:func:`_quantize_fused`), on the CPU from the eager chain
+    (:func:`_quantize_for`)."""
     n = grad.shape[0]
     bl, rpb = _hist_block_geometry(cfg, group, n)
     with _spans.span("gbdt.grow.stats", device=grad.device, publish=False):
         vm = valid.to(torch.float32)
+        if cfg.quantized_grad and grad.is_cuda:
+            base_t, qscales = _quantize_fused(grad, hess, vm, qkey, group,
+                                              bl, rpb, n_rows)
+            return _Stats(vm, base_t, qscales, group, bl, rpb)
         base_t = torch.stack([grad * vm, hess * vm, vm], dim=0).contiguous()
         qscales = None
         if cfg.quantized_grad:

@@ -22,7 +22,12 @@ The kernels (``KERNELS``, sources in ``csrc/``):
     with ``blocks=`` over f32 stats: one partial per fixed row block, the
     same bits on every launch (fixed-point int64 sums); launches counted in
     ``node_histogram.det_launches``. With int8 stats ``blocks=`` launches
-    ``node_hist_int8``, whose int32 sums are exact already.
+    ``node_hist_int8``, whose int32 sums are exact already;
+  * ``quant_stats`` — :func:`quantize_stats_cuda`, a quantized tree's int8
+    statistics (the masking, the rounding draw and the int8 pack of
+    :func:`quantize_stats` in one pass), and :func:`stats_amax_cuda`, the
+    per-channel amax its scales come from; launches counted in
+    ``quantize_stats.launches`` and ``stats_amax_cuda.launches``.
 
 Beside the launches, ``node_histogram.rows`` sums the rows (``n``) that
 every launch of kernels 1, 2 and the deterministic mode was handed, and
@@ -45,11 +50,15 @@ from ..utils import prng
 from .histogram_scatter import (blocks_as_nodes, hist_plain,
                                 node_hist_blocked_plain, node_hist_plain)
 
-KERNELS = ("node_hist", "node_hist_int8", "hist_bf16", "node_hist_det")
+HIST_KERNELS = ("node_hist", "node_hist_int8", "hist_bf16", "node_hist_det")
+KERNELS = HIST_KERNELS + ("quant_stats",)
 _ENTRIES = {"node_hist": "mm_node_hist_bf16",
             "node_hist_int8": "mm_node_hist_int8",
             "hist_bf16": "mm_hist_bf16",
             "node_hist_det": "mm_node_hist_det"}
+# quant_stats' rounding modes (csrc/quant_stats.cu: Mode): round to
+# nearest, the threefry draw, the blocked mode's positional draw
+QUANT_NEAREST, QUANT_THREEFRY, QUANT_POSITIONAL = 0, 1, 2
 _BIN_BYTES = {torch.int32: 4, torch.int16: 2, torch.uint8: 1}
 _SMEM_MAX = 232448          # the kernels' per-block shared-memory ceiling
 _SM_SMEM = 233472           # shared memory of one Hopper SM (228 KB)
@@ -118,10 +127,86 @@ def quantize_stats(base_t: torch.Tensor, *,
         q_max = quant_q_max(n)
     if amax is None:
         amax = base_t.abs().amax(dim=1)
-    scales = torch.where(amax > 0, amax / q_max, torch.ones_like(amax))
+    scales = _quant_scales(amax, q_max)
     x = base_t / scales[:, None]
     q = torch.floor(x + u) if u is not None else torch.round(x)
     return q.clamp(-q_max, q_max).to(torch.int8), scales
+
+
+quantize_stats.launches = 0
+
+
+def _quant_scales(amax: torch.Tensor, q_max: float) -> torch.Tensor:
+    """The [S] f32 scales of the int8 stats: ``amax / q_max``, 1 for a
+    channel whose amax is 0 (or NaN). One expression for both routes, so
+    the kernel's scales are the eager chain's bits on every device."""
+    return torch.where(amax > 0, amax / q_max, torch.ones_like(amax))
+
+
+def _check_row_stats(**tensors: torch.Tensor) -> int:
+    """The quant_stats kernels' inputs: [n] f32, contiguous, one device.
+    Returns n."""
+    first = next(iter(tensors.values()))
+    n = first.shape[0] if first.dim() == 1 else -1
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{name} must be [n] float32 like the others, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, the others on "
+                             f"{first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return n
+
+
+def stats_amax_cuda(grad: torch.Tensor, hess: torch.Tensor,
+                    vm: torch.Tensor) -> torch.Tensor:
+    """The [3] f32 per-channel amax of ``(grad * vm, hess * vm, vm)``, as
+    ``quantize_stats`` takes it over their stack, in one launch of
+    ``quant_stats``'s reduction (exact: a max is the same in any order, a
+    NaN wins)."""
+    n = _check_row_stats(grad=grad, hess=hess, vm=vm)
+    amax = torch.zeros(3, dtype=torch.float32, device=grad.device)
+    c = ctypes
+    _launch("quant_stats", "mm_stats_amax",
+            [(c.c_void_p, grad.data_ptr()), (c.c_void_p, hess.data_ptr()),
+             (c.c_void_p, vm.data_ptr()), (c.c_void_p, amax.data_ptr()),
+             (c.c_longlong, n)], grad.device)
+    stats_amax_cuda.launches += 1
+    return amax
+
+
+stats_amax_cuda.launches = 0
+
+
+def quantize_stats_cuda(grad: torch.Tensor, hess: torch.Tensor,
+                        vm: torch.Tensor, amax: torch.Tensor, *,
+                        q_max: float, mode: int,
+                        qkey: Optional[Tuple[int, int]], start: int,
+                        stride: int):
+    """:func:`quantize_stats` of the stack ``(grad * vm, hess * vm, vm)``
+    with its rounding draw, in one launch of ``quant_stats`` that never
+    writes the f32 stack or the draw. ``mode``: ``QUANT_THREEFRY``, the
+    uniforms of ``prng.uniform(qkey, (3, n), start=start, stride=stride)``;
+    ``QUANT_POSITIONAL``, those of :func:`positional_uniform` ``(qkey, 3,
+    n, start=start)``; ``QUANT_NEAREST`` (``qkey`` None), round to nearest.
+    The scales come from ``amax`` (:func:`stats_amax_cuda`, or its maximum
+    over a data group). Element for element the eager chain's bits.
+    Returns (int8 stats [3, n], f32 scales [3])."""
+    n = _check_row_stats(grad=grad, hess=hess, vm=vm)
+    scales = _quant_scales(amax, q_max).contiguous()
+    out = torch.empty((3, n), dtype=torch.int8, device=grad.device)
+    k0, k1 = (0, 0) if qkey is None else (int(k) & _M32 for k in qkey)
+    c = ctypes
+    _launch("quant_stats", "mm_quant_stats",
+            [(c.c_void_p, grad.data_ptr()), (c.c_void_p, hess.data_ptr()),
+             (c.c_void_p, vm.data_ptr()), (c.c_void_p, scales.data_ptr()),
+             (c.c_void_p, out.data_ptr()), (c.c_longlong, n), (c.c_uint, k0),
+             (c.c_uint, k1), (c.c_longlong, start), (c.c_longlong, stride),
+             (c.c_int, mode), (c.c_float, float(q_max))], grad.device)
+    quantize_stats.launches += 1
+    return out, scales
 
 
 def _mul32(v, c: int):

@@ -108,6 +108,8 @@ def test_fit_and_transform_record_every_phase_span(telemetry, params):
         assert r["args"]["host_syncs"] >= 1
         # the CPU runs no kernel: launches and their rows stay 0
         assert r["args"]["hist_launches"] == r["args"]["hist_rows"] == 0
+        assert r["args"]["stats_launches"] == 0
+        assert r["args"]["stats_amax_launches"] == 0
     for name in ("gbdt.grow", "gbdt.grow.stats", "gbdt.grow.renew"):
         assert len([e for e in evs if e["name"] == name]) == ITERS
     (boost,) = [e for e in evs if e["name"] == "gbdt.boost"]

@@ -110,7 +110,7 @@ def build_old(src_dir: str, say, det_cas: bool = False) -> tuple:
     output by name)."""
     os.makedirs(OLD_LIBS, exist_ok=True)
     jobs = {name: (os.path.join(src_dir, f"{name}.cu"), [])
-            for name in hist_ops.KERNELS}
+            for name in hist_ops.HIST_KERNELS}
     if det_cas:
         jobs["node_hist_det-cas"] = (_build.source_path("node_hist_det"),
                                      ["-DMM_HIST_DET_CAS_CELLS"])
@@ -659,19 +659,19 @@ def main() -> int:
     old_libs, old_logs = build_old(args.old_src, say,
                                    det_cas=args.det_ablation)
     new_logs = {}
-    for name in hist_ops.KERNELS:
+    for name in hist_ops.HIST_KERNELS:
         if os.path.isfile(_build.library_path(name)):
             raise SystemExit(f"ab_node_hist: {name} is built already; "
                              "remove build/mmlspark_tpu_torch to read its "
                              "-Xptxas -v")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        for name in hist_ops.KERNELS:   # one at a time: one log each
+        for name in hist_ops.HIST_KERNELS:   # one at a time: one log each
             _build.build(name, verbose=True)
             new_logs[name] = buf.getvalue()
             buf.seek(0)
             buf.truncate()
-    for name in hist_ops.KERNELS:
+    for name in hist_ops.HIST_KERNELS:
         say(f"new {name}: nvcc -Xptxas -v\n{new_logs[name].rstrip()}")
     dev = torch.cuda.current_device()
     sms = hist_ops._num_sms_of(dev)

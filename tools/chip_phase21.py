@@ -2,13 +2,15 @@
 
     python3 tools/chip_phase21.py [--out FILE]
 
-Builds kernel 1, its deterministic mode and kernel 2
-(``csrc/node_hist.cu``, ``csrc/node_hist_det.cu``,
-``csrc/node_hist_int8.cu``), then runs ``chip_smoke.phase_prng``: the JAX
-package's random streams drawn on the card against the CPU and against
-``PRNG_GOLDEN`` (21a), and phase 4's rows fitted under bagging,
-``featureFraction``, GOSS and stochastic rounding, plain and blocked, with
-their 20,000-row twins on cuda against cpu (21b). Every hold of the phase
+Builds kernel 1, its deterministic mode, kernel 2 and the fused int8
+statistics (``csrc/node_hist.cu``, ``csrc/node_hist_det.cu``,
+``csrc/node_hist_int8.cu``, ``csrc/quant_stats.cu``), then runs
+``chip_smoke.phase_prng``: the JAX package's random streams drawn on the
+card against the CPU and against ``PRNG_GOLDEN`` (21a), a quantized tree's
+int8 statistics through ``quant_stats`` bit-equal to the eager chain and
+timed (21c), and phase 4's rows fitted under bagging, ``featureFraction``,
+GOSS and stochastic rounding, plain and blocked, with their 20,000-row
+twins on cuda against cpu (21b). Every hold of the phase
 applies; a failed one exits non-zero. The phase's JSON record is the last
 line (and, with ``--out``, written there too). A quicker call than the
 whole script while phase 21 is being worked on.
@@ -38,8 +40,8 @@ def main() -> int:
         raise SystemExit("chip_phase21: no CUDA GPU is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build_all(["node_hist", "node_hist_int8", "node_hist_det"],
-                     verbose=True)
+    _build.build_all(["node_hist", "node_hist_int8", "node_hist_det",
+                      "quant_stats"], verbose=True)
     card = chip_smoke.card_line()
     out = chip_smoke.phase_prng(card)
     line = json.dumps(out)

@@ -75,7 +75,9 @@ with itself), ``p19`` (phase 19: the transformer's three strategies at
 its three stages of two gloo ranks as CPU processes; the ranks' launch
 holds wait for the card, since their plain versions count nothing), ``p21``
 (phase 21 on ``--higgs-rows`` rows: the draws' cpu-against-cpu and golden
-holds at their full 1,000,000 and ``[3, 1,000,000]`` shapes, then the
+holds at their full 1,000,000 and ``[3, 1,000,000]`` shapes, 21c's cases
+with ``--higgs-rows`` standing for its 10,500,000 rows and twice that for
+its 20,000,000, the eager chain standing in for the fused route, then the
 sampled, quantized and blocked fits and their twins). The
 plain versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
@@ -160,15 +162,53 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
         lambda b, p, q, W, B, blocks: node_hist_blocked_plain(b, p, q, W, B,
                                                               blocks))
 
+    # a quantized tree's eager chain (the CPU route) counted as the fused
+    # kernel and its amax, and the eager chain on the stack standing in
+    # for both launches of the card's route (21c)
+    hist, growth = mod.hist_ops, mod.growth_mod
+    eager = growth._quantize_for
+    quantized = [0]
+
+    def quantize_for(*a, **k):
+        quantized[0] += 1
+        return eager(*a, **k)
+
+    def amax_plain(grad, hess, vm):
+        return torch.stack([grad * vm, hess * vm, vm]).abs().amax(dim=1)
+
+    def quantize_plain(grad, hess, vm, amax, *, q_max, mode, qkey, start,
+                       stride):
+        base = torch.stack([grad * vm, hess * vm, vm])
+        u = (None if mode == hist.QUANT_NEAREST
+             else hist.positional_uniform(qkey, 3, len(grad), grad.device,
+                                          start=start)
+             if mode == hist.QUANT_POSITIONAL
+             else mod.prng.uniform(qkey, (3, len(grad)), start=start,
+                                   stride=stride, device=grad.device))
+        return hist.quantize_stats(base, amax=amax, q_max=q_max, u=u)
+
+    growth._quantize_for = quantize_for
+    for m in (hist, growth):
+        m.stats_amax_cuda, m.quantize_stats_cuda = amax_plain, quantize_plain
+    amax_plain.launches = 0
+
     def read_counts():
         # on the CPU the plain versions stand in for every kernel
         return dict(node_hist_bf16=counted.launches,
                     node_hist_int8=counted.int8_launches, hist_bf16=0,
-                    node_hist_det=counted.det_launches, plain=0)
+                    node_hist_det=counted.det_launches,
+                    quant_stats=quantized[0], stats_amax=quantized[0],
+                    plain=0)
 
-    mod.read_counts = read_counts
+    def reset_counts():
+        reset()
+        quantized[0] = 0
+
+    reset = mod.reset_counts
+    mod.read_counts, mod.reset_counts = read_counts, reset_counts
     mod.COVERTYPE_ROWS, mod.COVERTYPE_HOLDOUT = rows, rows // 4
     mod.HIGGS_ROWS, mod.HIGGS_HOLDOUT = higgs_rows, higgs_rows // 5
+    mod.P21C_ROWS, mod.P21C_Q_MAX_ROWS = higgs_rows, 2 * higgs_rows
     return mod
 
 
