@@ -5,11 +5,11 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA GPU must be present; prints its name and power limit.
-2. Build: compiles every histogram kernel from ``mmlspark_tpu_torch/csrc``
+2. Build: compiles every kernel from ``mmlspark_tpu_torch/csrc``
    with ``nvcc -Xptxas -v`` (one process per source, all started
    together; the compiler's registers, shared memory and spills are
-   printed): ``node_hist``, ``node_hist_int8``, ``hist_bf16`` and
-   ``node_hist_det``, and
+   printed): ``node_hist``, ``node_hist_int8``, ``hist_bf16``,
+   ``node_hist_det``, ``quant_stats`` and ``lambdarank``, and
    beside them the host C++ engine ``native/mmlspark_native.cpp`` (host
    TreeSHAP, the CSV reader) with the host compiler. Then the
    geometry of kernels 1 and 2 at the main path's two passes, and how many
@@ -103,13 +103,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``predict_raw`` within 1e-5.
 7. LambdaRank at full width: ``LightGBMRanker`` on MSLR-WEB10K-shaped rows
    (136 features, relevance 0-4, 10,000 training queries of 16-128 rows,
-   padded to 128: 1,280,000 rows) and 2,000 holdout queries marked through
+   every row kept) and 2,000 holdout queries marked through
    ``validationIndicatorCol``, ``earlyStoppingRound=3``, 10 rounds. Kernel
-   1 must launch and no plain version run; it prints the eval history,
-   ``best_iteration``, the peak device memory of the fit and the
-   objective's grad/hess time at the fit's shape; the holdout NDCG@10 must
-   beat a random order's on the same groups by the floor of ``PERF.md``;
-   cuda and cpu margins within 1e-5.
+   1 and the LambdaRank kernel must launch and no plain version run; it
+   prints the eval history, ``best_iteration``, the peak device memory of
+   the fit and the objective's grad/hess time at the fit's queries; the
+   holdout NDCG@10 must beat a random order's on the same groups by the
+   floor of ``PERF.md``; cuda and cpu margins within 1e-5.
 8. Categorical multiclass at full width: phase 6's rows (581,012 and
    100,000 holdout, seeds 0 and 1) with the two one-hots collapsed to
    category ids, ``X = [cont(10), area, soil]`` (ids 0-3 and 0-39),
@@ -468,12 +468,26 @@ Phases (any failure exits non-zero and prints no result line):
    operations a draw at ``PEAK_INT32_OPS_PER_S``). The quantized fits of
    phases 4b-4d, 5b and 21b must launch it. ``tools/chip_phase21.py``
    runs this phase alone.
+22. The LambdaRank kernel, ``lambdarank`` (``csrc/lambdarank.cu``, one
+   launch a round over query groups of any length), against its plain
+   version (``objectives.lambdarank_plain``) on the card: at Yahoo LTR's
+   queries (473,134 rows in 19,944 queries of 1-139 rows, the
+   yahoo-rank-refit cell's shape), with MMLSpark's defaults and with a
+   gain table, ``maxPosition`` 10, sigma 2 and a tenth of the rows at
+   weight 0; at one query of 4,096 rows (past the kernel's shared-memory
+   rows) and with short queries around it. Gradients and hessians within
+   ``P22_TOL`` of the largest of their kind; two launches bit-equal. Then
+   the kernel and the plain version at Yahoo LTR's queries and at the
+   4,096-row query, warm and L2 cold, against the kernel's bound (21
+   float32 operations a pair ``y_i > y_j``, or 20 bytes a row).
+   ``tools/chip_phase22.py`` runs this phase alone.
 
 The last lines are the kernels' JSON record (each kernel's main-path
 row: launches, warm and cold ms, bound, % of bound, plain and
 ``index_add_`` ms; the deterministic mode's at 14a's W=16 pass, launches
 from 14a's fit; ``quant_stats`` at 21c's [3, 10,500,000] with the eager
-chain as its plain version, and its amax's launches), the card's name and
+chain as its plain version, and its amax's launches; ``lambdarank`` at
+22's Yahoo LTR queries, launches from phase 7's fit), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -528,7 +542,9 @@ from mmlspark_tpu_torch.models.gbdt.growth import (GrowConfig, Tree,
 from mmlspark_tpu_torch.models.gbdt.ingest import write_shards
 from mmlspark_tpu_torch.models.gbdt.treeshap import shap_values
 from mmlspark_tpu_torch.models.isolation_forest import IsolationForest
-from mmlspark_tpu_torch.models.gbdt.objectives import (_ndcg_metric,
+from mmlspark_tpu_torch.models.gbdt import objectives as objectives_mod
+from mmlspark_tpu_torch.models.gbdt.objectives import (QueryGroups,
+                                                       _ndcg_metric,
                                                        auc_weighted,
                                                        get_objective,
                                                        score_transform)
@@ -549,6 +565,7 @@ from mmlspark_tpu_torch.observability import roofline
 from mmlspark_tpu_torch.observability import watchdog as obs_watchdog
 from mmlspark_tpu_torch.ops import _build
 from mmlspark_tpu_torch.ops import histogram as hist_ops
+from mmlspark_tpu_torch.ops import lambdarank as rank_ops
 from mmlspark_tpu_torch.ops.binning import bin_cols
 from mmlspark_tpu_torch.models.vw import sgd as vw_sgd
 from mmlspark_tpu_torch.models.vw.api import (VW_CONSTANT_INDEX,
@@ -612,7 +629,7 @@ MSLR_QUERIES, MSLR_HOLDOUT_QUERIES, MSLR_GROUP = 10_000, 2_000, 128
 # the device memory a LambdaRank fit may take at phase 7's shape before its
 # pairwise lambdas would need chunking over groups
 RANKER_MEMORY_BUDGET = 24 << 30
-KERNELS = hist_ops.KERNELS
+KERNELS = hist_ops.KERNELS + ("lambdarank",)
 
 
 def log(*a):
@@ -1173,8 +1190,10 @@ def reset_counts():
     hist_ops.histogram_cols.launches = 0
     hist_ops.quantize_stats.launches = 0
     hist_ops.stats_amax_cuda.launches = 0
+    rank_ops.lambdarank_cuda.launches = 0
     node_hist_plain.calls = 0
     hist_plain.calls = 0
+    objectives_mod.lambdarank_plain.calls = 0
 
 
 def read_counts() -> dict:
@@ -1184,7 +1203,9 @@ def read_counts() -> dict:
                 node_hist_det=hist_ops.node_histogram.det_launches,
                 quant_stats=hist_ops.quantize_stats.launches,
                 stats_amax=hist_ops.stats_amax_cuda.launches,
-                plain=node_hist_plain.calls + hist_plain.calls)
+                lambdarank=rank_ops.lambdarank_cuda.launches,
+                plain=(node_hist_plain.calls + hist_plain.calls
+                       + objectives_mod.lambdarank_plain.calls))
 
 
 def higgs_shaped(n, seed):
@@ -1503,8 +1524,8 @@ def holdout_ndcg(scores, y, group, k=10) -> float:
 def phase_ranker():
     """Phase 7: LambdaRank on MSLR-WEB10K-shaped queries at full width."""
     log(f"== phase 7: LightGBMRanker fit -> transform, {MSLR_QUERIES} + "
-        f"{MSLR_HOLDOUT_QUERIES} queries x 136, groups padded to "
-        f"{MSLR_GROUP}")
+        f"{MSLR_HOLDOUT_QUERIES} queries x 136 of 16-{MSLR_GROUP} rows, "
+        f"every row kept")
     X, y, g = mslr_shaped(MSLR_QUERIES, seed=0)
     Xh, yh, gh = mslr_shaped(MSLR_HOLDOUT_QUERIES, seed=1,
                              first_query=MSLR_QUERIES)
@@ -1531,16 +1552,17 @@ def phase_ranker():
     pred_s = time.perf_counter() - t0
     counts = read_counts()
     booster = model.booster
-    log(f"{len(y)} training rows padded to {MSLR_QUERIES * MSLR_GROUP}; fit "
+    log(f"{len(y)} training rows in {MSLR_QUERIES} queries; fit "
         f"{fit_s:.3f} s ({booster.num_trees} trees kept); transform "
         f"{pred_s:.3f} s ({len(yh) / pred_s:.0f} rows/s); peak device "
         f"memory {peak / 2**30:.3f} GiB (budget "
         f"{RANKER_MEMORY_BUDGET / 2**30:.0f}); launches {counts}")
     log(f"eval history {booster.eval_history}; best_iteration "
         f"{booster.best_iteration}")
-    if counts["node_hist_bf16"] <= 0 or counts["plain"] != 0:
-        raise AssertionError(f"phase 7 did not go through kernel 1 alone: "
-                             f"{counts}")
+    if (counts["node_hist_bf16"] <= 0 or counts["lambdarank"] <= 0
+            or counts["plain"] != 0):
+        raise AssertionError(f"phase 7 did not go through kernel 1 and the "
+                             f"LambdaRank kernel alone: {counts}")
     if peak > RANKER_MEMORY_BUDGET:
         raise AssertionError(f"peak device memory {peak} over the budget")
     ndcg = holdout_ndcg(scores, yh, gh)
@@ -1560,16 +1582,19 @@ def phase_ranker():
     log(f"predict_raw cuda vs cpu: max abs diff {diff:.3g}")
     if not diff <= 1e-5:
         raise AssertionError(f"predict_raw cuda vs cpu differ by {diff}")
-    # the objective's pairwise grad/hess at the fit's padded shape
-    Xp, yp, wp, _, _ = _pad_groups(X[:, :1], y, None, g, MSLR_GROUP)
-    obj = get_objective("lambdarank", **booster.objective_kwargs)
-    yp_d, wp_d = torch.from_numpy(yp).cuda(), torch.from_numpy(wp).cuda()
-    s_d = torch.randn(len(yp), device="cuda")
+    # the objective's pairwise grad/hess at the fit's queries (rows sorted
+    # by query, as the fit sorts them)
+    off = np.r_[0, np.cumsum(np.unique(g, return_counts=True)[1])]
+    obj = get_objective("lambdarank", queries=QueryGroups(off, y),
+                        **booster.objective_kwargs)
+    y_d = torch.from_numpy(y).cuda()
+    w_d = torch.ones_like(y_d)
+    s_d = torch.randn(len(y), device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    lam_ms = time_ms(lambda: obj.grad_hess(s_d, yp_d, wp_d), reps=5)
+    lam_ms = time_ms(lambda: obj.grad_hess(s_d, y_d, w_d), reps=5)
     lam_peak = torch.cuda.max_memory_allocated()
-    log(f"lambdarank grad/hess at [{len(yp) // MSLR_GROUP}, {MSLR_GROUP}, "
-        f"{MSLR_GROUP}] pairs: {lam_ms:.3f} ms, peak device memory "
+    log(f"lambdarank grad/hess over {MSLR_QUERIES} queries of 16-"
+        f"{MSLR_GROUP} rows: {lam_ms:.3f} ms, peak device memory "
         f"{lam_peak / 2**30:.3f} GiB")
     return dict(counts=counts, fit_s=fit_s, trees=booster.num_trees,
                 predict_rows_per_s=len(yh) / pred_s,
@@ -7119,6 +7144,128 @@ def phase_prng(card) -> dict:
         f"{out['sub_s']['21b']:.1f} s) on {card}")
     return out
 
+# Phase 22: the LambdaRank kernel (csrc/lambdarank.cu) against its plain
+# version on the card. P22 is the yahoo-rank-refit cell's shape (Yahoo
+# LTR's train split: 473,134 rows in 19,944 queries, log-normal lengths
+# of 1 to 139 rows) and one query of P22_LONG rows, past the kernel's
+# shared-memory rows. P22_TOL is the ragged lambdas' tolerance against the
+# float64 reference in tests/test_torch_lambdarank_ragged.py (a share of
+# the largest gradient and of the largest hessian)
+P22_ROWS, P22_QUERIES, P22_LONGEST, P22_LONG = 473_134, 19_944, 139, 4096
+P22_TOL = 2e-6
+P22_TIME_REPS = 20
+# the formula's float32 operations a pair y_i > y_j, and the bytes a row
+# (score, grade, weight in; gradient, hessian out): perfbench/rank_work.py
+RANK_OPS_PER_PAIR, RANK_ROW_BYTES = 21, 20
+
+
+def rank_lengths(rows: int, queries: int, seed: int) -> np.ndarray:
+    """``queries`` lengths of 1 to P22_LONGEST rows adding up to ``rows``,
+    log-normal (sigma 0.8) about their mean."""
+    rng = np.random.default_rng(seed)
+    n = np.clip(np.rint(np.exp(rng.normal(np.log(rows / queries) - 0.32,
+                                          0.8, size=queries))), 1,
+                P22_LONGEST).astype(np.int64)
+    while n.sum() != rows:
+        step = 1 if n.sum() < rows else -1
+        room = np.flatnonzero((n < P22_LONGEST) if step > 0 else (n > 1))
+        n[rng.choice(room, size=min(abs(int(rows - n.sum())), room.size),
+                     replace=False)] += step
+    return n
+
+
+def rank_rows(lengths, seed: int, masked: bool = False):
+    """Scores, grades 0-4 and weights (a tenth at 0 when ``masked``) on the
+    card, and the rows' QueryGroups."""
+    off = np.r_[0, np.cumsum(lengths)].astype(np.int64)
+    n = int(off[-1])
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 5, n).astype(np.float32)
+    w = (np.where(rng.uniform(size=n) < 0.1, 0.0, 1.0) if masked
+         else np.ones(n)).astype(np.float32)
+    s = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    return (s, torch.from_numpy(y).cuda(), torch.from_numpy(w).cuda(),
+            QueryGroups(off, y, w))
+
+
+def rank_gap(g, h, want_g, want_h) -> float:
+    """The widest gap of the gradients and of the hessians, each against
+    the largest magnitude of its kind."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in ((g, want_g), (h, want_h)))
+
+
+def phase_lambdarank(card) -> dict:
+    """Phase 22: the kernel against its plain version in every case, two
+    launches bit-equal; then both timed at Yahoo LTR's queries and at the
+    long query against the kernel's bound."""
+    log("== phase 22: lambdarank (LambdaRank's lambdas over query groups "
+        "of any length) vs its plain version on the card")
+    yahoo = rank_lengths(P22_ROWS, P22_QUERIES, seed=22)
+    cases = {
+        "yahoo": (yahoo, False, dict(max_position=20, sigma=1.0)),
+        "yahoo_gain_table_masked": (yahoo, True, dict(
+            max_position=10, sigma=2.0,
+            label_gain=(0.0, 1.0, 3.0, 7.0, 15.0))),
+        "long": (np.array([P22_LONG]), False, dict(max_position=20,
+                                                   sigma=1.0)),
+        "long_among_short": (np.array([5, P22_LONG, 1, 2, 139]), True,
+                             dict(max_position=20, sigma=1.0)),
+    }
+    out, rows = {}, {}
+    for name, (lengths, masked, kw) in cases.items():
+        s, y, w, groups = rank_rows(lengths, seed=len(name), masked=masked)
+        obj = get_objective("lambdarank", queries=groups, **kw)
+        before = rank_ops.lambdarank_cuda.launches
+        g1, h1 = obj.grad_hess(s, y, w)
+        g2, h2 = obj.grad_hess(s, y, w)
+        pg, ph = objectives_mod.lambdarank_plain(
+            s, y, w, groups, kw["max_position"], kw["sigma"],
+            kw.get("label_gain"))
+        torch.cuda.synchronize()
+        if rank_ops.lambdarank_cuda.launches != before + 2:
+            raise AssertionError(f"22 {name}: the objective did not launch "
+                                 f"the kernel once a call")
+        if not (torch.equal(g1, g2) and torch.equal(h1, h2)):
+            raise AssertionError(f"22 {name}: two launches differ")
+        err = rank_gap(g1, h1, pg, ph)
+        if not err <= P22_TOL:
+            raise AssertionError(f"22 {name}: the kernel is {err} from its "
+                                 f"plain version (tolerance {P22_TOL})")
+        out[name] = dict(rows=groups.n, queries=groups.count,
+                         longest=groups.longest, pairs=groups.pairs,
+                         gap=err)
+        if name in ("yahoo", "long"):
+            def kernel():
+                obj.grad_hess(s, y, w)
+
+            def plain():
+                objectives_mod.lambdarank_plain(
+                    s, y, w, groups, kw["max_position"], kw["sigma"], None)
+            bound, bound_by = bound_ms(
+                RANK_ROW_BYTES * groups.n + 8 * (groups.count + 1),
+                RANK_OPS_PER_PAIR * groups.pairs, PEAK_F32_OPS_PER_S)
+            rows[name] = dict(
+                ms=time_ms(kernel, P22_TIME_REPS),
+                ms_cold=time_cold_ms(kernel),
+                plain_ms=time_ms(plain, 3, warm=1),
+                bound_ms=bound, bound_by=bound_by, library_ms=None)
+            r = rows[name]
+            log(f"22 {name} ({groups.n:,} rows, {groups.count:,} queries, "
+                f"longest {groups.longest}, {groups.pairs:,} pairs): kernel "
+                f"{r['ms']:.4f} ms warm / {r['ms_cold']:.4f} L2 cold, "
+                f"{100 * bound / r['ms']:.2f}% of its {bound:.5f} ms bound "
+                f"({bound_by}); the plain version {r['plain_ms']:.3f} ms")
+        del s, y, w, g1, h1, g2, h2, pg, ph, obj
+        torch.cuda.empty_cache()
+    log("22: the kernel within " + ", ".join(
+        f"{k} {v['gap']:.3g}" for k, v in out.items())
+        + f" of its plain version (tolerance {P22_TOL}), two launches "
+        f"bit-equal in every case, on {card}")
+    return dict(cases=out, rows=rows,
+                max_abs_err=max(v["gap"] for v in out.values()))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -7193,6 +7340,7 @@ def main() -> int:
     fits.update(p20.pop("fits"))
     p21 = phase_prng(card)
     fits.update(p21.pop("fits"))
+    p22 = phase_lambdarank(card)
     fits.update(p18.pop("fits"))
     fits["17c"] = p17["17c"]
     fits["15e"] = p15.pop("15e")
@@ -7210,7 +7358,7 @@ def main() -> int:
         + "; phase 17: " + json.dumps(p17) + "; phase 18: "
         + json.dumps(p18) + "; phase 19: " + json.dumps(p19)
         + "; phase 20: " + json.dumps(p20) + "; phase 21: "
-        + json.dumps(p21))
+        + json.dumps(p21) + "; phase 22: " + json.dumps(p22))
 
     def launches(kernel):
         return sum(f["counts"][kernel] for f in fits.values()
@@ -7254,6 +7402,13 @@ def main() -> int:
                  p21["21c"]["row"]),
          "amax_launches": launches("stats_amax"),
          "route_ms": p21["21c"]["row"]["route_ms"]},
+        # LambdaRank's lambdas at the yahoo-rank-refit cell's queries (22),
+        # launches from phase 7's fit; it replaces XLA code over padded
+        # groups, no pallas_call
+        entry("lambdarank", "mmlspark_tpu_torch/csrc/lambdarank.cu",
+              "mmlspark_tpu/models/gbdt/objectives.py:164",
+              launches("lambdarank"), p22["max_abs_err"],
+              p22["rows"]["yahoo"]),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -47,9 +47,12 @@ record): ``gbdt.labels``, ``gbdt.extract``, ``gbdt.binned_cache`` and
 
 from __future__ import annotations
 
+import hashlib
 import os
 import time
+import zlib
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -67,7 +70,6 @@ from ...observability import metrics as _metrics
 from ...observability import spans as _spans
 from ...observability import watchdog as _watchdog
 from ...parallel import mesh as meshlib
-from ...utils.checkpoint import data_fingerprint
 from .booster import Booster, LightGBMDataset, _densify, train_booster
 from .growth import GrowConfig, resolve_growth_backend
 
@@ -109,41 +111,81 @@ def _cache_enabled() -> bool:
     return os.environ.get("MMLSPARK_TPU_BINNED_CACHE", "1") != "0"
 
 
+# bytes of a buffer the cache key's crc32 takes in one piece
+_KEY_CHUNK = 64 << 20
+
+
+def _content_key(*arrays) -> str:
+    """A content hash of ``arrays`` (None allowed) for the binned-dataset
+    cache: each one's shape and dtype and the crc32 of every
+    :data:`_KEY_CHUNK` bytes of it, so a changed byte anywhere changes the
+    key. The chunks are hashed on a few threads (zlib releases the
+    interpreter's lock over a buffer), so a warm fit's lookup over a
+    gigabyte of rows takes a fraction of one core's pass. The key lives in
+    this process only; a checkpoint's stored fingerprint is
+    ``utils/checkpoint.py:data_fingerprint``."""
+    h = hashlib.sha256()
+    chunks = []
+    for a in arrays:
+        if a is None:
+            h.update(b"<none>")
+            continue
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.shape}{a.dtype}".encode())
+        raw = a.reshape(-1).view(np.uint8)
+        chunks += [raw[i:i + _KEY_CHUNK]
+                   for i in range(0, raw.size, _KEY_CHUNK)] or [raw]
+        chunks.append(None)                      # the array's end
+    parts = [c for c in chunks if c is not None]
+    if len(parts) > 1:
+        with ThreadPoolExecutor(min(len(parts), os.cpu_count() or 1)) as ex:
+            crcs = iter(list(ex.map(zlib.crc32, parts)))
+    else:
+        crcs = iter([zlib.crc32(c) for c in parts])
+    for c in chunks:
+        h.update(b"|" if c is None else next(crcs).to_bytes(4, "little"))
+    return h.hexdigest()[:32]
+
+
 def _binned_cache_key(X, y, w, *, max_bin, bin_sample_count, seed,
                       categorical_features, bin_dtype, max_bin_by_feature,
-                      device, mesh=None) -> tuple:
+                      device, mesh=None, query_offsets=None) -> tuple:
     """The cache key: a scipy sparse ``X`` is fingerprinted by its CSR
     buffers (a hit never densifies); the data group's ranks (``mesh``, else
     the default) and the device (``None`` read as the default, ``cuda``)
     stand in the JAX package's mesh, so a cpu fit never receives a cuda
-    dataset."""
+    dataset; a ranking fit's query offsets are fingerprinted too."""
     if _is_sparse(X):
         X = X.tocsr()
-        fp = data_fingerprint(X.data, X.indices, X.indptr,
-                              np.asarray(X.shape), y, w)
+        fp = _content_key(X.data, X.indices, X.indptr, np.asarray(X.shape),
+                          y, w)
     else:
-        fp = data_fingerprint(X, y, w)
+        fp = _content_key(X, y, w)
     return (fp, max_bin, bin_sample_count, seed,
             tuple(int(i) for i in categorical_features), str(bin_dtype),
             None if max_bin_by_feature is None
             else tuple(int(b) for b in max_bin_by_feature),
             (mesh or meshlib.get_default_mesh()).ranks,
+            None if query_offsets is None
+            else _content_key(np.asarray(query_offsets, np.int64)),
             str(torch.device(DEFAULT_DEVICE if device is None else device)))
 
 
 def _cached_binned_dataset(X, y, w, *, max_bin, bin_sample_count, seed,
                            categorical_features, bin_dtype="int32",
                            max_bin_by_feature=None,
-                           device=None, mesh=None) -> LightGBMDataset:
+                           device=None, mesh=None,
+                           query_offsets=None) -> LightGBMDataset:
     """The binned dataset of these rows and params on ``device`` over the
     data group ``mesh`` (default: the default mesh), built on a miss (the
-    least recently used of :data:`_BINNED_CACHE_MAX` entries goes). With
+    least recently used of :data:`_BINNED_CACHE_MAX` entries goes); a
+    ranking fit's rows carry their query offsets. With
     ``MMLSPARK_TPU_BINNED_CACHE=0`` every call builds one and nothing is
     kept (nor fingerprinted)."""
     build = dict(max_bin=max_bin, bin_sample_count=bin_sample_count,
                  seed=seed, categorical_features=categorical_features,
                  bin_dtype=bin_dtype, max_bin_by_feature=max_bin_by_feature,
-                 device=device)
+                 device=device, query_offsets=query_offsets)
     if not _cache_enabled():
         return LightGBMDataset.construct(X, y, w, mesh=mesh, **build)
     with _spans.span("gbdt.binned_cache", publish=False) as sp:
@@ -347,11 +389,14 @@ class _LightGBMParams(HasLabelCol, HasFeaturesCol, HasWeightCol,
         ))
 
     def _extract_arrays(self, dataset: Dataset):
-        """(X, y, weight or None); a scipy sparse features column stays
-        sparse (training densifies it in row blocks)."""
+        """(X, y, weight or None) as float32, X the features column itself
+        where it is a float32 array already (no copy: a refit on cached bins
+        then reads its rows once, for the cache key); a scipy sparse
+        features column stays sparse (training densifies it in row
+        blocks)."""
         fcol = self.get_or_default("featuresCol")
         raw = dataset[fcol]
-        X = raw if _is_sparse(raw) else dataset.array(fcol, np.float32)
+        X = raw if _is_sparse(raw) else np.asarray(raw, np.float32)
         y = dataset.array(self.get_or_default("labelCol"), np.float32)
         wcol = self.get_or_default("weightCol")
         w = dataset.array(wcol, np.float32) if wcol else None
@@ -751,7 +796,9 @@ class LightGBMRegressionModel(_LightGBMModelBase):
 
 def _pad_groups(X: np.ndarray, y: np.ndarray, w: Optional[np.ndarray],
                 group: np.ndarray, S: int, n_shard_multiple: int = 1):
-    """Sort rows by group and pad every query group to a static width S.
+    """Sort rows by group and pad every query group to a static width S
+    (the ranker's layout over a data group of several ranks, and the JAX
+    package's everywhere).
 
     Each group becomes a fixed [S] block (rows beyond S are truncated), and
     the group count is padded to a multiple of ``n_shard_multiple`` (the
@@ -780,13 +827,33 @@ def _pad_groups(X: np.ndarray, y: np.ndarray, w: Optional[np.ndarray],
     return Xp, yp, wp, valid, G
 
 
+def _sort_groups(X, y: np.ndarray, w: Optional[np.ndarray],
+                 group: np.ndarray):
+    """Rows sorted by query, stably, every row kept: ``(X, y, w, offsets)``
+    with ``offsets`` ``[G + 1]`` int64, query ``q`` holding rows
+    ``[offsets[q], offsets[q + 1])``. Rows already in order are not
+    copied."""
+    group = np.asarray(group)
+    if group.size > 1 and np.any(group[1:] < group[:-1]):
+        order = np.argsort(group, kind="stable")
+        X, y, group = X[order], y[order], group[order]
+        w = None if w is None else w[order]
+    starts = np.flatnonzero(np.r_[True, group[1:] != group[:-1]]
+                            if group.size else np.zeros(0, bool))
+    return X, y, w, np.r_[starts, group.size].astype(np.int64)
+
+
 class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
     """LambdaRank (reference: lightgbm/LightGBMRanker.scala).
 
-    Groups are padded to a static width (``maxGroupSize``, or the next
-    power of two above the largest group if smaller), so the pairwise
-    lambdas are one dense batch; the padding rows are masked out of every
-    histogram and total. A validation set is scored by NDCG at
+    Rows are sorted by query, stably, and every row is kept: the lambdas
+    are taken over query groups of any length (on the card one launch of
+    ``csrc/lambdarank.cu`` a round), and the fit goes through the
+    binned-dataset cache, keyed by the query offsets too. Over a data
+    group of several ranks the groups are padded to a static width
+    (``maxGroupSize``, or the next power of two above the largest group if
+    smaller; rows past it are truncated), so each rank holds whole groups,
+    as in the JAX package. A validation set is scored by NDCG at
     ``max(evalAt)``, averaged over its groups."""
 
     objective = Param("objective", "ranking objective", "lambdarank",
@@ -801,58 +868,36 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
     evalAt = Param("evalAt", "Positions for NDCG evaluation", [1, 3, 5, 10],
                    TypeConverters.to_list_int)
     maxGroupSize = Param("maxGroupSize",
-                         "Static padded width per query group (rows beyond "
-                         "this are truncated)", 128, TypeConverters.to_int)
+                         "Static padded width per query group over a data "
+                         "group of several ranks (rows beyond it are "
+                         "truncated there); one process keeps every row of "
+                         "every group", 128, TypeConverters.to_int)
     sigma = Param("sigma", "LambdaRank sigmoid steepness", 1.0,
                   TypeConverters.to_float)
 
-    def fit(self, dataset: Dataset) -> "LightGBMRankerModel":
-        train_ds, valid_ds = self._split_validation(dataset)
-        gcol = self.get_or_default("groupCol")
-        if not gcol:
-            raise ValueError("LightGBMRanker requires groupCol")
-        nshards = meshlib.num_shards(meshlib.get_default_mesh())
-        X, y, w = self._extract_arrays(train_ds)
-        X = _densify(X)            # groups are padded before training
-        group = np.asarray(train_ds[gcol])
-        sizes = np.unique(group, return_counts=True)[1]
-        S = int(min(self.get_or_default("maxGroupSize"),
-                    1 << int(np.ceil(np.log2(max(sizes.max(), 2))))))
-        Xp, yp, wp, valid, _ = _pad_groups(X, y, w, group, S, nshards)
-
-        valid_set = None
-        if valid_ds is not None and len(valid_ds) > 0:
-            Xv, yv, _ = self._extract_arrays(valid_ds)
-            Xv = _densify(Xv)
-            Xvp, yvp, _, validv, _ = _pad_groups(
-                Xv, yv, None, np.asarray(valid_ds[gcol]), S, nshards)
-            # per-row metric weight 1/group size: the weighted mean is the
-            # mean NDCG over groups
-            gsz = validv.reshape(-1, S).sum(axis=1)
-            wv = (validv.reshape(-1, S)
-                  / np.maximum(gsz, 1.0)[:, None]).reshape(-1)
-            valid_set = (Xvp, yvp, wv.astype(np.float32))
-
+    def _rank_kwargs(self, y: np.ndarray) -> dict:
         eval_at = self.get_or_default("evalAt") or []
-        kwargs = dict(group_size=S,
-                      max_position=self.get_or_default("maxPosition"),
+        kwargs = dict(max_position=self.get_or_default("maxPosition"),
                       sigma=self.get_or_default("sigma"),
                       eval_at=int(max(eval_at)) if eval_at else 0)
         lg = self.get_or_default("labelGain")
         if lg is not None:
             # LightGBM fails fast when a grade exceeds the gain table
-            max_grade = int(np.nanmax(yp)) if len(yp) else 0
+            max_grade = int(np.nanmax(y)) if len(y) else 0
             if max_grade >= len(lg):
                 raise ValueError(
                     f"labelGain has {len(lg)} entries but the data "
                     f"contains relevance grade {max_grade}")
             kwargs["label_gain"] = tuple(float(g) for g in lg)
-        # exactly the JAX ranker's arguments: no categorical slots, bin
-        # dtype, warm start, checkpoints or GOSS/DART/stratified params
-        # (ROADMAP Queue 3); compactSelector reaches it through the config
-        booster = self._apply_slot_names(train_booster(
-            Xp, yp, wp, objective="lambdarank", num_class=1,
-            cfg=self._grow_config(),
+        return kwargs
+
+    def _ranker_kwargs(self) -> dict:
+        """Exactly the JAX ranker's arguments: no categorical slots, bin
+        dtype, warm start, checkpoints or GOSS/DART/stratified params
+        (ROADMAP Queue 3); compactSelector reaches it through the
+        config."""
+        return dict(
+            objective="lambdarank", num_class=1, cfg=self._grow_config(),
             max_bin=self.get_or_default("maxBin"),
             bin_sample_count=self.get_or_default("binSampleCount"),
             feature_fraction=self.get_or_default("featureFraction"),
@@ -860,7 +905,6 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
             bagging_freq=self.get_or_default("baggingFreq"),
             seed=self.get_or_default("baggingSeed"),
             num_iterations=self.get_or_default("numIterations"),
-            valid_set=valid_set,
             early_stopping_rounds=self.get_or_default("earlyStoppingRound"),
             early_stopping_tolerance=self.get_or_default(
                 "improvementTolerance"),
@@ -869,13 +913,72 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
             max_bin_by_feature=self.get_or_default("maxBinByFeature"),
             eval_metric_name=self.get_or_default("metric"),
             metric_eval_period=self.get_or_default("metricEvalPeriod"),
-            boost_from_average=False, objective_kwargs=kwargs,
-            row_valid=valid,
+            boost_from_average=False,
             boosting_type=self.get_or_default("boostingType"),
-            device=self.get_or_default("device")))
-        model = LightGBMRankerModel(booster)
+            device=self.get_or_default("device"))
+
+    def fit(self, dataset: Dataset) -> "LightGBMRankerModel":
+        train_ds, valid_ds = self._split_validation(dataset)
+        gcol = self.get_or_default("groupCol")
+        if not gcol:
+            raise ValueError("LightGBMRanker requires groupCol")
+        nshards = meshlib.num_shards(meshlib.get_default_mesh())
+        X, y, w = self._extract_arrays(train_ds)
+        X = _densify(X)
+        group = np.asarray(train_ds[gcol])
+        has_valid = valid_ds is not None and len(valid_ds) > 0
+        if nshards > 1:
+            booster = self._fit_padded(X, y, w, group, valid_ds if has_valid
+                                       else None, gcol, nshards)
+        else:
+            with _spans.span("gbdt.rank.groups", publish=False) as sp:
+                X, y, w, offsets = _sort_groups(X, y, w, group)
+                sp.set(queries=len(offsets) - 1, rows=len(y))
+            valid_set = None
+            if has_valid:
+                Xv, yv, _ = self._extract_arrays(valid_ds)
+                Xv, yv, _, voff = _sort_groups(_densify(Xv), yv, None,
+                                               np.asarray(valid_ds[gcol]))
+                valid_set = (Xv, yv, None, voff)
+            common = self._ranker_kwargs()
+            rank_kw = self._rank_kwargs(y)
+            dset = _cached_binned_dataset(
+                X, y, w, max_bin=common["max_bin"],
+                bin_sample_count=common["bin_sample_count"],
+                seed=common["seed"], categorical_features=(),
+                max_bin_by_feature=common["max_bin_by_feature"],
+                device=common["device"], query_offsets=offsets)
+            booster = train_booster(dataset=dset, valid_set=valid_set,
+                                    objective_kwargs=rank_kw, **common)
+        model = LightGBMRankerModel(self._apply_slot_names(booster))
         self._copy_params_to(model)
         return model
+
+    def _fit_padded(self, X, y, w, group, valid_ds, gcol: str,
+                    nshards: int) -> Booster:
+        """Over a data group of several ranks: every query group padded to
+        one static width S (rows past it truncated), each rank holding
+        whole groups, padding masked out through ``row_valid``."""
+        sizes = np.unique(group, return_counts=True)[1]
+        S = int(min(self.get_or_default("maxGroupSize"),
+                    1 << int(np.ceil(np.log2(max(sizes.max(), 2))))))
+        Xp, yp, wp, valid, _ = _pad_groups(X, y, w, group, S, nshards)
+        valid_set = None
+        if valid_ds is not None:
+            Xv, yv, _ = self._extract_arrays(valid_ds)
+            Xvp, yvp, _, validv, _ = _pad_groups(
+                _densify(Xv), yv, None, np.asarray(valid_ds[gcol]), S,
+                nshards)
+            # per-row metric weight 1/group size: the weighted mean is the
+            # mean NDCG over groups
+            gsz = validv.reshape(-1, S).sum(axis=1)
+            wv = (validv.reshape(-1, S)
+                  / np.maximum(gsz, 1.0)[:, None]).reshape(-1)
+            valid_set = (Xvp, yvp, wv.astype(np.float32))
+        return train_booster(
+            Xp, yp, wp, valid_set=valid_set, row_valid=valid,
+            objective_kwargs=dict(group_size=S, **self._rank_kwargs(yp)),
+            **self._ranker_kwargs())
 
 
 class LightGBMRankerModel(_LightGBMModelBase):

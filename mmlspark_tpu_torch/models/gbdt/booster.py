@@ -63,6 +63,7 @@ from ...observability import spans as _spans
 from ...observability import watchdog as _watchdog
 from ...observability.logging import console as _console
 from ...ops.binning import QuantileBinner, bin_cols
+from ...ops.lambdarank import lambdarank_cuda
 from ...ops.histogram import (histogram_cols, node_histogram, quant_key,
                               quantize_stats, stats_amax_cuda)
 from ...utils import prng
@@ -75,13 +76,13 @@ from ... import tuning as _tuning
 from ...tuning.decisions import ladder_pad
 from . import growth as _growth
 from . import quantize as _quantize
-from .growth import (GrowConfig, Tree, _blocked, forest_leaf_nodes,
-                     grow_tree, grow_tree_depthwise, host_read,
-                     predict_forest_raw, predict_tree_binned,
+from .growth import (GrowConfig, LeafwiseRounds, Tree, _blocked,
+                     forest_leaf_nodes, grow_tree, grow_tree_depthwise,
+                     host_read, predict_forest_raw, predict_tree_binned,
                      resolve_growth_backend)
 from .objectives import (HIGHER_IS_BETTER, SUPPORTED_EVAL_METRICS,
-                         auc_weighted, eval_metric, get_objective,
-                         metric_family, score_transform)
+                         QueryGroups, auc_weighted, eval_metric,
+                         get_objective, metric_family, score_transform)
 
 _BIN_DTYPES = {"int32": (torch.int32, 1 << 31), "int16": (torch.int16, 1 << 15),
                "uint8": (torch.uint8, 256)}
@@ -152,12 +153,15 @@ class LightGBMDataset:
     size) are sharded over ``mesh``: this rank holds ``Xbt``, its
     ``[F, n_local]`` slice of the bin matrix, and ``y``, ``w`` and
     ``vmask``, ``[n_local]`` f32 (padding rows have mask and weight 0). On
-    one process ``n_local = n_pad = n``."""
+    one process ``n_local = n_pad = n``. A ranking dataset carries its
+    rows' query groups (``queries``, :class:`.objectives.QueryGroups`:
+    rows sorted by query, each query any length), else None."""
 
     def __init__(self, binner: QuantileBinner, Xbt: torch.Tensor,
                  y: torch.Tensor, w: torch.Tensor, vmask: torch.Tensor,
                  n: int, n_pad: int, max_bin: int,
-                 categorical_features=(), mesh: Optional[Mesh] = None):
+                 categorical_features=(), mesh: Optional[Mesh] = None,
+                 queries: Optional[QueryGroups] = None):
         self.binner = binner
         self.Xbt = Xbt
         self.y = y
@@ -169,6 +173,7 @@ class LightGBMDataset:
         self.categorical_features = tuple(
             int(i) for i in categorical_features)
         self.mesh = mesh or Mesh()
+        self.queries = queries
 
     @property
     def num_features(self) -> int:
@@ -188,6 +193,7 @@ class LightGBMDataset:
                   bin_sample_count: int = 200_000, seed: int = 0,
                   bin_dtype=None, max_bin_by_feature=None,
                   row_valid: Optional[np.ndarray] = None,
+                  query_offsets: Optional[np.ndarray] = None,
                   categorical_features=(), path=None, label_path=None,
                   weight_path=None, chunk_rows: Optional[int] = None,
                   device: DeviceLike = None, mesh: Optional[Mesh] = None,
@@ -203,7 +209,10 @@ class LightGBMDataset:
         shard_rows`), padding masked out. ``row_valid``
         ([n], 0 or 1) marks rows that must not count in histograms or
         totals (the ranker's in-group padding); the binner still sees every
-        row, as the JAX package's does. ``categorical_features`` (feature
+        row, as the JAX package's does. ``query_offsets`` ([G + 1], rising
+        from 0 to n) marks a ranking dataset's query groups over rows
+        sorted by query (one process, in memory: every query whole on the
+        one rank). ``categorical_features`` (feature
         indexes) bin as category ids (bin ``c`` holds id ``c``; ids past
         ``max_bin - 1`` share the last bin). A scipy sparse ``X`` is
         densified first (:func:`_densify`).
@@ -226,6 +235,10 @@ class LightGBMDataset:
         mesh = mesh or meshlib.get_default_mesh()
         if not mesh.member:
             raise ValueError(f"this process is not in the data group {mesh}")
+        if query_offsets is not None and (path is not None or mesh.size > 1):
+            raise ValueError("query_offsets need in-memory rows on one rank "
+                             "(a data group pads whole query groups to each "
+                             "rank: pass row_valid)")
         if path is not None:
             if X is not None or y is not None or weight is not None:
                 raise ValueError(
@@ -291,9 +304,11 @@ class LightGBMDataset:
             y_d, _ = placement.shard_rows(y, mesh, device=dev)
             w_d = (vmask_d if weight is None else placement.shard_rows(
                 np.asarray(weight, np.float32), mesh, device=dev)[0])
+            queries = (None if query_offsets is None
+                       else QueryGroups(query_offsets, y, weight))
         tw.mark("aux_shards", dev)
         return cls(binner, Xbt, y_d, w_d, vmask_d, n, n_pad, max_bin,
-                   categorical_features, mesh)
+                   categorical_features, mesh, queries)
 
 
 def _densify(X):
@@ -422,9 +437,10 @@ def _forest_nbytes(forest: dict) -> float:
 _PREDICT_CACHE: "OrderedDict" = OrderedDict()
 _PREDICT_CACHE_MAX = 64
 _PREDICT_CACHE_LOCK = threading.Lock()
-# one capture at a time in the process: the allocator's capture pools
-# and the warm-up side stream are simplest to reason about serialized
-_CAPTURE_LOCK = threading.Lock()
+# one capture at a time in the process, the growth rounds' included: the
+# allocator's capture pools and the warm-up side stream are simplest to
+# reason about serialized
+_CAPTURE_LOCK = _growth._CAPTURE_LOCK
 # forest-argument identities: a graph copies a forest in when the serial
 # of the forest it last copied differs. A serial is this process's random
 # 64-bit prefix and a counter, so a forest made in another process (a
@@ -1832,18 +1848,23 @@ def _feature_mask(seed: int, it: int, F: int, feature_fraction: float,
 
 
 def _grow_iteration(grow, Xbt, grad, hess, row_mask, fmask, cfg, is_cat,
-                    seed: int, it: int, group=None, n_rows=None):
+                    seed: int, it: int, group=None, n_rows=None,
+                    rounds=None):
     """The K trees of iteration ``it``, one per grad/hess column: full
     precision below ``cfg.quant_warmup_iters`` (or without
     ``quantized_grad``), else on int8 histograms rounded under
     ``quant_key(seed, it, k)``; on the collective path of ``group``
     (:func:`_grow_group`), whose ranks round their rows of the draw over
-    the data's ``n_rows`` real rows. Returns [(tree, row_node)]."""
+    the data's ``n_rows`` real rows. ``rounds``: the fit's
+    :class:`.growth.LeafwiseRounds`, for :func:`grow_tree`. Returns
+    [(tree, row_node)]."""
     quantized = cfg.quantized_grad and it >= cfg.quant_warmup_iters
     fp_cfg = cfg._replace(quantized_grad=False)
     # one device: the grow functions' single-device call
     on_group = ({} if group is None
                 else {"group": group, "n_rows": n_rows})
+    if rounds is not None:
+        on_group["rounds"] = rounds
     out = []
     for k in range(grad.shape[1]):
         g_k, h_k = grad[:, k].contiguous(), hess[:, k].contiguous()
@@ -2032,8 +2053,9 @@ def _save_checkpoint(ckpts, it: int, mesh: Mesh, scores: torch.Tensor,
 
 
 # what a gbdt.round span reports the change of: the host's waits on the
-# device, the histogram kernels' launches and the rows handed to them, and
-# the launches of the fused int8 statistics kernel and of its amax
+# device, the histogram kernels' launches and the rows handed to them, the
+# launches of the fused int8 statistics kernel and of its amax, and the
+# LambdaRank kernel's launches and the pairs they evaluated
 _ROUND_COUNTERS = {
     "host_syncs": lambda: _growth.host_syncs,
     "hist_launches": lambda: (node_histogram.launches
@@ -2043,6 +2065,8 @@ _ROUND_COUNTERS = {
     "hist_rows": lambda: node_histogram.rows + histogram_cols.rows,
     "stats_launches": lambda: quantize_stats.launches,
     "stats_amax_launches": lambda: stats_amax_cuda.launches,
+    "rank_launches": lambda: lambdarank_cuda.launches,
+    "rank_pairs": lambda: lambdarank_cuda.pairs,
 }
 
 
@@ -2062,8 +2086,7 @@ def train_booster(
     bagging_fraction: float = 1.0,
     bagging_freq: int = 0,
     seed: int = 0,
-    valid_set: Optional[Tuple[np.ndarray, np.ndarray,
-                              Optional[np.ndarray]]] = None,
+    valid_set: Optional[tuple] = None,
     early_stopping_rounds: int = 0,
     init_booster: Optional[Booster] = None,
     boost_from_average: bool = True,
@@ -2135,7 +2158,9 @@ def train_booster(
     a checkpoint that already covers the request is returned cut to it.
 
     ``valid_set`` ``(X, y, weight or None)`` is binned with the dataset's
-    binner and scored tree by tree; every ``metric_eval_period``
+    binner and scored tree by tree (a ranking fit on query groups,
+    ``dataset.queries``, gives its validation rows' query offsets as a
+    fourth element); every ``metric_eval_period``
     iterations (and the last) its metric — the objective's default, or
     ``eval_metric_name`` from ``SUPPORTED_EVAL_METRICS`` (``auc`` on the
     host) — goes into ``eval_history``. An iteration counts as improved
@@ -2258,6 +2283,12 @@ def train_booster(
             max_bin_by_feature=max_bin_by_feature, row_valid=row_valid,
             categorical_features=categorical_features, device=device,
             mesh=mesh, _timer=tw)
+    # a ranking dataset's query groups reach the objective and its metric
+    metric_kw = dict(objective_kwargs)
+    if dataset.queries is not None:
+        obj = get_objective(objective, num_class, queries=dataset.queries,
+                            **objective_kwargs)
+        metric_kw["queries"] = dataset.queries
     # the boosting loop and growth, from the dataset to the booster
     with _spans.span("gbdt.boost", publish=False) as boost_span:
         if dataset.mesh.ranks != mesh.ranks:
@@ -2313,15 +2344,18 @@ def train_booster(
         device_metric = eval_metric(
             obj, torch.zeros((1, K)) if K > 1 else torch.zeros(1),
             torch.zeros(1), torch.ones(1), metric=eval_override,
-            **objective_kwargs)[0]
+            **metric_kw)[0]
         metric_name = "auc" if auc_host else device_metric
 
         valid = valid_fp = None
+        valid_kw = dict(objective_kwargs)
         if valid_set is not None:
-            Xv, yv, wv = valid_set
+            Xv, yv, wv = valid_set[:3]
             Xv = np.asarray(_densify(Xv), np.float32)
             yv = np.asarray(yv, np.float32)
             wv = np.ones_like(yv) if wv is None else np.asarray(wv, np.float32)
+            if len(valid_set) > 3:
+                valid_kw["queries"] = QueryGroups(valid_set[3], yv, wv)
             if ckpts is not None:
                 # the validation rows are not in the run's fingerprint; their
                 # saved scores are restored only against the same rows
@@ -2356,6 +2390,8 @@ def train_booster(
             start=mesh.rank * dataset.n_local)
         grow = (grow_tree_depthwise if cfg.growth_policy == "depthwise"
                 else grow_tree)
+        # the leafwise rounds of this fit, replayed on one card
+        rounds = LeafwiseRounds() if grow is grow_tree else None
         es = _EarlyStopping(metric_name, early_stopping_rounds,
                             early_stopping_tolerance)
         if boosting_type == "dart":
@@ -2368,7 +2404,7 @@ def train_booster(
                 grow=grow, is_cat=is_cat,
                 metric_eval_period=metric_eval_period, drop_rate=drop_rate,
                 max_drop=max_drop, skip_drop=skip_drop, drop_seed=drop_seed,
-                mesh=mesh, group=group,
+                mesh=mesh, group=group, valid_kw=valid_kw,
                 iteration_callback=iteration_callback)
             boost_span.set(trees=booster.num_trees)
             return booster
@@ -2421,7 +2457,7 @@ def train_booster(
                                               dev)
                         grown = _grow_iteration(
                             grow, Xbt, grad, hess, row_mask, fmask, cfg,
-                            is_cat, seed, it, group, dataset.n)
+                            is_cat, seed, it, group, dataset.n, rounds)
                     trees = []
                     with _spans.span("gbdt.score_update", device=dev,
                                      publish=False):
@@ -2442,7 +2478,7 @@ def train_booster(
                                                y_d, w_d * vmask,
                                                device_metric,
                                                metric=eval_override,
-                                               **objective_kwargs))
+                                               **metric_kw))
                     stop = False
                     round_metrics: Dict[str, float] = {}
                     if valid is not None:
@@ -2467,7 +2503,7 @@ def train_booster(
                                                    valid.y, valid.w,
                                                    device_metric,
                                                    metric=eval_override,
-                                                   **objective_kwargs)
+                                                   **valid_kw)
                             _watchdog.report_training_metric(
                                 "gbdt", it, loss=m, metric_name=metric_name)
                             stop = es.update(it, m)
@@ -2514,7 +2550,8 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
                 base_d, valid, depth_cap, es, num_iterations, seed,
                 feature_fraction, sampling, grow, is_cat,
                 metric_eval_period, drop_rate, max_drop, skip_drop,
-                drop_seed, mesh, group, iteration_callback) -> Booster:
+                drop_seed, mesh, group, valid_kw,
+                iteration_callback) -> Booster:
     """DART boosting (Dropouts meet Multiple Additive Regression Trees;
     LightGBM's ``boosting=dart``, reference: TrainParams.scala:9-10).
 
@@ -2609,7 +2646,7 @@ def _train_dart(*, dataset, cfg, K, obj, objective, objective_kwargs,
                     m = _global_metric(mesh, obj,
                                        vsc if K > 1 else vsc[:, 0],
                                        valid.y, valid.w, es.name,
-                                       **objective_kwargs)
+                                       **valid_kw)
                     _watchdog.report_training_metric("gbdt", it, loss=m,
                                                      metric_name=es.name)
                     stop = es.update(it, m)

@@ -26,7 +26,10 @@ an eager Python loop that stops once no split is left, with the candidate
 axis written out as a batch dimension. Every tensor stays on the device of
 ``binned_t``; the loop reads one boolean per round or level back to the
 host, through :func:`host_read`, which counts every such wait in
-``host_syncs``.
+``host_syncs``. The leafwise loop reads a round's predicate as soon as it
+is computed (:class:`_Later`), so the host queues the next round while
+the card runs the rest of this one; on one card a fit's leafwise rounds
+replay from CUDA graphs (:class:`LeafwiseRounds`).
 
 Per-node state tensors carry one spare slot at index ``M``: writes for
 candidates that do not split go there (the JAX package's ``mode="drop"``)
@@ -53,12 +56,13 @@ globally smaller children has no bound).
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ...observability import spans as _spans
-from ...ops.histogram import (QUANT_NEAREST, QUANT_POSITIONAL,
+from ...ops.histogram import (_INT32_CELL, QUANT_NEAREST, QUANT_POSITIONAL,
                               QUANT_THREEFRY, node_histogram,
                               positional_uniform, quant_q_max,
                               quantize_stats, quantize_stats_cuda,
@@ -68,6 +72,8 @@ from ...ops.histogram_scatter import (NONFINITE_SHIFT, fixed_point_shifts,
                                       pow2)
 
 NEG_INF = float("-inf")
+# rows of int8 stats a histogram cell may sum with no range check
+_INT8_SAFE_ROWS = _INT32_CELL // 128
 
 # device-to-host reads made through host_read since the process started:
 # each one waits for the device to finish the work queued before it
@@ -83,6 +89,27 @@ def host_read(read: Callable[[torch.Tensor], Any], t: torch.Tensor) -> Any:
     global host_syncs
     host_syncs += 1
     return read(t)
+
+
+class _Later:
+    """A small device tensor on its way to the host. On the card it is
+    copied without blocking into pinned memory behind an event, so that
+    :meth:`tolist` waits only for the work queued before the copy and not
+    for what the host has queued since; elsewhere it is read at once."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        self._t = t
+        if t.is_cuda:
+            self._t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._t.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def tolist(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return self._t.tolist()
 
 
 class GrowConfig(NamedTuple):
@@ -695,7 +722,7 @@ def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
                                            grad, hess, st.vm, st.group,
                                            st.blocks, st.rpb)
     ng, nh, nc = ng[:M], nh[:M], nc[:M]
-    is_leaf = is_leaf[:M]
+    is_leaf = is_leaf[:M].clone()
     raw_val = -_soft_threshold(ng, cfg.lambda_l1) / (nh + cfg.lambda_l2
                                                      + 1e-38)
     if cfg.max_delta_step > 0:
@@ -704,18 +731,159 @@ def _finish_tree(cfg: GrowConfig, M: int, feat, thr, left, right, is_leaf,
     zero = torch.zeros_like(raw_val)
     leaf_value = torch.where(is_leaf & (nc > 0), raw_val * lr, zero)
     node_value = torch.where(nc > 0, raw_val * lr, zero)
-    return Tree(feat=feat[:M], thr_bin=thr[:M], left=left[:M],
-                right=right[:M], is_leaf=is_leaf, leaf_value=leaf_value,
-                node_count=num_nodes, node_grad=ng, node_hess=nh,
-                node_cnt=nc, split_gain=gain[:M], node_value=node_value,
-                cat_bitset=bits[:M])
+    # copies: a fit's leafwise rounds keep their state from tree to tree
+    return Tree(feat=feat[:M].clone(), thr_bin=thr[:M].clone(),
+                left=left[:M].clone(), right=right[:M].clone(),
+                is_leaf=is_leaf, leaf_value=leaf_value,
+                node_count=num_nodes.clone(), node_grad=ng.clone(),
+                node_hess=nh.clone(), node_cnt=nc.clone(),
+                split_gain=gain[:M].clone(), node_value=node_value,
+                cat_bitset=bits[:M].clone())
+
+
+class LeafwiseRounds:
+    """One fit's leafwise trees on the card, replayed from CUDA graphs.
+
+    The boosting loop makes one and hands it to every :func:`grow_tree` of
+    the fit. A tree's shapes are fixed by the rows, the features and the
+    configuration, so its state lives in buffers kept from tree to tree
+    (:class:`_RoundState`) and its three bodies are captured once each:
+    the root with the first round's head, a round's head, and a round's
+    body. Each runs eagerly the first time (lazy loads and caches stay out
+    of the capture), is captured the second, and is one replay after that
+    instead of some 150 launches queued from the host. A replay counts the
+    histogram launches its capture made. Single device only: the
+    collective paths grow their trees eagerly."""
+
+    # node_histogram's counters, which a replay adds to as its body would
+    _COUNTERS = ("launches", "int8_launches", "det_launches", "rows")
+
+    def __init__(self):
+        self._entries: dict = {}
+
+    def state(self, key, make: Callable[[], "_RoundState"]) -> "_RoundState":
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = {"state": make(), "bodies": {}}
+        return entry["state"]
+
+    def run(self, key, name: str, body: Callable[[], None]) -> None:
+        bodies = self._entries[key]["bodies"]
+        entry = bodies.setdefault(name, {"runs": 0, "graph": None})
+        entry["runs"] += 1
+        if entry["runs"] == 1:
+            body()
+            return
+        if entry["graph"] is None:
+            before = [getattr(node_histogram, c) for c in self._COUNTERS]
+            graph = torch.cuda.CUDAGraph()
+            with _CAPTURE_LOCK, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                body()
+            entry["delta"] = [getattr(node_histogram, c) - b
+                              for c, b in zip(self._COUNTERS, before)]
+            for c, b in zip(self._COUNTERS, before):
+                setattr(node_histogram, c, b)
+            entry["graph"] = graph
+        entry["graph"].replay()
+        for c, d in zip(self._COUNTERS, entry["delta"]):
+            setattr(node_histogram, c, getattr(node_histogram, c) + d)
+
+
+# two threads may not capture at once (the predict graphs take it too)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _RoundState(NamedTuple):
+    """What a leafwise round reads and writes, updated in place: the rows'
+    nodes, the ``[M + 1]`` per-slot arrays (slot ``M`` the spare), the
+    cached candidates, the node histograms under subtraction, the node
+    count, the round's ``head`` (live, nodes before it, its splits) and
+    its candidates (``top_g``, ``slots``, ``do``), and the tree's inputs
+    (its statistics, their scales, the feature mask)."""
+    row_node: torch.Tensor
+    feat: torch.Tensor
+    thr: torch.Tensor
+    left: torch.Tensor
+    right: torch.Tensor
+    depth: torch.Tensor
+    is_leaf: torch.Tensor
+    ng: torch.Tensor
+    nh: torch.Tensor
+    nc: torch.Tensor
+    gain: torch.Tensor
+    cg: torch.Tensor
+    cf: torch.Tensor
+    cb: torch.Tensor
+    clg: torch.Tensor
+    clh: torch.Tensor
+    clc: torch.Tensor
+    cbits: torch.Tensor
+    tbits: torch.Tensor
+    num_nodes: torch.Tensor
+    nhist: Optional[torch.Tensor]
+    head: torch.Tensor
+    top_g: torch.Tensor
+    slots: torch.Tensor
+    do: torch.Tensor
+    arange_kb: torch.Tensor
+    slot_m: torch.Tensor
+    root_allow: torch.Tensor
+    base_t: torch.Tensor
+    qscales: Optional[torch.Tensor]
+    feat_mask: torch.Tensor
+
+    # the fields a tree starts from zero, row_node through head (the rest
+    # are the round's candidates, constants or inputs)
+    PER_TREE = 22
+
+    @staticmethod
+    def make(n: int, F: int, M: int, B: int, BW: int, KB: int,
+             use_sub: bool, root_allow: bool, base_t: torch.Tensor,
+             qscales: Optional[torch.Tensor], feat_mask: torch.Tensor,
+             copies: bool) -> "_RoundState":
+        """Zeroed state; with ``copies`` the tree's inputs are buffers to
+        copy them into, else the inputs themselves."""
+        dev = base_t.device
+
+        def slots(dtype):                  # M slots + the spare slot M
+            return torch.zeros(M + 1, dtype=dtype, device=dev)
+
+        i32, f32 = torch.int32, torch.float32
+        return _RoundState(
+            row_node=torch.zeros(n, dtype=i32, device=dev),
+            feat=slots(i32), thr=slots(i32), left=slots(i32),
+            right=slots(i32), depth=slots(i32),
+            is_leaf=slots(torch.bool), ng=slots(f32), nh=slots(f32),
+            nc=slots(f32), gain=slots(f32), cg=slots(f32), cf=slots(i32),
+            cb=slots(i32), clg=slots(f32), clh=slots(f32), clc=slots(f32),
+            cbits=torch.zeros((M + 1, BW), dtype=torch.int64, device=dev),
+            tbits=torch.zeros((M + 1, BW), dtype=torch.int64, device=dev),
+            num_nodes=torch.zeros((), dtype=i32, device=dev),
+            # per-node histogram cache [M+1, F, 3, B] f32 (dequantized when
+            # quantized): the subtraction parent of every future candidate
+            # (~5 MB at 31 leaves x 28 features x 255 bins, linear in F)
+            nhist=(torch.zeros((M + 1, F, 3, B), dtype=f32, device=dev)
+                   if use_sub else None),
+            head=torch.zeros(3, dtype=i32, device=dev),
+            top_g=torch.zeros(KB, dtype=f32, device=dev),
+            slots=torch.zeros(KB, dtype=i32, device=dev),
+            do=torch.zeros(KB, dtype=torch.bool, device=dev),
+            arange_kb=torch.arange(KB, dtype=i32, device=dev),
+            slot_m=torch.full((KB,), M, dtype=i32, device=dev),
+            root_allow=torch.tensor([root_allow], device=dev),
+            base_t=torch.empty_like(base_t) if copies else base_t,
+            qscales=(torch.empty_like(qscales)
+                     if copies and qscales is not None else qscales),
+            feat_mask=torch.empty_like(feat_mask) if copies else feat_mask)
 
 
 def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               valid: torch.Tensor, feat_mask: torch.Tensor, cfg: GrowConfig,
               is_cat: Optional[torch.Tensor] = None,
               qkey: Optional[Tuple[int, int]] = None, group=None,
-              n_rows: Optional[int] = None):
+              n_rows: Optional[int] = None,
+              rounds: Optional[LeafwiseRounds] = None):
     """Grow one leafwise tree on one device, or on this rank's rows of
     ``group`` (the collective path: every rank takes the same splits).
 
@@ -728,7 +896,9 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     stochastic rounding; None rounds to nearest. ``n_rows``: the rows of
     the one-device fit whose rounding draw this rank's rows slice (the
     data's real rows, when the group pads them; :func:`_quantize_for`).
-    Returns (Tree, row_node
+    ``rounds``: the fit's :class:`LeafwiseRounds`, which replays the rounds
+    on one card from a CUDA graph (ignored elsewhere; the trees are the
+    same bits either way). Returns (Tree, row_node
     [n] int32): ``row_node`` is each row's final leaf, so
     ``leaf_value[row_node]`` is the tree's prediction for the training rows.
     """
@@ -740,74 +910,94 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     BW = bitset_words(B)
 
     st = _prepare_stats(grad, hess, valid, cfg, qkey, group, n_rows)
-    base_t, qscales = st.base_t, st.qscales
     use_sub = _use_subtraction(cfg, n, group)
     h_buf = max(n // 2, 1)
-
-    root_hist, sel0 = st.hist(binned_t, torch.zeros(
-        n, dtype=torch.int32, device=dev), 1, B, feat_mask, cfg)  # [F, 3, B]
-    # totals from the stats (under voting an unselected feature's rows are
-    # zeroed in the histograms)
-    tot = st.totals()
-    root_allow = torch.tensor([cfg.max_depth < 0 or cfg.max_depth >= 1],
-                              device=dev)
-    g0, f0, b0, lg0, lh0, lc0, bits0 = _best_split(
-        root_hist.reshape(1, F, 3, B), tot[0:1], tot[1:2], tot[2:3], cfg,
-        feat_mask & sel0, root_allow, is_cat)
-
-    def zeros(dtype):                      # M slots + the spare slot M
-        return torch.zeros(M + 1, dtype=dtype, device=dev)
-
-    row_node = torch.zeros(n, dtype=torch.int32, device=dev)
-    feat, thr, left, right = (zeros(torch.int32) for _ in range(4))
-    depth = zeros(torch.int32)
-    is_leaf = torch.ones(M + 1, dtype=torch.bool, device=dev)
-    ng, nh, nc, gain = (zeros(torch.float32) for _ in range(4))
-    ng[0], nh[0], nc[0] = tot[0], tot[1], tot[2]
-    cg = torch.full((M + 1,), NEG_INF, device=dev)     # cached best gain
-    cf, cb = zeros(torch.int32), zeros(torch.int32)    # cached feat / bin
-    clg, clh, clc = (zeros(torch.float32) for _ in range(3))
-    cg[0], cf[0], cb[0] = g0[0], f0[0], b0[0]
-    clg[0], clh[0], clc[0] = lg0[0], lh0[0], lc0[0]
-    # the candidate's bitset (cbits) and each split node's (tbits)
-    cbits = torch.zeros((M + 1, BW), dtype=torch.int64, device=dev)
-    tbits = torch.zeros_like(cbits)
-    cbits[0] = bits0[0]
-    num_nodes = torch.ones((), dtype=torch.int32, device=dev)
-    nhist = None
-    if use_sub:
-        # per-node histogram cache [M+1, F, 3, B] f32 (dequantized when
-        # quantized): the subtraction parent of every future candidate
-        # (~5 MB at 31 leaves x 28 features x 255 bins, linear in F)
-        nhist = torch.zeros((M + 1, F, 3, B), dtype=torch.float32,
-                            device=dev)
-        nhist[0] = root_hist.reshape(F, 3, B)
-
     KB = max(1, min(int(cfg.leaf_batch), L - 1))
     W2 = 2 * KB
-    arange_kb = torch.arange(KB, dtype=torch.int32, device=dev)
-    slot_m = torch.full((KB,), M, dtype=torch.int32, device=dev)
+    # a round reads nothing back while it is captured: kernel 2's range
+    # check reads the stats only past _INT8_SAFE_ROWS rows
+    graphed = (rounds is not None and dev.type == "cuda" and group is None
+               and not st.blocks
+               and (st.qscales is None or n <= _INT8_SAFE_ROWS))
 
-    for _ in range(L - 1):
+    def make(copies: bool):
+        return _RoundState.make(
+            n, F, M, B, BW, KB, use_sub,
+            cfg.max_depth < 0 or cfg.max_depth >= 1, st.base_t, st.qscales,
+            feat_mask, copies)
+
+    key = None
+    if graphed:
+        key = (binned_t.data_ptr(), tuple(binned_t.shape), binned_t.dtype,
+               cfg, None if is_cat is None else is_cat.data_ptr(),
+               st.base_t.dtype, st.qscales is None)
+        s = rounds.state(key, lambda: make(True))
+        s.base_t.copy_(st.base_t)
+        if s.qscales is not None:
+            s.qscales.copy_(st.qscales)
+        s.feat_mask.copy_(feat_mask)
+    else:
+        s = make(False)
+    st = st._replace(base_t=s.base_t, qscales=s.qscales)
+
+    def root():
+        """The root's histograms, totals and best split, and the state a
+        tree starts from."""
+        if graphed:
+            for t in s[:_RoundState.PER_TREE]:
+                if t is not None:
+                    t.zero_()
+        # every row at the root: row_node is all zeros here
+        root_hist, sel0 = st.hist(binned_t, s.row_node, 1, B, s.feat_mask,
+                                  cfg)                            # [F, 3, B]
+        # totals from the stats (under voting an unselected feature's rows
+        # are zeroed in the histograms)
+        tot = st.totals()
+        g0, f0, b0, lg0, lh0, lc0, bits0 = _best_split(
+            root_hist.reshape(1, F, 3, B), tot[0:1], tot[1:2], tot[2:3], cfg,
+            s.feat_mask & sel0, s.root_allow, is_cat)
+        s.is_leaf.fill_(True)
+        s.cg.fill_(NEG_INF)                            # cached best gain
+        s.num_nodes.fill_(1)
+        s.ng[0], s.nh[0], s.nc[0] = tot[0], tot[1], tot[2]
+        s.cg[0], s.cf[0], s.cb[0] = g0[0], f0[0], b0[0]
+        s.clg[0], s.clh[0], s.clc[0] = lg0[0], lh0[0], lc0[0]
+        # the candidate's bitset (cbits) and each split node's (tbits)
+        s.cbits[0] = bits0[0]
+        if use_sub:
+            s.nhist[0] = root_hist.reshape(F, 3, B)
+
+    arange_kb, slot_m = s.arange_kb, s.slot_m
+
+    def twice(x):                          # [KB] -> [2 KB], each one twice
+        return x[:, None].expand(KB, 2).reshape(-1)
+
+    def round_head():
         # the JAX package's round predicate; once false it stays false
-        live = (num_nodes < M) & (cg[:M].max() > cfg.min_gain_to_split)
-        if not host_read(bool, live):
-            break
+        live = (s.num_nodes < M) & (s.cg[:M].max() > cfg.min_gain_to_split)
         # top-KB cached gains, ties to the lower slot (lax.top_k order)
-        top_g, slots = torch.sort(cg[:M], descending=True, stable=True)
-        top_g, slots = top_g[:KB], slots[:KB].to(torch.int32)
-        budget = L - (num_nodes + 1) // 2
-        do = (top_g > cfg.min_gain_to_split) & (arange_kb < budget)
-        n_split = do.sum(dtype=torch.int32)
+        top_g, slots = torch.sort(s.cg[:M], descending=True, stable=True)
+        s.top_g.copy_(top_g[:KB])
+        s.slots.copy_(slots[:KB])
+        budget = L - (s.num_nodes + 1) // 2
+        s.do.copy_(live & (s.top_g > cfg.min_gain_to_split)
+                   & (arange_kb < budget))
+        s.head.copy_(torch.stack([live.to(torch.int32), s.num_nodes,
+                                  s.do.sum(dtype=torch.int32)]))
+
+    def round_body():
+        top_g, slots, do, n_split = s.top_g, s.slots, s.do, s.head[2]
         offset = torch.cumsum(do.to(torch.int32), 0, dtype=torch.int32) - 1
-        lid = num_nodes + 2 * offset                   # [KB] child slots
+        lid = s.num_nodes + 2 * offset                 # [KB] child slots
         rid = lid + 1
         sl_long = slots.long()
-        feats, bins_ = cf[sl_long], cb[sl_long]
-        bits_k = cbits[sl_long]                                    # [KB, BW]
+        feats, bins_ = s.cf[sl_long], s.cb[sl_long]
+        bits_k = s.cbits[sl_long]                                  # [KB, BW]
 
         row_node, move, goleft_k = _route_rows_to_children(
-            binned_t, row_node, slots, do, feats, bins_, bits_k, lid, is_cat)
+            binned_t, s.row_node, slots, do, feats, bins_, bits_k, lid,
+            is_cat)
+        s.row_node.copy_(row_node)
         if use_sub:
             # stream only each candidate's smaller child (by raw routed row
             # count, which bounds the n//2 buffer); the larger sibling
@@ -819,11 +1009,11 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             spos = torch.where(move, arange_kb[:, None], 0).sum(
                 dim=0, dtype=torch.int32)
             row_small = torch.where(in_small, spos, -1).to(torch.int32)
-            parents = nhist[torch.where(do, slots, 0).long()]
-            hw = _subtracted_pair_hists(binned_t, base_t, qscales, row_small,
-                                        small_is_left, parents, KB, B, h_buf,
-                                        cfg.compact_selector)
-            sel = torch.ones_like(feat_mask)
+            parents = s.nhist[torch.where(do, slots, 0).long()]
+            hw = _subtracted_pair_hists(binned_t, s.base_t, s.qscales,
+                                        row_small, small_is_left, parents,
+                                        KB, B, h_buf, cfg.compact_selector)
+            sel = torch.ones_like(s.feat_mask)
         else:
             # child position in [0, 2*KB): 2i = left child of candidate i
             cpos = torch.where(goleft_k, 2 * arange_kb[:, None],
@@ -832,51 +1022,82 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 move.any(dim=0),
                 torch.where(move, cpos, 0).sum(dim=0, dtype=torch.int32),
                 -1).to(torch.int32)
-            h, sel = st.hist(binned_t, child_pos, W2, B, feat_mask, cfg)
+            h, sel = st.hist(binned_t, child_pos, W2, B, s.feat_mask, cfg)
             hw = h.reshape(F, W2, 3, B).permute(1, 0, 2, 3)  # [W2, F, 3, B]
 
         # child totals: left from the candidate cache, right = parent - left
-        lg, lh, lc = clg[sl_long], clh[sl_long], clc[sl_long]
-        tg = torch.stack([lg, ng[sl_long] - lg], 1).reshape(-1)   # [W2]
-        th = torch.stack([lh, nh[sl_long] - lh], 1).reshape(-1)
-        tc = torch.stack([lc, nc[sl_long] - lc], 1).reshape(-1)
-        child_depth = depth[sl_long] + 1                           # [KB]
+        lg, lh, lc = s.clg[sl_long], s.clh[sl_long], s.clc[sl_long]
+        tg = torch.stack([lg, s.ng[sl_long] - lg], 1).reshape(-1)  # [W2]
+        th = torch.stack([lh, s.nh[sl_long] - lh], 1).reshape(-1)
+        tc = torch.stack([lc, s.nc[sl_long] - lc], 1).reshape(-1)
+        child_depth = s.depth[sl_long] + 1                         # [KB]
         can_split = (torch.ones_like(do) if cfg.max_depth < 0
                      else child_depth + 1 <= cfg.max_depth)
-        allow2 = torch.repeat_interleave(can_split & do, 2)
+        allow2 = twice(can_split & do)
         g2, f2, b2, lg2, lh2, lc2, bits2 = _best_split(
-            hw, tg, th, tc, cfg, feat_mask & sel, allow2, is_cat)
+            hw, tg, th, tc, cfg, s.feat_mask & sel, allow2, is_cat)
 
         # record splits; slot M is the spare slot for non-splits
         pslot = torch.where(do, slots, slot_m).long()
-        cslot = torch.where(torch.repeat_interleave(do, 2),
-                            torch.stack([lid, rid], 1).reshape(-1),
-                            torch.repeat_interleave(slot_m, 2)).long()
-        feat[pslot] = feats
-        thr[pslot] = bins_
-        left[pslot] = lid
-        right[pslot] = rid
-        is_leaf[pslot] = False
-        gain[pslot] = top_g
-        tbits[pslot] = bits_k
-        depth[cslot] = torch.repeat_interleave(child_depth, 2)
-        ng[cslot], nh[cslot], nc[cslot] = tg, th, tc
-        cg[pslot] = NEG_INF
-        cg[cslot] = g2
-        cf[cslot], cb[cslot] = f2, b2
-        clg[cslot], clh[cslot], clc[cslot] = lg2, lh2, lc2
-        cbits[cslot] = bits2
-        num_nodes = num_nodes + 2 * n_split
+        cslot = torch.where(twice(do), torch.stack([lid, rid], 1).reshape(-1),
+                            twice(slot_m)).long()
+        s.feat[pslot] = feats
+        s.thr[pslot] = bins_
+        s.left[pslot] = lid
+        s.right[pslot] = rid
+        # values on the device: a round captured in a graph copies nothing
+        # from the host
+        s.is_leaf[pslot] = torch.zeros_like(do)
+        s.gain[pslot] = top_g
+        s.tbits[pslot] = bits_k
+        s.depth[cslot] = twice(child_depth)
+        s.ng[cslot], s.nh[cslot], s.nc[cslot] = tg, th, tc
+        s.cg[pslot] = torch.full_like(top_g, NEG_INF)
+        s.cg[cslot] = g2
+        s.cf[cslot], s.cb[cslot] = f2, b2
+        s.clg[cslot], s.clh[cslot], s.clc[cslot] = lg2, lh2, lc2
+        s.cbits[cslot] = bits2
+        s.num_nodes.add_(2 * n_split)
         if use_sub:
             # the children's histograms are the subtraction parents of
             # every round that later splits them (cslot order [l0, r0, ...]
             # matches hw's)
-            nhist[cslot] = hw
-        is_leaf[M] = True                  # the spare slot stays inert
+            s.nhist[cslot] = hw
+        s.is_leaf[M:].fill_(True)          # the spare slot stays inert
 
-    tree = _finish_tree(cfg, M, feat, thr, left, right, is_leaf, ng, nh, nc,
-                        gain, tbits, num_nodes, row_node, grad, hess, st)
-    return tree, row_node
+    # A round is its head (the predicate and the candidates) and its body.
+    # The host reads each head (live, the nodes before the round, its
+    # splits) as soon as the card has it and queues the next round while
+    # the body runs. A round that is not live splits nothing and writes
+    # only the spare slot, so the one extra round a tree stopped by its
+    # gains runs changes nothing; a tree stopped by its leaf budget runs
+    # none, since the host counts the nodes each round leaves. The root
+    # runs with the first head.
+    def first():
+        root()
+        if L > 1:
+            round_head()
+
+    def run(name, body):
+        if graphed:
+            rounds.run(key, name, body)
+        else:
+            body()
+
+    run("first", first)
+    for r in range(L - 1):
+        if r:
+            was_live, nodes, split = host_read(_Later.tolist, pending)
+            if not was_live or nodes + 2 * split >= M:
+                break
+            run("head", round_head)
+        pending = _Later(s.head)
+        run("body", round_body)
+
+    tree = _finish_tree(cfg, M, s.feat, s.thr, s.left, s.right, s.is_leaf,
+                        s.ng, s.nh, s.nc, s.gain, s.tbits, s.num_nodes,
+                        s.row_node, grad, hess, st)
+    return tree, s.row_node.clone()
 
 
 def grow_tree_depthwise(binned_t: torch.Tensor, grad: torch.Tensor,

@@ -4,8 +4,11 @@ Counterpart of ``mmlspark_tpu/models/gbdt/objectives.py``, every objective:
 ``binary`` (with ``pos_weight``, isUnbalance), the regression family (l2,
 l1, huber, fair, quantile, poisson, tweedie, mape), ``multiclass`` (softmax
 over ``num_class`` score columns) and ``lambdarank`` (pairwise lambdas over
-query groups padded to a fixed width). All are torch ops on the tensors'
-own device; :func:`auc_weighted` is host numpy, as in the JAX package.
+query groups of any length, :class:`QueryGroups`; or padded to a fixed
+width, the JAX package's layout, which the ranker keeps over a data group
+of several ranks). All are torch ops on the tensors' own device but the
+ragged lambdas on the card, one launch of ``csrc/lambdarank.cu`` a round;
+:func:`auc_weighted` is host numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ...observability import spans as _spans
+from ...ops.lambdarank import lambdarank_cuda
 
 
 class Objective(NamedTuple):
@@ -195,48 +201,173 @@ def _max_dcg(gains, mask, max_position: int):
     return (g_sorted * d[None, :]).sum(dim=1)
 
 
+def _dense_lambdas(s, yy, mask, max_position: int, sigma: float,
+                   label_gain):
+    """LambdaRank's pairwise gradients and (unclamped) hessians of groups
+    laid out as rows of ``[G, S]`` (``mask``: the items that take part):
+    every pair ``y_i > y_j`` of a group, ranks by descending score,
+    ``|dgain| |ddiscount| / maxDCG@max_position`` times the sigmoid terms."""
+    gains = _label_gains(yy, label_gain) * mask
+    ranks = _ranks(s, mask)
+    disc = 1.0 / torch.log2(ranks.to(torch.float32) + 2.0) * mask
+    maxdcg = torch.clamp(_max_dcg(gains, mask, max_position), min=1e-12)
+
+    sdiff = s[:, :, None] - s[:, None, :]
+    pair = (mask[:, :, None] & mask[:, None, :]
+            & (yy[:, :, None] > yy[:, None, :]))
+    delta = (torch.abs(gains[:, :, None] - gains[:, None, :])
+             * torch.abs(disc[:, :, None] - disc[:, None, :])
+             / maxdcg[:, None, None])
+    sig = torch.sigmoid(-sigma * sdiff)
+    zero = torch.zeros((), device=s.device)
+    lam = torch.where(pair, -sigma * sig * delta, zero)
+    hpair = torch.where(pair, sigma * sigma * sig * (1.0 - sig) * delta,
+                        zero)
+    return lam.sum(dim=2) - lam.sum(dim=1), hpair.sum(dim=2) + hpair.sum(dim=1)
+
+
 def _lambdarank(group_size: int, max_position: int = 20, sigma: float = 1.0,
                 label_gain=None):
     """LambdaRank pairwise gradients over fixed-size padded query groups.
 
     Every group is padded to a static ``group_size`` S, so the all-pairs
     lambdas are one dense ``[G, S, S]`` batch (the JAX package's layout).
-    Row weight doubles as the validity mask (0 = in-group padding)."""
+    Row weight doubles as the validity mask (0 = in-group padding). The
+    ranker takes this layout only over a data group of several ranks;
+    one process fits ragged groups (:func:`_lambdarank_ragged`)."""
     S = int(group_size)
 
     def grad_hess(score, y, w):
-        s = score.reshape(-1, S)
-        yy = y.reshape(-1, S)
-        mask = w.reshape(-1, S) > 0
-        gains = _label_gains(yy, label_gain) * mask
-        ranks = _ranks(s, mask)
-        disc = 1.0 / torch.log2(ranks.to(torch.float32) + 2.0) * mask
-        maxdcg = torch.clamp(_max_dcg(gains, mask, max_position), min=1e-12)
-
-        sdiff = s[:, :, None] - s[:, None, :]
-        pair = (mask[:, :, None] & mask[:, None, :]
-                & (yy[:, :, None] > yy[:, None, :]))
-        delta = (torch.abs(gains[:, :, None] - gains[:, None, :])
-                 * torch.abs(disc[:, :, None] - disc[:, None, :])
-                 / maxdcg[:, None, None])
-        sig = torch.sigmoid(-sigma * sdiff)
-        zero = torch.zeros((), device=s.device)
-        lam = torch.where(pair, -sigma * sig * delta, zero)
-        hpair = torch.where(pair, sigma * sigma * sig * (1.0 - sig) * delta,
-                            zero)
-        grad = lam.sum(dim=2) - lam.sum(dim=1)
-        hess = hpair.sum(dim=2) + hpair.sum(dim=1)
+        grad, hess = _dense_lambdas(score.reshape(-1, S), y.reshape(-1, S),
+                                    w.reshape(-1, S) > 0, max_position,
+                                    sigma, label_gain)
         return grad.reshape(-1), torch.clamp(hess, min=1e-9).reshape(-1)
 
     return Objective("lambdarank", grad_hess, _identity, 1, _zero_init)
 
 
-def _ndcg_metric(scores, y, w, S: int, max_position: int, label_gain=None):
-    """Per-row NDCG@max_position of each row's group (weighted mean by the
-    caller: w = 1/group_size on valid rows gives the mean over groups)."""
-    s = scores.reshape(-1, S)
-    yy = y.reshape(-1, S)
-    mask = w.reshape(-1, S) > 0
+class QueryGroups:
+    """The query boundaries of rows sorted by query (LightGBM's query
+    metadata): query ``q`` holds rows ``[offsets[q], offsets[q + 1])``,
+    from row 0 to row ``n``, any length. ``pairs`` counts the pairs
+    ``(i, j)`` of one query with ``y_i > y_j`` among its rows of weight
+    above 0: the pairs LambdaRank evaluates a round. Device copies of the
+    offsets and the plain version's buckets are made once per device."""
+
+    def __init__(self, offsets, y, w=None):
+        off = np.asarray(offsets, np.int64).reshape(-1)
+        y = np.asarray(y, np.float32).reshape(-1)
+        if (off.size < 1 or off[0] != 0 or off[-1] != y.size
+                or np.any(np.diff(off) < 0)):
+            raise ValueError(
+                f"query offsets must rise from 0 to the {y.size} rows, got "
+                f"{off.size} offsets from {off[:1]} to {off[-1:]}")
+        self.offsets = off
+        lengths = np.diff(off)
+        self.longest = int(lengths.max()) if lengths.size else 0
+        qid = np.repeat(np.arange(lengths.size), lengths)
+        keep = (np.ones(y.size, bool) if w is None
+                else np.asarray(w, np.float32).reshape(-1) > 0)
+        qid, yk = qid[keep], y[keep]
+        # pairs of a query with unequal grades: (m^2 - sum of c^2) / 2 over
+        # its m kept rows, c the rows of each grade
+        order = np.lexsort((yk, qid))
+        qs, ys = qid[order], yk[order]
+        new = np.r_[True, (qs[1:] != qs[:-1]) | (ys[1:] != ys[:-1])]
+        runs = np.diff(np.r_[np.flatnonzero(new), qs.size])
+        m = np.bincount(qid, minlength=lengths.size)
+        self.pairs = int((np.sum(m.astype(np.int64) ** 2)
+                          - np.sum(runs.astype(np.int64) ** 2)) // 2)
+        self._on: dict = {}
+
+    @property
+    def n(self) -> int:
+        return int(self.offsets[-1])
+
+    @property
+    def count(self) -> int:
+        return int(self.offsets.size - 1)
+
+    def offsets_on(self, device) -> torch.Tensor:
+        """The ``[G + 1]`` int64 offsets on ``device``."""
+        key = ("offsets", str(device))
+        if key not in self._on:
+            self._on[key] = torch.from_numpy(self.offsets).to(device)
+        return self._on[key]
+
+    def buckets_on(self, device) -> list:
+        """``[(queries, rows, mask)]``: the queries grouped by the power of
+        two at or above their length W, each group as its query indexes,
+        ``[Gb, W]`` row indexes (0 past a query's end) and the mask of its
+        real rows."""
+        key = ("buckets", str(device))
+        if key not in self._on:
+            lengths = np.diff(self.offsets)
+            width = np.where(lengths <= 1, 1, 1 << np.ceil(np.log2(
+                np.maximum(lengths, 1))).astype(np.int64))
+            out = []
+            for W in np.unique(width[lengths > 0]):
+                q = np.flatnonzero((width == W) & (lengths > 0))
+                cols = np.arange(W)
+                mask = cols[None, :] < lengths[q][:, None]
+                rows = np.where(mask, self.offsets[q][:, None] + cols, 0)
+                out.append((torch.from_numpy(q).to(device),
+                            torch.from_numpy(rows).to(device),
+                            torch.from_numpy(mask).to(device)))
+            self._on[key] = out
+        return self._on[key]
+
+
+def lambdarank_plain(score, y, w, groups: QueryGroups, max_position: int,
+                     sigma: float, label_gain=None):
+    """LambdaRank's ``(grad, hess)`` over ragged query groups in plain torch
+    ops (the CPU's route, and what the card's ``lambdarank`` kernel is
+    held to): each bucket of :meth:`QueryGroups.buckets_on` through the
+    padded layout's formula, rows of weight 0 taking no part."""
+    lambdarank_plain.calls += 1
+    grad = torch.zeros_like(score)
+    hess = torch.zeros_like(score)
+    for _, rows, real in groups.buckets_on(score.device):
+        g, h = _dense_lambdas(score[rows], y[rows], real & (w[rows] > 0),
+                              max_position, sigma, label_gain)
+        grad[rows[real]] = g[real]
+        hess[rows[real]] = h[real]
+    return grad, torch.clamp(hess, min=1e-9)
+
+
+lambdarank_plain.calls = 0
+
+
+def _lambdarank_ragged(groups: QueryGroups, max_position: int = 20,
+                       sigma: float = 1.0, label_gain=None):
+    """LambdaRank over query groups of any length, no padding: the padded
+    layout's formula (:func:`_dense_lambdas`) query by query. On a CUDA
+    tensor one launch of ``csrc/lambdarank.cu`` a round; on the CPU
+    :func:`lambdarank_plain`. Inside a ``gbdt.rank.lambdas`` device
+    span."""
+    tables: dict = {}
+
+    def grad_hess(score, y, w):
+        with _spans.span("gbdt.rank.lambdas", device=score.device,
+                         publish=False):
+            if not score.is_cuda:
+                return lambdarank_plain(score, y, w, groups, max_position,
+                                        sigma, label_gain)
+            dev = str(score.device)
+            if label_gain is not None and dev not in tables:
+                tables[dev] = torch.tensor(label_gain, dtype=torch.float32,
+                                           device=score.device)
+            return lambdarank_cuda(
+                score, y, w, groups.offsets_on(score.device),
+                longest=groups.longest, pairs=groups.pairs,
+                max_position=max_position, sigma=sigma,
+                gain_table=tables.get(dev))
+
+    return Objective("lambdarank", grad_hess, _identity, 1, _zero_init)
+
+
+def _ndcg_dense(s, yy, mask, max_position: int, label_gain=None):
+    """``[G]`` NDCG@max_position of groups laid out as rows of ``[G, S]``."""
     gains = _label_gains(yy, label_gain) * mask
     ranks = _ranks(s, mask)
     disc = torch.where(ranks < max_position,
@@ -244,15 +375,37 @@ def _ndcg_metric(scores, y, w, S: int, max_position: int, label_gain=None):
                        torch.zeros((), device=s.device))
     dcg = (gains * disc * mask).sum(dim=1)
     idcg = torch.clamp(_max_dcg(gains, mask, max_position), min=1e-12)
-    ndcg = dcg / idcg                                              # [G]
+    return dcg / idcg
+
+
+def _ndcg_metric(scores, y, w, S: int, max_position: int, label_gain=None):
+    """Per-row NDCG@max_position of each row's group (weighted mean by the
+    caller: w = 1/group_size on valid rows gives the mean over groups)."""
+    ndcg = _ndcg_dense(scores.reshape(-1, S), y.reshape(-1, S),
+                       w.reshape(-1, S) > 0, max_position, label_gain)
     return ndcg[:, None].expand(ndcg.shape[0], S).reshape(-1)
+
+
+def ndcg_ragged(scores, y, w, groups: QueryGroups, max_position: int,
+                label_gain=None) -> torch.Tensor:
+    """``[G']`` NDCG@max_position of every query with a row of weight above
+    0, in query order, query groups of any length."""
+    out = torch.zeros(groups.count, dtype=torch.float32, device=scores.device)
+    has = torch.zeros(groups.count, dtype=torch.bool, device=scores.device)
+    for q, rows, real in groups.buckets_on(scores.device):
+        m = real & (w[rows] > 0)
+        out[q] = _ndcg_dense(scores[rows], y[rows], m, max_position,
+                             label_gain)
+        has[q] = m.any(dim=1)
+    return out[has]
 
 
 def get_objective(name: str, num_class: int = 1, alpha: float = 0.9,
                   tweedie_variance_power: float = 1.5,
                   pos_weight: float = 1.0, group_size: int = 0,
                   max_position: int = 20, sigma: float = 1.0,
-                  label_gain=None, **_metric_only) -> Objective:
+                  label_gain=None, queries: "QueryGroups" = None,
+                  **_metric_only) -> Objective:
     name = (name or "").lower()
     if name in ("binary", "logistic"):
         return _binary(pos_weight)
@@ -276,14 +429,17 @@ def get_objective(name: str, num_class: int = 1, alpha: float = 0.9,
     if name == "mape":
         return _mape()
     if name == "lambdarank":
+        if queries is not None:
+            return _lambdarank_ragged(queries, max_position, sigma,
+                                      label_gain)
         if group_size <= 0:
             # scoring-only: a loaded ranker predicts raw scores without the
             # training-time group layout; only training with it errors
             def _no_train(*_a, **_k):
                 raise ValueError(
-                    "lambdarank training requires group_size (padded "
-                    "group width); this objective instance is "
-                    "scoring-only")
+                    "lambdarank training requires query groups (or "
+                    "group_size, the padded group width); this objective "
+                    "instance is scoring-only")
             return Objective("lambdarank", _no_train, _identity, 1,
                              _zero_init)
         return _lambdarank(group_size, max_position, sigma, label_gain)
@@ -325,19 +481,23 @@ def metric_family(objective: str) -> str:
 def eval_metric(objective: Objective, scores, y, w,
                 group_size: int = 0, max_position: int = 20,
                 eval_at: int = 0, metric: str = None,
-                label_gain=None, **_unused) -> Tuple[str, torch.Tensor]:
+                label_gain=None, queries: QueryGroups = None,
+                **_unused) -> Tuple[str, torch.Tensor]:
     """The objective's eval metric as a weighted mean (the caller knows
     whether higher is better).
 
     ``metric`` overrides the default with another supported metric of the
     same family (validated by the caller against SUPPORTED_EVAL_METRICS).
     ``eval_at`` truncates NDCG independently of the lambdarank training
-    truncation ``max_position``."""
+    truncation ``max_position``. LambdaRank's NDCG is the mean over the
+    query groups, ragged (``queries``, the rows' :class:`QueryGroups`) or
+    padded to ``group_size``."""
     name = objective.name
-    if name == "lambdarank" and int(group_size) <= 0:
+    if name == "lambdarank" and queries is None and int(group_size) <= 0:
         raise ValueError(
-            "lambdarank training/evaluation requires group_size (padded "
-            "group width); a model loaded for scoring cannot train")
+            "lambdarank training/evaluation requires query groups or "
+            "group_size (padded group width); a model loaded for scoring "
+            "cannot train")
     if metric:
         if name == "binary" and metric == "binary_error":
             miss = ((scores > 0.0) != (y > 0.5)).to(torch.float32)
@@ -358,6 +518,12 @@ def eval_metric(objective: Objective, scores, y, w,
                 return "l2", torch.sum((pred - y) ** 2 * w) / torch.sum(w)
         # the remaining supported values are the family defaults (auc is
         # computed on the host and never reaches this function)
+    if name == "lambdarank" and queries is not None:
+        if scores.shape[0] != queries.n:
+            return "ndcg", torch.zeros(())             # shape probe only
+        vals = ndcg_ragged(scores, y, w, queries, eval_at or max_position,
+                           label_gain)
+        return "ndcg", vals.sum() / max(vals.shape[0], 1)
     if name == "lambdarank":
         S = int(group_size)
         if scores.shape[0] < S or scores.shape[0] % S != 0:

@@ -325,12 +325,13 @@ def test_ranker_splits_categorical_slots():
     """The port's ranker forwards the JAX ranker's training arguments,
     which leave ``categoricalSlotIndexes`` out (a reference defect kept on
     purpose, ROADMAP Queue 3): both rankers split the category ids as
-    numbers and grow the same trees."""
+    numbers and grow the same trees. Every query holds 16 rows, a power of
+    two, so the JAX ranker pads none and both fit the same rows."""
     X, _ = _cat_data(960, seed=12)
     rel = np.isin(X[:, 0], [1, 4, 7, 10]).astype(np.float32) * 2 + (
         X[:, 1] > 0.5)
     cols = {"features": X, "label": rel.astype(np.float32),
-            "query": np.repeat(np.arange(80), 12)}
+            "query": np.repeat(np.arange(60), 16)}
     kw = dict(groupCol="query", numIterations=2, numLeaves=7,
               minDataInLeaf=20, maxBin=63, categoricalSlotIndexes=[0])
     b = LightGBMRanker(device="cpu", **kw).fit(TDataset(cols)).booster

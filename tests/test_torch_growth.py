@@ -195,3 +195,21 @@ def test_predict_tree_binned_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
     # the rows' grown leaves are where prediction lands them
     np.testing.assert_array_equal(got, tt.leaf_value.numpy()[trow])
+
+
+def test_leafwise_rounds_on_the_cpu_grow_the_plain_tree():
+    """The fit's LeafwiseRounds is ignored off the card: the tree and the
+    rows' leaves are those of a call without it."""
+    binned, grad, hess, valid = _problem(11, 12000)
+    args = (torch.from_numpy(binned), torch.from_numpy(grad),
+            torch.from_numpy(hess), torch.from_numpy(valid),
+            torch.ones(binned.shape[0], dtype=torch.bool),
+            TG.resolve_growth_backend(TG.GrowConfig(num_bins=63,
+                                                    quantized_grad=True)))
+    plain, rows = TG.grow_tree(*args, qkey=(3, 4))
+    held, rows2 = TG.grow_tree(*args, qkey=(3, 4),
+                               rounds=TG.LeafwiseRounds())
+    for a, b in zip(plain, held):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(rows, rows2, rtol=0, atol=0)
+

@@ -116,9 +116,9 @@ def test_quantized_trees_round_under_one_key_per_class(monkeypatch):
     seen = []
     real = TG.grow_tree
 
-    def spy(*a, qkey=None):
+    def spy(*a, qkey=None, **kw):
         seen.append((a[5].quantized_grad, qkey, a[1].is_contiguous()))
-        return real(*a, qkey=qkey)
+        return real(*a, qkey=qkey, **kw)
 
     monkeypatch.setattr(TB, "grow_tree", spy)
     ttrain(X, y, objective="multiclass", num_class=K, num_iterations=2,

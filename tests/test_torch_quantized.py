@@ -294,9 +294,9 @@ def test_train_booster_warmup_then_quantized_trees(monkeypatch):
     seen = []
     real = TG.grow_tree
 
-    def spy(*a, qkey=None):
+    def spy(*a, qkey=None, **kw):
         seen.append((a[5].quantized_grad, qkey))
-        return real(*a, qkey=qkey)
+        return real(*a, qkey=qkey, **kw)
 
     from mmlspark_tpu_torch.models.gbdt import booster as TB
     monkeypatch.setattr(TB, "grow_tree", spy)

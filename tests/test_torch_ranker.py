@@ -2,15 +2,19 @@
 the JAX package.
 
 Seeded query groups (sizes 6-40, relevance 0-4 drawn from a noisy function
-of the features) go through both packages on the CPU. Groups are padded to
-a fixed width with ``_pad_groups``; the padding rows are masked out of
-training through ``row_valid`` and carry validation weight 0. The JAX
-side runs on a one-device mesh (its estimator would otherwise pad the group
-count to the 8 virtual CPU devices of the test run). Trees must be
-identical and margins agree within 1e-5, with and without a validation set
-and early stopping on NDCG. Also covered: ``.npz`` persistence of a ranker
-(its ``label_gain`` tuple through the JSON meta, both directions) and
-``booster_from_jax_arrays``.
+of the features) go through both packages on the CPU. ``train_booster``
+takes the JAX package's layout on both sides: groups padded to a fixed
+width with ``_pad_groups``, the padding rows masked out of training through
+``row_valid`` and carrying validation weight 0. The port's ranker fits the
+groups ragged, every row kept, against the JAX ranker's padded fit: its
+features lie on a grid of quarters, 0 among them, so the binner's bounds
+(which in the JAX package also see the zero padding rows) are the same.
+The JAX side runs on a one-device mesh (its estimator would otherwise pad
+the group count to the 8 virtual CPU devices of the test run). Trees must
+be identical and margins agree within 1e-5, with and without a validation
+set and early stopping on NDCG. Also covered: ``.npz`` persistence of a
+ranker (its ``label_gain`` tuple through the JSON meta, both directions)
+and ``booster_from_jax_arrays``.
 """
 
 import numpy as np
@@ -132,8 +136,10 @@ def test_train_booster_lambdarank_matches_jax(queries, validation):
 
 
 def _estimator_cols(queries):
+    """The estimators' columns: features on a grid of quarters (at most 62
+    distinct values, 0 among them, so padding adds no bin bound)."""
     (X, y, g), (Xv, yv, gv) = queries
-    return {"features": np.concatenate([X, Xv]),
+    return {"features": np.round(np.concatenate([X, Xv]) * 4) / 4,
             "label": np.concatenate([y, yv]),
             "query": np.concatenate([g, gv + 1]),
             "isVal": np.r_[np.zeros(len(y), bool), np.ones(len(yv), bool)]}
@@ -157,7 +163,9 @@ def test_ranker_fit_transform_matches_jax(ranker_pair):
     tb, jb = model.booster, jmodel.booster
     _assert_same_trees(jb, tb)
     assert tb.best_iteration == jb.best_iteration >= 0
-    assert tb.objective_kwargs == jb.objective_kwargs
+    # the ragged fit has no padded width
+    assert tb.objective_kwargs == {k: v for k, v in jb.objective_kwargs.items()
+                                   if k != "group_size"}
     assert tb.objective_kwargs["label_gain"] == GAIN
     for key, want in jb.eval_history.items():
         np.testing.assert_allclose(tb.eval_history[key], want, rtol=1e-6,

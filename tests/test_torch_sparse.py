@@ -43,8 +43,8 @@ def _sparse_rows(n, seed, F=6):
 
 def _columns(kind, seed):
     """Dense feature rows and the other columns of one estimator's data;
-    the ranker's rows form 80 query groups of 12, the last 10 marked
-    validation."""
+    the ranker's rows form 60 query groups of 16 (a power of two: the JAX
+    ranker pads none), the last 8 marked validation."""
     X = _sparse_rows(1200 if kind != "ranker" else 960, seed)
     score = X[:, 0] - 0.7 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3]
     cols = {}
@@ -54,10 +54,10 @@ def _columns(kind, seed):
         cols["label"] = (score + 0.05 * X[:, 4]).astype(np.float32)
     else:
         rng = np.random.default_rng(seed + 1)
-        cols["query"] = np.repeat(np.arange(80), 12)
+        cols["query"] = np.repeat(np.arange(60), 16)
         cols["label"] = np.digitize(score + 0.3 * rng.normal(size=len(X)),
                                     [-0.5, 0.3, 1.0]).astype(np.float32)
-        cols["isVal"] = cols["query"] >= 70
+        cols["isVal"] = cols["query"] >= 52
     return X, cols
 
 

@@ -324,6 +324,25 @@ def test_binned_cache_hits_and_misses(data, monkeypatch):
     assert not TA._BINNED_CACHE
 
 
+@pytest.mark.parametrize("chunk", [1 << 26, 4096], ids=["one-piece",
+                                                        "threaded-chunks"])
+def test_binned_cache_content_key_sees_every_byte(data, monkeypatch, chunk):
+    """The cache key's content hash (crc32 of each chunk, chunks hashed on
+    threads) is equal for equal rows and moves with one changed byte
+    anywhere, with the split between the arrays, and with None."""
+    monkeypatch.setattr(TA, "_KEY_CHUNK", chunk)
+    X, y = data
+    key = TA._content_key(X, y, None)
+    assert key == TA._content_key(X.copy(), y.copy(), None)
+    for i in (0, X.size // 2, X.size - 1):
+        Z = X.copy().reshape(-1)
+        Z[i] = np.nextafter(Z[i], np.float32(np.inf))
+        assert TA._content_key(Z.reshape(X.shape), y, None) != key
+    assert TA._content_key(X, y, np.ones_like(y)) != key
+    assert TA._content_key(X, None, y) != TA._content_key(X, y, None)
+    assert TA._content_key(X[:, :2], X[:, 2:]) != TA._content_key(X)
+
+
 def test_estimator_fits_share_one_binned_dataset(data, monkeypatch,
                                                  tmp_path):
     X, y = data

@@ -17,6 +17,7 @@
     python tools/rehearse_chip_smoke.py p20 [--higgs-rows 40000
         --vw-rows 50000]
     python tools/rehearse_chip_smoke.py p21 [--higgs-rows 40000]
+    python tools/rehearse_chip_smoke.py p7 p22
 
 Runs the named phases of a copy of ``chip_smoke.py`` with every ``cuda``
 device replaced by ``cpu`` (and the profiler's device activity by its
@@ -78,7 +79,11 @@ holds wait for the card, since their plain versions count nothing), ``p21``
 holds at their full 1,000,000 and ``[3, 1,000,000]`` shapes, 21c's cases
 with ``--higgs-rows`` standing for its 10,500,000 rows and twice that for
 its 20,000,000, the eager chain standing in for the fused route, then the
-sampled, quantized and blocked fits and their twins). The
+sampled, quantized and blocked fits and their twins), ``p7`` (the ranker
+on ``MSLR_QUERIES`` a tenth of the card's), ``p22`` (the LambdaRank kernel's
+cases at Yahoo LTR's full 473,134 rows, its long query cut to 1,500 rows,
+still past the kernel's shared-memory rows; the plain version stands in
+for the kernel and is compared with itself). The
 plain versions are counted
 as the kernel each stands in for, so a phase's launch checks hold here
 as on the card.
@@ -192,13 +197,27 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
         m.stats_amax_cuda, m.quantize_stats_cuda = amax_plain, quantize_plain
     amax_plain.launches = 0
 
+    # the ragged LambdaRank objective's plain route counted as the kernel's
+    # launch
+    objectives, rank_ops = mod.objectives_mod, mod.rank_ops
+    ragged = objectives._lambdarank_ragged
+
+    def counted_ragged(*a, **k):
+        obj = ragged(*a, **k)
+
+        def grad_hess(*x):
+            rank_ops.lambdarank_cuda.launches += 1
+            return obj.grad_hess(*x)
+        return obj._replace(grad_hess=grad_hess)
+    objectives._lambdarank_ragged = counted_ragged
+
     def read_counts():
         # on the CPU the plain versions stand in for every kernel
         return dict(node_hist_bf16=counted.launches,
                     node_hist_int8=counted.int8_launches, hist_bf16=0,
                     node_hist_det=counted.det_launches,
                     quant_stats=quantized[0], stats_amax=quantized[0],
-                    plain=0)
+                    lambdarank=rank_ops.lambdarank_cuda.launches, plain=0)
 
     def reset_counts():
         reset()
@@ -209,6 +228,9 @@ def load_on_cpu(rows: int, higgs_rows: int) -> types.ModuleType:
     mod.COVERTYPE_ROWS, mod.COVERTYPE_HOLDOUT = rows, rows // 4
     mod.HIGGS_ROWS, mod.HIGGS_HOLDOUT = higgs_rows, higgs_rows // 5
     mod.P21C_ROWS, mod.P21C_Q_MAX_ROWS = higgs_rows, 2 * higgs_rows
+    mod.MSLR_QUERIES //= 10
+    mod.MSLR_HOLDOUT_QUERIES //= 10
+    mod.P22_LONG = 1500
     return mod
 
 
@@ -357,7 +379,8 @@ def main() -> int:
     ap.add_argument("phases", nargs="+",
                     choices=["p6", "p8", "p8b", "p9", "p10", "p10b",
                              "p11", "p12", "p13", "p14", "p15", "p16",
-                             "p17", "p18", "p19", "p20", "p21"])
+                             "p17", "p18", "p19", "p20", "p21", "p7",
+                             "p22"])
     ap.add_argument("--rows", type=int, default=40_000)
     ap.add_argument("--higgs-rows", type=int, default=200_000)
     ap.add_argument("--vw-rows", type=int, default=200_000)
@@ -390,7 +413,9 @@ def main() -> int:
            "p19": lambda: phase_transformer(mod, args.tf_width,
                                             args.tf_seq),
            "p20": lambda: phase_group_resume(mod, args.vw_rows),
-           "p21": lambda: mod.phase_prng("CPU rehearsal, no card")}
+           "p21": lambda: mod.phase_prng("CPU rehearsal, no card"),
+           "p7": mod.phase_ranker,
+           "p22": lambda: mod.phase_lambdarank("CPU rehearsal, no card")}
     t0 = time.perf_counter()
     for name in args.phases:
         out = run[name]()
